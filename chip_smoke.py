@@ -5,15 +5,20 @@ Drives the port's main path, the flagship 256² disk-ellipse DDS
 reconstruction, through its factory entry points on one CUDA device:
 
 1. device: CUDA must be present; prints the card's name and power limit;
-2. build: compiles `csrc/*.cu` with nvcc for sm_90a (ops/_build.py);
+2. build: compiles `csrc/*.cu` with nvcc for sm_90a (ops/_build.py) and
+   requires HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS;
 3. kernels: runs each kernel's wrapper at every shape the UNet forward
    gives it (recorded with forward hooks), checks it against its plain
    PyTorch version, and times kernel, plain version and library yardstick;
+   conv3x3's `tc` variant also against the CUDA-core `simt` kernel at the same
+   shapes, for bitwise equal output over two launches, and at added shapes
+   (batch 2, H != W, the largest split of K, 64 and 192 channels);
 4. UNet: one full-width forward of the shipped VESDE prior at 256², batch 1,
    with the kernels against `use_kernel=False`;
 5. DDS: reconstructs the first images of the shipped val set (60 angles,
    noise 0.01, gamma 0.01, eta 0.85, 5 CG iterations) and requires each to
-   beat its FBP in PSNR, with the kernel launch counts of the run checked;
+   beat its FBP in PSNR, with the kernel launch counts of the run checked
+   (per forward 62 conv3x3, of which 60 tc, 1 narrow, 1 simt, and 4 attention);
 6. prints one `{"kernels": [...]}` line, then, last, the device line
    `{"ok": true, "device": {...}}`.
 
@@ -53,8 +58,31 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` back-to-back calls (CUDA events),
-    after one warm-up call."""
+    """Mean device time of `fn` over `reps` calls captured in one CUDA graph
+    and replayed, timed with CUDA events after one warm-up replay: the
+    device's time without the host's Python and launch overhead, which at
+    small shapes exceeds the kernels' own (inputs hot in L2)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean time of `fn` over `reps` eager back-to-back calls (CUDA events),
+    after one warm-up call: what a caller waits, host overhead included."""
     import torch
 
     fn()
@@ -66,6 +94,20 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Host microseconds per call of `fn` (launches enqueued, not waited for)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -104,8 +146,45 @@ def record_shapes(model):
     return seen, handles
 
 
+def conv_inputs(xshape, cout, dt, gen):
+    import torch
+
+    cin = xshape[-1]
+    tdt = getattr(torch, dt)
+    x = torch.randn(xshape, generator=gen, device="cuda").to(tdt)
+    wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda") / math.sqrt(9 * cin)).to(tdt)
+    bias = torch.randn((cout,), generator=gen, device="cuda") * 0.1
+    return x, wt, bias
+
+
+def check_conv_once(xshape, cout, dt, gen, splits=None):
+    """One kernel call against the plain version; for tc also a second call,
+    which must give the same bits.  Returns (inputs, plan, max|diff|, rel)."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    b, h, w, cin = xshape
+    x, wt, bias = conv_inputs(xshape, cout, dt, gen)
+    p = C.plan(b, h, w, cin, cout, x.dtype, splits=splits)
+    out = C.conv3x3(x, wt, bias, splits=splits)
+    ref = C.conv3x3(x, wt, bias, use_kernel=False)
+    torch.cuda.synchronize()
+    d, r = rel_err(out, ref)
+    if not (torch.isfinite(out).all() and r <= TOL[dt]):
+        raise AssertionError(f"conv3x3 {p.variant} {xshape}->{cout} {dt}: rel err {r:.3e} > {TOL[dt]}")
+    if p.variant == "tc":
+        again = C.conv3x3(x, wt, bias, splits=splits)
+        if not torch.equal(out, again):
+            raise AssertionError(f"conv3x3 tc {xshape}->{cout}: two launches differ")
+    return (x, wt, bias), p, d, r
+
+
 def check_conv(shapes, gen):
-    """Kernel vs plain at every distinct conv shape; per-forward totals."""
+    """Kernel vs plain at every distinct conv shape in both I/O types, timed
+    in the path's type beside the plain version, cuDNN and the bound; at the
+    shapes `tc` takes, also the CUDA-core `simt` kernel in the same run.  Added
+    shapes are checked, not timed.  Returns per-forward totals."""
     import torch
     import torch.nn.functional as F
 
@@ -114,52 +193,98 @@ def check_conv(shapes, gen):
     counts = {}
     for s in shapes:
         counts[s] = counts.get(s, 0) + 1
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms", "simt_ms", "gflop")
+    tot = dict.fromkeys(keys, 0.0)
+    by_variant, by_map = {}, {}
     worst = {"bfloat16": 0.0, "float32": 0.0}
-    max_abs, gflop = 0.0, 0.0
-    log(f"{'shape (B,H,W,Cin->Cout)':>28} {'dtype':>8} {'n':>3} {'kernel_ms':>10} {'plain_ms':>9} "
-        f"{'library_ms':>10} {'bound_ms':>9} {'bound_by':>10} {'rel_err':>9}")
+    max_abs = 0.0
+    log(f"{'shape (B,H,W,Cin->Cout)':>28} {'dtype':>8} {'n':>3} {'variant':>7} {'splits':>6} "
+        f"{'kernel_ms':>10} {'simt_ms':>9} {'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} "
+        f"{'bound_by':>10} {'rel_err':>9}")
     for (xshape, cout, dtype), n in sorted(counts.items(), key=lambda kv: (-kv[0][0][1], kv[0][0][3])):
         b, h, w, cin = xshape
         for dt in ("bfloat16", "float32"):     # correctness in both I/O types
-            tdt = getattr(torch, dt)
-            x = torch.randn(xshape, generator=gen, device="cuda").to(tdt)
-            wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
-                  / math.sqrt(9 * cin)).to(tdt)
-            bias = torch.randn((cout,), generator=gen, device="cuda") * 0.1
-            out = C.conv3x3(x, wt, bias)
-            ref = C.conv3x3(x, wt, bias, use_kernel=False)
-            torch.cuda.synchronize()
-            d, r = rel_err(out, ref)
+            (x, wt, bias), p, d, r = check_conv_once(xshape, cout, dt, gen)
             worst[dt] = max(worst[dt], r)
-            if dt == dtype:
-                max_abs = max(max_abs, d)
-            if not (torch.isfinite(out).all() and r <= TOL[dt]):
-                raise AssertionError(f"conv3x3 {xshape}->{cout} {dt}: rel err {r:.3e} > {TOL[dt]}")
             if dt != dtype:
                 continue
+            max_abs = max(max_abs, d)
             xl = x.permute(0, 3, 1, 2)                          # channels-last NCHW view
             wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            bl = bias.to(tdt)
+            bl = bias.to(x.dtype)
             reps = 20 if h >= 128 else 50
             k_ms = time_ms(lambda: C.conv3x3(x, wt, bias), reps)
+            s_ms = 0.0
+            if p.variant == "tc":
+                s_ms = time_ms(lambda: C.conv3x3(x, wt, bias, variant="simt"), max(reps // 4, 5))
             p_ms = time_ms(lambda: C.conv3x3(x, wt, bias, use_kernel=False), max(reps // 4, 5))
             l_ms = time_ms(lambda: F.conv2d(xl, wl, bl, padding=1), reps)
             flops = 2.0 * b * h * w * cin * cout * 9
             nbytes = x.numel() * x.element_size() * (1 + cout / cin) + wt.numel() * wt.element_size() + 4 * cout
             b_ms, b_by, ops_ms, bytes_ms = bound(flops, nbytes, dt)
-            log(f"{str((b, h, w, cin)) + '->' + str(cout):>28} {dt:>8} {n:>3} {k_ms:>10.4f} {p_ms:>9.4f} "
-                f"{l_ms:>10.4f} {b_ms:>9.5f} {b_by:>10} {r:>9.2e}")
-            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms), ("bound_ms", b_ms),
-                           ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
-                tot[key] += n * v
-            gflop += n * flops / 1e9
+            log(f"{str((b, h, w, cin)) + '->' + str(cout):>28} {dt:>8} {n:>3} {p.variant:>7} {p.splits:>6} "
+                f"{k_ms:>10.4f} {s_ms:>9.4f} {p_ms:>9.4f} {l_ms:>10.4f} {b_ms:>9.5f} {b_by:>10} {r:>9.2e}")
+            row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, ops_ms=ops_ms,
+                       bytes_ms=bytes_ms, simt_ms=s_ms, gflop=flops / 1e9)
+            for agg in (tot, by_variant.setdefault(p.variant, dict.fromkeys(keys, 0.0)),
+                        by_map.setdefault(h, dict.fromkeys(keys, 0.0))):
+                for key in keys:
+                    agg[key] += n * row[key]
+                agg["calls"] = agg.get("calls", 0) + n
+    # checked only: batch 2, H != W with ragged tiles, the largest split,
+    # Cin = Cout = 64 (half of a 128-channel tile), Cout = 192
+    extra = [((2, 32, 32, 256), 256, None), ((1, 16, 48, 128), 128, None),
+             ((1, 8, 8, 1024), 512, 144), ((1, 32, 32, 64), 64, None),
+             ((1, 12, 20, 128), 192, None)]
+    for xshape, cout, splits in extra:
+        _, p, _, r = check_conv_once(xshape, cout, "bfloat16", gen, splits=splits)
+        worst["bfloat16"] = max(worst["bfloat16"], r)
+        log(f"{str(xshape) + '->' + str(cout):>28} {'bfloat16':>8} {'-':>3} {p.variant:>7} {p.splits:>6} "
+            f"{'':>10} {'':>9} {'':>9} {'':>10} {'':>9} {'':>10} {r:>9.2e}")
+    x, wt, bias = conv_inputs((1, 8, 8, 512), 512, "bfloat16", gen)
+    xl, wl = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    host = {name: host_us(fn, 200) for name, fn in (
+        ("tc", lambda: C.conv3x3(x, wt, bias)),
+        ("cuDNN", lambda: F.conv2d(xl, wl, bias.to(x.dtype), padding=1)))}
+    log(f"host time per call at (1, 8, 8, 512)->512, enqueue only: conv3x3 (tc) {host['tc']:.1f} us, "
+        f"F.conv2d {host['cuDNN']:.1f} us")
     log(f"conv3x3 max rel err: bf16 {worst['bfloat16']:.3e} (tol {TOL['bfloat16']}), "
-        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']})")
+        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']}); tc bitwise equal over two launches")
+    log(f"{'per UNet forward':>28} {'calls':>5} {'kernel_ms':>10} {'TFLOP/s':>8} {'of bound':>8} "
+        f"{'simt_ms':>9} {'cuDNN_ms':>9} {'bound_ms':>9}")
+    for name, agg in ([(f"map {h}x{h}", by_map[h]) for h in sorted(by_map, reverse=True)]
+                      + [(f"variant {v}", by_variant[v]) for v in C.VARIANTS if v in by_variant]
+                      + [("all", tot)]):
+        log(f"{name:>28} {agg.get('calls', 0):>5} {agg['ms']:>10.4f} {agg['gflop'] / agg['ms']:>8.1f} "
+            f"{agg['bound_ms'] / agg['ms']:>8.2%} {agg['simt_ms']:>9.4f} {agg['library_ms']:>9.4f} "
+            f"{agg['bound_ms']:>9.5f}")
+    tc = by_variant.get("tc", dict.fromkeys(keys, 0.0))
     log(f"conv3x3 per UNet forward ({len(shapes)} calls): kernel {tot['ms']:.3f} ms, plain "
         f"{tot['plain_ms']:.3f} ms, cuDNN {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms, "
-        f"{gflop:.1f} GFLOP -> {gflop / tot['ms']:.1f} TFLOP/s")
-    return tot, max_abs
+        f"{tot['gflop']:.1f} GFLOP -> {tot['gflop'] / tot['ms']:.1f} TFLOP/s; at the {tc.get('calls', 0)} "
+        f"tc shapes: tc {tc['ms']:.3f} ms against simt {tc['simt_ms']:.3f} ms")
+    if not tc["ms"] * 5 <= tc["simt_ms"]:
+        raise AssertionError("conv3x3: tc takes more than 1/5 of the simt design's time per forward")
+    return tot, max_abs, by_variant
+
+
+def sass_counts(lib_path):
+    """HGMMA and UTMALDG instructions in the built library's SASS."""
+    import shutil
+
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),
+             shutil.which("cuobjdump")]
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((c for c in cands if c and os.path.exists(c)), None)
+    if tool is None:
+        raise RuntimeError("cuobjdump not found under CUDA_HOME, on PATH or in triton's package")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], check=True, capture_output=True,
+                          text=True, timeout=120).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
 
 
 def check_attention(shapes, gen):
@@ -247,10 +372,15 @@ def main() -> None:
     # ---- 2. build
     t0 = time.perf_counter()
     _build.library()
+    nvcc_s = _build.build_seconds
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
-    log(f"[phase 2 build] nvcc {_build.build_seconds:.1f} s, total {time.perf_counter() - t0:.1f} s")
+    sass = sass_counts(_build.build())
+    log(f"  SASS of the library: {sass['HGMMA']} HGMMA, {sass['UTMALDG']} UTMALDG")
+    if not (sass["HGMMA"] and sass["UTMALDG"]):
+        raise AssertionError("the built library holds no HGMMA or no UTMALDG instruction")
+    log(f"[phase 2 build] nvcc {nvcc_s:.1f} s, total {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernels at the UNet's shapes
     t0 = time.perf_counter()
@@ -271,7 +401,7 @@ def main() -> None:
         model(x, t)
     for hnd in handles:
         hnd.remove()
-    conv_tot, conv_err = check_conv(seen["conv"], gen)
+    conv_tot, conv_err, conv_variants = check_conv(seen["conv"], gen)
     attn_tot, attn_err = check_attention(seen["attn"], gen)
     log(f"[phase 3 kernels] {time.perf_counter() - t0:.1f} s")
 
@@ -280,12 +410,14 @@ def main() -> None:
     with torch.no_grad():
         out = model(x, t)
         ref = model(x, t, use_kernel=False)
-        fwd_ms = time_ms(lambda: model(x, t), 10)
-        fwd_plain_ms = time_ms(lambda: model(x, t, use_kernel=False), 5)
+        fwd_ms = wall_ms(lambda: model(x, t), 10)
+        fwd_dev_ms = time_ms(lambda: model(x, t), 10)
+        fwd_plain_ms = wall_ms(lambda: model(x, t, use_kernel=False), 5)
     torch.cuda.synchronize()
     d, r = rel_err(out, ref)
     log(f"  UNet 256² forward: out {tuple(out.shape)}, max|kernel - plain| {d:.3e}, rel {r:.3e} "
-        f"(tol {TOL_UNET}); {fwd_ms:.2f} ms with kernels, {fwd_plain_ms:.2f} ms plain")
+        f"(tol {TOL_UNET}); {fwd_ms:.2f} ms with kernels ({fwd_dev_ms:.2f} ms of device time, "
+        f"replayed as a CUDA graph), {fwd_plain_ms:.2f} ms plain")
     if not (torch.isfinite(out).all() and out.shape == (1, 256, 256, 1) and r <= TOL_UNET):
         raise AssertionError("UNet forward with kernels disagrees with the plain path")
     log(f"[phase 4 unet] {time.perf_counter() - t0:.1f} s")
@@ -295,6 +427,7 @@ def main() -> None:
     trafo = F.get_standard_ray_trafo(config)
     images = np.load(VALSET)["images"][:args.images]            # (N, 256, 256, 1)
     C.launches = A.launches = 0
+    C.launches_by_variant = dict.fromkeys(C.VARIANTS, 0)
     step_s, results = [], []
     for i, img in enumerate(images):
         g = torch.Generator(device="cuda").manual_seed(config.seed + i)
@@ -317,8 +450,10 @@ def main() -> None:
             f"{step_s[-1] * 1e3:.2f} ms/step")
     n_fwd = args.steps * len(images)
     conv_launches, attn_launches = C.launches, A.launches
-    log(f"  launches in the DDS run: conv3x3 {conv_launches} ({conv_launches / n_fwd:g} per forward), "
-        f"attention {attn_launches} ({attn_launches / n_fwd:g} per forward)")
+    by_variant = dict(C.launches_by_variant)
+    log(f"  launches in the DDS run: conv3x3 {conv_launches} ({conv_launches / n_fwd:g} per forward: "
+        + ", ".join(f"{v} {k / n_fwd:g}" for v, k in by_variant.items())
+        + f"), attention {attn_launches} ({attn_launches / n_fwd:g} per forward)")
     ms_step = 1e3 * float(np.mean(step_s))
     log(f"  DDS {args.steps} steps x {len(images)} images: {ms_step:.2f} ms/step, "
         f"{1e3 / ms_step:.2f} steps/s, mean PSNR {np.mean([p for p, _ in results]):.2f} dB "
@@ -326,12 +461,18 @@ def main() -> None:
     # where a step's time goes outside the UNet: the CG solve (6 fused Gram applies)
     xhat0 = torch.randn((1, 256, 256, 1), generator=gen, device="cuda")
     dc_op = make_dc_op(sampler.ray_trafo, 0.01)
-    cg_ms = time_ms(lambda: cg(dc_op, xhat0, xhat0 + 0.01 * sampler.rhs, n_iter=5), 10)
+    cg_ms = wall_ms(lambda: cg(dc_op, xhat0, xhat0 + 0.01 * sampler.rhs, n_iter=5), 10)
+    cg_dev_ms = time_ms(lambda: cg(dc_op, xhat0, xhat0 + 0.01 * sampler.rhs, n_iter=5), 10)
     gram_ms = time_ms(lambda: sampler.ray_trafo.gram(xhat0), 20)
     log(f"  per step: UNet forward {fwd_ms:.2f} ms (phase 4), CG(5) {cg_ms:.2f} ms "
-        f"(fused Gram {gram_ms:.3f} ms each), rest {ms_step - fwd_ms - cg_ms:.2f} ms")
+        f"(fused Gram {gram_ms:.3f} ms each), rest {ms_step - fwd_ms - cg_ms:.2f} ms; device time "
+        f"of UNet and CG {fwd_dev_ms:.2f} + {cg_dev_ms:.2f} ms, at most "
+        f"{(fwd_dev_ms + cg_dev_ms) / ms_step:.0%} of the step beside the rest")
     if conv_launches != 62 * n_fwd or attn_launches != 4 * n_fwd:
         raise AssertionError("the DDS run did not launch 62 conv3x3 and 4 attention kernels per forward")
+    if by_variant != {"tc": 60 * n_fwd, "narrow": n_fwd, "simt": n_fwd}:
+        raise AssertionError(f"conv3x3 launches by variant {by_variant}: want 60 tc, 1 narrow "
+                             "and 1 simt per forward")
     for i, (p, fp) in enumerate(results):
         if not p > fp:
             raise AssertionError(f"image {i}: DDS {p:.2f} dB does not beat FBP {fp:.2f} dB")
@@ -339,18 +480,25 @@ def main() -> None:
 
     # ---- 6. kernel summary, 7. device line
     src = "diffusion_models_dev_project_tpu_torch/csrc/"
+    conv_src = {"tc": src + "conv3x3_tc.cu", "narrow": src + "conv3x3.cu", "simt": src + "conv3x3.cu"}
     kernels = []
-    for name, tot, err, launches, replaces in (
-            ("conv3x3", conv_tot, conv_err, conv_launches,
+    for name, source, tot, err, launches, replaces in (
+            ("conv3x3", conv_src["tc"], conv_tot, conv_err, conv_launches,
              "diffusion_models_dev_project_tpu/ops/conv3x3.py:35"),
-            ("attention", attn_tot, attn_err, attn_launches,
+            ("attention", src + "attention.cu", attn_tot, attn_err, attn_launches,
              "diffusion_models_dev_project_tpu/ops/attention.py:43")):
         kernels.append({
-            "name": name, "route": "cuda", "source": src + name + ".cu", "replaces": replaces,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
             "library_ms": tot["library_ms"]})
+    # the simt kernel at the shapes tc takes, per forward; each variant's share
+    kernels[0]["simt_ms"] = conv_tot["simt_ms"]
+    kernels[0]["variants"] = {
+        v: {"source": conv_src[v], "launches": by_variant[v], "ms": agg["ms"],
+            "bound_ms": agg["bound_ms"], "library_ms": agg["library_ms"]}
+        for v, agg in conv_variants.items()}
     log(f"(kernel times are per UNet forward: the sum over its calls at their shapes; "
         f"whole run {time.perf_counter() - t_all:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)

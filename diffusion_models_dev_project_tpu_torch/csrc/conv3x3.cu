@@ -1,25 +1,32 @@
-// 3x3 stride-1 convolution with zero padding 1, NHWC x HWIO + bias -> NHWC.
+// 3x3 stride-1 convolution with zero padding 1, NHWC x HWIO + bias -> NHWC,
+// on the CUDA cores: the `simt` and `narrow` variants of ops/conv3x3.py.
+// (bf16 convs with Cin and Cout multiples of 64 go to the tensor cores,
+// csrc/conv3x3_tc.cu.)
 //
 // Replaces the Pallas TPU kernel `_kernel` / `conv3x3_same` of
 // diffusion_models_dev_project_tpu/ops/conv3x3.py (nine shifted matmuls over
 // a haloed row tile, fp32 accumulation, I/O in the input dtype).
 //
-// What bounds it on the H100: at the UNet's shapes the conv is a GEMM of
-// M = B*H*W pixels, N = Cout and K = 9*Cin (K from 9 to 9216), far above the
-// card's ~295 FLOP/byte ridge, so it is bound by arithmetic.  This first
-// version runs on the CUDA cores (fp32 FMA, 67 TFLOP/s peak), not the tensor
-// cores (989 TFLOP/s bf16): it is written to be right first.
+// `simt` takes every shape and dtype the others do not: fp32 I/O, the Cin = 1
+// stem, channel counts that are not multiples of 64.  Such convs are GEMMs of
+// M = B*H*W, N = Cout, K = 9*Cin, bound by arithmetic; this kernel runs them
+// in fp32 FMA (67 TFLOP/s peak).  Design: implicit GEMM.  A block owns a
+// 64-pixel x 64-channel output tile and walks K in chunks of 16.  Each chunk
+// gathers its 64x16 slice of the virtual im2col matrix straight from x (the
+// zero halo is a predicate, never a padded copy) and its 16x64 slice of the
+// HWIO weight, converts both to fp32 in shared memory, and each of the 256
+// threads accumulates a 4x4 micro-tile in registers, reading shared memory as
+// float4.  Ragged edges (Cin = 1, M or N not a multiple of 64) are masked.
 //
-// Design: implicit GEMM.  A block owns a 64-pixel x 64-channel output tile
-// and walks K in chunks of 16.  Each chunk gathers its 64x16 slice of the
-// virtual im2col matrix straight from x (the zero halo is a predicate, never
-// a padded copy) and its 16x64 slice of the HWIO weight, converts both to
-// fp32 in shared memory, and each of the 256 threads accumulates a 4x4
-// micro-tile in registers, reading shared memory as float4.  Bias is added in
-// the epilogue, and the result is rounded once to the output dtype.  Ragged
-// edges (Cin = 1, Cout = 1, 8x8 maps, M or N not a multiple of 64) are
-// masked.  The next steps are tensor cores (mma.sync / wgmma from TMA-fed
-// shared memory) and a fused GroupNorm-SiLU prologue.
+// `narrow` takes Cout < 16 (the UNet's final conv, 128 -> 1).  Its work is
+// 9*Cin multiply-adds per output value, so it is bound by reading x once.  A
+// block owns 16x16 output pixels, one per thread; it stages the haloed
+// 18x18 input tile 16 channels at a time in shared memory (each input byte
+// is read once by the block, 1.27 times overall), with the weights of those
+// channels, and each thread sums its pixel's 9*Cin products for each output
+// channel in registers.
+//
+// Both add the bias in the epilogue and round once to the output dtype.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -157,11 +164,92 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- narrow
+constexpr int NT_TILE = 16;                 // output pixels per block side
+constexpr int NT_HALO = NT_TILE + 2;
+constexpr int NT_C = 16;                    // input channels staged per pass
+constexpr int NT_XS = NT_C + 4;             // float4-aligned row; spreads a quarter warp over the banks
+
+// CO output channels (CO = 1, or up to 16 with the rest masked)
+template <typename T, int CO>
+__global__ void __launch_bounds__(NT_TILE * NT_TILE)
+conv3x3_narrow_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                      const float* __restrict__ bias, T* __restrict__ out,
+                      int H, int W, int Cin, int Cout) {
+  __shared__ __align__(16) float xs[NT_HALO * NT_HALO][NT_XS];
+  __shared__ __align__(16) float ws[9][CO][NT_C];
+  const int b = blockIdx.z;
+  const int h0 = blockIdx.y * NT_TILE;
+  const int w0 = blockIdx.x * NT_TILE;
+  const int tid = threadIdx.x;
+  const int ty = tid / NT_TILE, tx = tid % NT_TILE;
+  float acc[CO];
+#pragma unroll
+  for (int o = 0; o < CO; ++o) acc[o] = 0.f;
+
+  for (int c0 = 0; c0 < Cin; c0 += NT_C) {
+    for (int i = tid; i < NT_HALO * NT_HALO * NT_C; i += NT_TILE * NT_TILE) {
+      const int p = i / NT_C, c = i % NT_C;
+      const int hh = h0 - 1 + p / NT_HALO, ww = w0 - 1 + p % NT_HALO;
+      float v = 0.f;
+      if (hh >= 0 && hh < H && ww >= 0 && ww < W && c0 + c < Cin)
+        v = load_f(x + ((static_cast<long long>(b) * H + hh) * W + ww) * Cin + c0 + c);
+      xs[p][c] = v;
+    }
+    for (int i = tid; i < 9 * CO * NT_C; i += NT_TILE * NT_TILE) {
+      const int tap = i / (CO * NT_C), o = (i / NT_C) % CO, c = i % NT_C;
+      ws[tap][o][c] = (o < Cout && c0 + c < Cin)
+                          ? load_f(w + (static_cast<long long>(tap) * Cin + c0 + c) * Cout + o)
+                          : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const float* xp = xs[(ty + tap / 3) * NT_HALO + tx + tap % 3];
+#pragma unroll
+      for (int c = 0; c < NT_C; c += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(xp + c);
+#pragma unroll
+        for (int o = 0; o < CO; ++o) {
+          if (o >= Cout) break;
+          const float4 k = *reinterpret_cast<const float4*>(&ws[tap][o][c]);
+          acc[o] = fmaf(v.x, k.x, fmaf(v.y, k.y, fmaf(v.z, k.z, fmaf(v.w, k.w, acc[o]))));
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int hh = h0 + ty, ww = w0 + tx;
+  if (hh < H && ww < W) {
+    T* o_ptr = out + ((static_cast<long long>(b) * H + hh) * W + ww) * Cout;
+#pragma unroll
+    for (int o = 0; o < CO; ++o)
+      if (o < Cout) store_f(o_ptr + o, acc[o] + bias[o]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_narrow(const void* x, const void* w, const void* bias, void* out,
+                          int B, int H, int W, int Cin, int Cout, cudaStream_t stream) {
+  const dim3 grid((W + NT_TILE - 1) / NT_TILE, (H + NT_TILE - 1) / NT_TILE, B);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const float* bt = static_cast<const float*>(bias);
+  T* ot = static_cast<T*>(out);
+  if (Cout == 1)
+    conv3x3_narrow_kernel<T, 1><<<grid, NT_TILE * NT_TILE, 0, stream>>>(xt, wt, bt, ot, H, W, Cin, Cout);
+  else
+    conv3x3_narrow_kernel<T, 16><<<grid, NT_TILE * NT_TILE, 0, stream>>>(xt, wt, bt, ot, H, W, Cin, Cout);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x (B,H,W,Cin) and w (3,3,Cin,Cout) in fp32 or bf16 (is_bf16), bias (Cout)
-// fp32, out (B,H,W,Cout) in the input dtype; all contiguous on the device.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// The simt variant.  x (B,H,W,Cin) and w (3,3,Cin,Cout) in fp32 or bf16
+// (is_bf16), bias (Cout) fp32, out (B,H,W,Cout) in the input dtype; all
+// contiguous on the device.  Launches on `stream`, allocates nothing,
+// returns cudaGetLastError().
 extern "C" int conv3x3_forward(const void* x, const void* w, const void* bias,
                                void* out, int B, int H, int W, int Cin,
                                int Cout, int is_bf16, void* stream) {
@@ -169,5 +257,17 @@ extern "C" int conv3x3_forward(const void* x, const void* w, const void* bias,
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(x, w, bias, out, B, H, W, Cin, Cout, s)
               : launch<float>(x, w, bias, out, B, H, W, Cin, Cout, s);
+  return static_cast<int>(err);
+}
+
+// The narrow variant, Cout < 16; arguments as for conv3x3_forward.
+extern "C" int conv3x3_narrow_forward(const void* x, const void* w, const void* bias,
+                                      void* out, int B, int H, int W, int Cin,
+                                      int Cout, int is_bf16, void* stream) {
+  if (Cout < 1 || Cout > 16) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_narrow<__nv_bfloat16>(x, w, bias, out, B, H, W, Cin, Cout, s)
+              : launch_narrow<float>(x, w, bias, out, B, H, W, Cin, Cout, s);
   return static_cast<int>(err);
 }

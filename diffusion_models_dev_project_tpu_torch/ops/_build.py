@@ -29,10 +29,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# exported symbol -> argument types; every function returns a cudaError_t
+# exported symbol -> argument types; every function returns a cudaError_t (or
+# minus a CUresult, see csrc/errors.cu)
 _SIGNATURES = {
     # x, w, bias, out, B, H, W, Cin, Cout, is_bf16, stream
     "conv3x3_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "conv3x3_narrow_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, bias, out, workspace, B, H, W, Cin, Cout, box_h, box_w, bm, splits,
+    # steps_per_split, stream
+    "conv3x3_tc_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, BH, T, D, scale, is_bf16, stream
     "attention_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
 }

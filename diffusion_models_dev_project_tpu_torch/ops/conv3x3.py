@@ -1,20 +1,120 @@
 """3x3 stride-1 zero-padding-1 convolution, NHWC x HWIO + bias -> NHWC.
 
 Port of the Pallas TPU kernel `ops/conv3x3.py::conv3x3_same` of the JAX
-package.  On a CUDA tensor `conv3x3` launches the hand-written kernel of
-`csrc/conv3x3.cu` (fp32 or bf16 I/O, fp32 accumulation); on a CPU tensor,
-or when the caller passes `use_kernel=False`, it runs `conv3x3_reference`,
-the same nine shifted-tap matmuls written in PyTorch.
+package.  On a CUDA tensor `conv3x3` launches one of three hand-written
+kernels, chosen by `plan` from the dtype and the shape alone:
+
+- `tc` (`csrc/conv3x3_tc.cu`): bf16 with Cin and Cout multiples of 64, the
+  UNet's 60 hot convs.  An implicit GEMM on the tensor cores (`wgmma`) fed
+  by TMA, with the K loop split over several blocks on small maps;
+- `narrow` (`csrc/conv3x3.cu`): Cout < 16 (the UNet's final conv), one
+  thread per output pixel over a shared-memory tile, bound by bytes;
+- `simt` (`csrc/conv3x3.cu`): everything else (fp32 I/O, the Cin = 1 stem,
+  other channel counts), fp32 FMA on the CUDA cores.
+
+All three accumulate in fp32, add the fp32 bias and round once to the input
+dtype.  On a CPU tensor, or when the caller passes `use_kernel=False`,
+`conv3x3` runs `conv3x3_reference`, the same nine shifted-tap matmuls
+written in PyTorch.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["conv3x3", "conv3x3_reference", "launches"]
+__all__ = ["Plan", "VARIANTS", "conv3x3", "conv3x3_reference", "conv3x3_tiled_reference",
+           "launches", "launches_by_variant", "plan"]
 
-launches = 0    # kernel launches since the caller last set this to 0
+VARIANTS = ("tc", "narrow", "simt")
+launches = 0    # conv3x3 calls that launched a kernel since the caller last set this to 0
+launches_by_variant = dict.fromkeys(VARIANTS, 0)    # the same, by variant
+
+SMS = 132          # streaming multiprocessors of an H100 SXM
+TC_BK = 64         # input channels per K step of `tc` (128 bytes of bf16: one swizzled row)
+TC_BN = 128        # output channels per `tc` tile
+MIN_BLOCKS = 100   # a grid of fewer blocks leaves a quarter of the SMs idle
+NARROW_MAX_COUT = 15
+NARROW_TILE = 16   # `narrow` tiles are 16 x 16 output pixels
+
+
+class Plan(NamedTuple):
+    """How `conv3x3` runs one shape.  For `tc` an output tile is a box of
+    `box` = (rows, cols) pixels of one image (`bm` of them) by `bn` channels;
+    its K loop of `k_steps` steps (one tap x 64 input channels each) is cut
+    into `splits` ranges of `steps_per_split`, each run by its own block,
+    whose fp32 partials (`workspace_bytes`) a second kernel adds up."""
+    variant: str
+    box: Optional[Tuple[int, int]]
+    bm: int
+    bn: int
+    tiles: int             # output tiles (pixel tiles x channel tiles)
+    k_steps: int
+    splits: int
+    steps_per_split: int
+    workspace_bytes: int
+
+
+def _tc_eligible(cin: int, cout: int, dtype: torch.dtype) -> bool:
+    return dtype == torch.bfloat16 and cin % TC_BK == 0 and cout % 64 == 0
+
+
+def _tc_plan(b: int, h: int, w: int, cin: int, cout: int,
+             splits: Optional[int]) -> Plan:
+    n_tiles = -(-cout // TC_BN)
+    # 128-pixel tiles (two consumer warpgroups, one block per SM) unless too
+    # few of them to fill the card; 64-pixel tiles then run two blocks per SM
+    bm = 128 if -(-b * h * w // 128) * n_tiles >= MIN_BLOCKS else 64
+    slots = SMS * (1 if bm == 128 else 2)
+    wt = min(1 << (w.bit_length() - 1), bm)          # widest power of two <= W
+    ht = bm // wt
+    tiles = b * -(-h // ht) * -(-w // wt) * n_tiles
+    k_steps = 9 * cin // TC_BK
+
+    def per_split(s):
+        return -(-k_steps // s)
+
+    if splits is None:
+        # fewest waves x (steps per block + one step of fill and epilogue);
+        # ties go to fewer splits, which move fewer partial sums
+        cands = {-(-k_steps // per_split(s)) for s in range(1, k_steps + 1)}
+        splits = min(cands, key=lambda s: (-(-tiles * s // slots) * (per_split(s) + 1), s))
+    if not 1 <= splits <= k_steps or -(-k_steps // per_split(splits)) != splits:
+        raise ValueError(f"conv3x3: {splits} splits of {k_steps} K steps leave one empty")
+    ws = 4 * splits * b * h * w * cout if splits > 1 else 0
+    return Plan("tc", (ht, wt), bm, TC_BN, tiles, k_steps, splits, per_split(splits), ws)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
+         variant: Optional[str] = None, splits: Optional[int] = None) -> Plan:
+    """The kernel and tiling for x (b, h, w, cin) -> cout channels in `dtype`:
+    `tc` for bf16 with Cin and Cout multiples of 64, `narrow` for Cout < 16,
+    `simt` otherwise.  `variant` and `splits` force a choice (measurements
+    only); a variant that cannot take the shape raises."""
+    if variant is None:
+        variant = ("tc" if _tc_eligible(cin, cout, dtype)
+                   else "narrow" if cout <= NARROW_MAX_COUT else "simt")
+    if variant == "tc":
+        if not _tc_eligible(cin, cout, dtype):
+            raise ValueError(f"conv3x3: tc takes bf16 with Cin, Cout multiples of 64, "
+                             f"not {dtype} {cin}->{cout}")
+        return _tc_plan(b, h, w, cin, cout, splits)
+    if splits not in (None, 1):
+        raise ValueError(f"conv3x3: {variant} does not split K")
+    if variant == "narrow":
+        if cout > NARROW_MAX_COUT:
+            raise ValueError(f"conv3x3: narrow takes Cout <= {NARROW_MAX_COUT}, not {cout}")
+        t = NARROW_TILE
+        tiles = b * -(-h // t) * -(-w // t)
+        return Plan("narrow", (t, t), t * t, cout, tiles, 1, 1, 1, 0)
+    if variant == "simt":
+        tiles = -(-b * h * w // 64) * -(-cout // 64)
+        return Plan("simt", None, 64, 64, tiles, 1, 1, 1, 0)
+    raise ValueError(f"conv3x3: unknown variant {variant!r}")
 
 
 def conv3x3_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -33,9 +133,59 @@ def conv3x3_reference(x: torch.Tensor, weight: torch.Tensor,
     return (acc.reshape(b, h, w, cout) + bias.float()).to(x.dtype)
 
 
+def conv3x3_tiled_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                            p: Plan) -> torch.Tensor:
+    """`tc`'s arithmetic, step by step as plan `p` lays it out (for tests):
+    per output tile and split, fp32 sums over the split's K steps of a
+    zero-filled box of x at the tap's offset times 64 rows of the weight;
+    then the splits' partials added in order, the bias, one rounding."""
+    if p.variant != "tc":
+        raise ValueError(f"conv3x3_tiled_reference emulates tc, not {p.variant}")
+    b, h, w, cin = x.shape
+    cout = weight.shape[-1]
+    ht, wt = p.box
+    xf, wf = x.float(), weight.float().reshape(9 * cin, cout)
+    chunks = cin // TC_BK
+
+    def box(bi, r0, c0, ch):        # TMA's box: zero fill wherever it leaves the image
+        out = xf.new_zeros(ht, wt, TC_BK)
+        rs, cs = max(r0, 0), max(c0, 0)
+        re, ce = min(r0 + ht, h), min(c0 + wt, w)
+        if rs < re and cs < ce:
+            out[rs - r0:re - r0, cs - c0:ce - c0] = xf[bi, rs:re, cs:ce, ch:ch + TC_BK]
+        return out.reshape(ht * wt, TC_BK)
+
+    y = xf.new_zeros(b, -(-h // ht) * ht, -(-w // wt) * wt, -(-cout // p.bn) * p.bn)
+    wpad = torch.nn.functional.pad(wf, (0, y.shape[-1] - cout))
+    for bi in range(b):
+        for h0 in range(0, h, ht):
+            for w0 in range(0, w, wt):
+                for n0 in range(0, cout, p.bn):
+                    parts = []
+                    for s in range(p.splits):
+                        acc = xf.new_zeros(ht * wt, p.bn)
+                        for k in range(s * p.steps_per_split,
+                                       min((s + 1) * p.steps_per_split, p.k_steps)):
+                            tap, ch = divmod(k, chunks)
+                            di, dj = divmod(tap, 3)
+                            a = box(bi, h0 + di - 1, w0 + dj - 1, ch * TC_BK)
+                            row = tap * cin + ch * TC_BK
+                            acc += a @ wpad[row:row + TC_BK, n0:n0 + p.bn]
+                        parts.append(acc)
+                    total = parts[0]
+                    for part in parts[1:]:
+                        total = total + part
+                    y[bi, h0:h0 + ht, w0:w0 + wt, n0:n0 + p.bn] = total.reshape(ht, wt, p.bn)
+    return (y[:, :h, :w, :cout] + bias.float()).to(x.dtype)
+
+
 def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-            use_kernel: bool = True) -> torch.Tensor:
-    """x (B, H, W, Cin), weight (3, 3, Cin, Cout), bias (Cout,) -> (B, H, W, Cout)."""
+            use_kernel: bool = True, *, variant: Optional[str] = None,
+            splits: Optional[int] = None) -> torch.Tensor:
+    """x (B, H, W, Cin), weight (3, 3, Cin, Cout), bias (Cout,) -> (B, H, W, Cout).
+
+    `variant` and `splits` (measurements only) force what `plan` would
+    choose from dtype and shape."""
     global launches
     if x.ndim != 4 or weight.shape[:3] != (3, 3, x.shape[-1]) or bias.shape != weight.shape[3:]:
         raise ValueError(f"conv3x3: bad shapes x {tuple(x.shape)} weight "
@@ -50,16 +200,28 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise ValueError("conv3x3: x and weight must be contiguous")
     bsz, h, w, cin = x.shape
     cout = weight.shape[-1]
+    p = plan(bsz, h, w, cin, cout, x.dtype, variant, splits)
     bias32 = bias.float().contiguous()
     out = torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = _build.library()
+    is_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.conv3x3_forward(x.data_ptr(), weight.data_ptr(), bias32.data_ptr(),
-                                 out.data_ptr(), bsz, h, w, cin, cout,
-                                 int(x.dtype == torch.bfloat16), stream)
-    _build.check(rc, "conv3x3")
+        args = (x.data_ptr(), weight.data_ptr(), bias32.data_ptr(), out.data_ptr())
+        if p.variant == "tc":
+            ws = (torch.empty(p.workspace_bytes // 4, dtype=torch.float32, device=x.device)
+                  if p.splits > 1 else None)
+            rc = lib.conv3x3_tc_forward(*args, ws.data_ptr() if ws is not None else None,
+                                        bsz, h, w, cin, cout, p.box[0], p.box[1], p.bm,
+                                        p.splits, p.steps_per_split, stream)
+        elif p.variant == "narrow":
+            rc = lib.conv3x3_narrow_forward(*args, bsz, h, w, cin, cout, is_bf16, stream)
+        else:
+            rc = lib.conv3x3_forward(*args, bsz, h, w, cin, cout, is_bf16, stream)
+    _build.check(rc, f"conv3x3 ({p.variant})")
     launches += 1
+    launches_by_variant[p.variant] += 1
     return out
+

@@ -1,0 +1,136 @@
+"""The port's conv3x3 plan (variant, tiling, split of K) and its CPU emulation.
+
+`plan` is what the wrapper hands the CUDA kernels, so it is checked here on
+every conv shape of the flagship UNet.  `conv3x3_tiled_reference` carries
+out a `tc` plan step by step in PyTorch (zero-filled boxes, fp32 partials
+per split, then the reduction); it is held against the port's plain version
+and the JAX package's Pallas kernel, run as the JAX package's own tests run
+it (`force_tpu_interpret_mode`), on inputs from numpy with a fixed seed.
+
+torch and the port are imported inside the tests, never at collection
+(see tests/test_torch_kernels.py).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from jax.experimental.pallas import tpu as pltpu
+
+from diffusion_models_dev_project_tpu.ops.conv3x3 import conv3x3_same
+
+# (B, H, W, Cin, Cout, forced splits, Pallas tile_h): batch 2 with the
+# largest split, H != W with ragged boxes and Cout = 192 (half a channel
+# tile over), an uneven split, Cin = 64 and 128; every image's boxes run off
+# all four sides at the border taps
+EMULATED = [(2, 8, 8, 64, 64, None, 8), (1, 12, 20, 128, 192, None, 4),
+            (1, 16, 8, 64, 128, 3, 8), (1, 8, 24, 128, 64, 1, 8)]
+
+
+def _flagship_conv_shapes(monkeypatch):
+    """(x shape, Cout, dtype) of each conv3x3 call of one flagship 256² forward,
+    traced on the meta device with the kernels' wrappers stubbed out."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import get_config
+    from diffusion_models_dev_project_tpu_torch.models import unet as U
+
+    config = get_config("vesde")
+    config.model.num_channels = 128
+    config.model.dtype = "bfloat16"
+    seen = []
+
+    def conv(x, w, b, use_kernel=True):
+        seen.append((tuple(x.shape), w.shape[-1], w.dtype))
+        return x.new_empty(x.shape[:3] + (w.shape[-1],))
+
+    monkeypatch.setattr(U, "conv3x3", conv)
+    monkeypatch.setattr(U, "attention", lambda q, k, v, use_kernel=True: torch.empty_like(q))
+    cfg = U.create_model_config(config.model)
+    with torch.device("meta"):
+        model = U.UNetModel(cfg).to(cfg.torch_dtype)
+        model(torch.empty(1, 256, 256, 1), torch.empty(1))
+    return seen
+
+
+def test_plan_on_every_flagship_conv(monkeypatch):
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    shapes = _flagship_conv_shapes(monkeypatch)
+    assert len(shapes) == 62
+    plans = [C.plan(*xs, cout, dt) for xs, cout, dt in shapes]
+    by_variant = {v: sum(p.variant == v for p in plans) for v in C.VARIANTS}
+    assert by_variant == {"tc": 60, "narrow": 1, "simt": 1}
+    assert [xs[-1] for (xs, _, _), p in zip(shapes, plans) if p.variant == "simt"] == [1]
+    for ((b, h, w, cin), cout, dt), p in zip(shapes, plans):
+        if p.variant != "tc":
+            continue
+        ht, wt = p.box
+        assert ht * wt == p.bm and p.bm in (64, 128) and wt <= 256 and ht <= 256
+        assert h % ht == 0 and w % wt == 0            # the boxes tile the image exactly
+        assert p.tiles == b * (h // ht) * (w // wt) * (-(-cout // p.bn))
+        assert p.k_steps == 9 * cin // 64
+        # every split has at least one K step, and together they take them all
+        assert (p.splits - 1) * p.steps_per_split < p.k_steps <= p.splits * p.steps_per_split
+        assert p.tiles * p.splits >= 100 or p.splits == p.k_steps, (h, cin, cout, p)
+        assert p.workspace_bytes == (4 * p.splits * b * h * w * cout if p.splits > 1 else 0)
+    # forced choices that cannot run raise; the measurement override takes simt anywhere
+    with pytest.raises(ValueError):
+        C.plan(1, 8, 8, 512, 512, torch.float32, variant="tc")
+    with pytest.raises(ValueError):
+        C.plan(1, 8, 8, 512, 512, torch.bfloat16, splits=100)   # 72 steps: an empty split
+    with pytest.raises(ValueError):
+        C.plan(1, 8, 8, 512, 512, torch.bfloat16, variant="narrow")
+    assert C.plan(1, 8, 8, 512, 512, torch.bfloat16, variant="simt").variant == "simt"
+    assert C.plan(1, 8, 8, 1024, 512, torch.bfloat16, splits=144).steps_per_split == 1
+
+
+def test_tiled_emulation_matches_reference_and_pallas():
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    rng = np.random.default_rng(0)
+    for b, h, w, cin, cout, splits, tile_h in EMULATED:
+        x = rng.normal(size=(b, h, w, cin)).astype(np.float32)
+        k = (rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32)
+        bias = rng.normal(size=(cout,)).astype(np.float32)
+        p = C.plan(b, h, w, cin, cout, torch.bfloat16, splits=splits)
+        assert p.variant == "tc" and (splits is not None or p.splits > 1), p
+        xt, kt, bt = (torch.from_numpy(a) for a in (x, k, bias))
+        out = C.conv3x3_tiled_reference(xt, kt, bt, p).numpy()
+        with pltpu.force_tpu_interpret_mode():
+            pallas = np.asarray(conv3x3_same(jnp.asarray(x), jnp.asarray(k), jnp.asarray(bias),
+                                             tile_h=tile_h))
+        ref = C.conv3x3_reference(xt, kt, bt).numpy()
+        # fp32 on all sides; sums of up to 9*128 products of size ~0.1 in
+        # another order (per 64-channel step, per split) differ by ~1e-6; a
+        # lost or doubled K step would be off by ~0.1
+        for other in (ref, pallas):
+            np.testing.assert_allclose(out, other, rtol=1e-5, atol=1e-4, err_msg=str(p))
+    with pytest.raises(ValueError):
+        C.conv3x3_tiled_reference(xt, kt, bt, C.plan(1, 8, 24, 128, 64, torch.float32))
+
+
+def test_wrapper_on_cpu_takes_the_plain_version_whatever_is_forced():
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    rng = np.random.default_rng(1)
+    x, k = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).bfloat16()
+            for s in ((1, 8, 8, 64), (3, 3, 64, 64)))
+    bias = torch.zeros(64)
+    C.launches = 0
+    C.launches_by_variant = dict.fromkeys(C.VARIANTS, 0)
+    for force in ({}, {"variant": "tc", "splits": 3}, {"variant": "simt"}):
+        out = C.conv3x3(x, k, bias, **force)
+        torch.testing.assert_close(out, C.conv3x3_reference(x, k, bias), rtol=0, atol=0)
+    assert C.launches == 0 and set(C.launches_by_variant.values()) == {0}
+    # the bf16 emulation rounds once, as the kernel does: within one bf16 ulp
+    # (2^-8 relative), or the fp32 reordering error of 576 products of size
+    # ~1 where an output lies near 0
+    emu = C.conv3x3_tiled_reference(x, k, bias, C.plan(1, 8, 8, 64, 64, torch.bfloat16))
+    assert emu.dtype == torch.bfloat16
+    torch.testing.assert_close(emu.float(), C.conv3x3_reference(x, k, bias).float(),
+                               rtol=2 ** -7, atol=1e-4)
