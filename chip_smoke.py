@@ -6,19 +6,25 @@ reconstruction, through its factory entry points on one CUDA device:
 
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles `csrc/*.cu` with nvcc for sm_90a (ops/_build.py) and
-   requires HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS;
+   requires HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS,
+   and HMMA (mma.sync) in the functions of attention_mma.cu;
 3. kernels: runs each kernel's wrapper at every shape the UNet forward
    gives it (recorded with forward hooks), checks it against its plain
    PyTorch version, and times kernel, plain version and library yardstick;
-   conv3x3's `tc` variant also against the CUDA-core `simt` kernel at the same
-   shapes, for bitwise equal output over two launches, and at added shapes
-   (batch 2, H != W, the largest split of K, 64 and 192 channels);
+   each redesigned kernel (conv3x3 `tc`, attention `mma`) also against the
+   CUDA-core `simt` kernel it replaced at the same shapes, for bitwise equal
+   output over two launches, and at added shapes (conv3x3: batch 2, H != W,
+   the largest split of K, 64 and 192 channels; attention: ragged T, other
+   head widths up to 256, T = 1024); attention also against each SDPA
+   backend that takes the inputs;
 4. UNet: one full-width forward of the shipped VESDE prior at 256², batch 1,
    with the kernels against `use_kernel=False`;
 5. DDS: reconstructs the first images of the shipped val set (60 angles,
    noise 0.01, gamma 0.01, eta 0.85, 5 CG iterations) and requires each to
    beat its FBP in PSNR, with the kernel launch counts of the run checked
-   (per forward 62 conv3x3, of which 60 tc, 1 narrow, 1 simt, and 4 attention);
+   (per forward 62 conv3x3, of which 60 tc, 1 narrow, 1 simt, and 4
+   attention, all mma); CUDA events around the score call and the CG solve
+   of the loop's last steps split a step into UNet, CG and the rest;
 6. prints one `{"kernels": [...]}` line, then, last, the device line
    `{"ok": true, "device": {...}}`.
 
@@ -108,6 +114,58 @@ def host_us(fn, reps: int) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / reps * 1e6
+
+
+class StepTimer:
+    """CUDA events around the score call and the CG solve of each DDS step
+    from `first_step` on: the UNet, CG and the rest of a step, measured in
+    the loop's own steps.  Events on one stream complete in order, so a
+    step (one score call to the next) is the sum of the three parts."""
+
+    def __init__(self, score_fn, cg_fn, first_step: int):
+        self.score_fn, self.cg_fn, self.first_step = score_fn, cg_fn, first_step
+        self.steps, self.calls, self.end = [], 0, None
+
+    @staticmethod
+    def _event():
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def score(self, x, t):
+        self.calls += 1
+        if self.calls <= self.first_step:
+            return self.score_fn(x, t)
+        start = self._event()
+        out = self.score_fn(x, t)
+        self.steps.append([start, self._event()])
+        return out
+
+    def cg(self, *args, **kwargs):
+        if self.calls <= self.first_step:
+            return self.cg_fn(*args, **kwargs)
+        self.steps[-1].append(self._event())
+        out = self.cg_fn(*args, **kwargs)
+        self.steps[-1].append(self._event())
+        return out
+
+    def finish(self):
+        self.end = self._event()
+
+    def split(self):
+        """Per timed step, ms of the step, the UNet, CG and the rest."""
+        self.end.synchronize()
+        rows = []
+        for i, (s0, s1, c0, c1) in enumerate(self.steps):
+            nxt = self.steps[i + 1][0] if i + 1 < len(self.steps) else self.end
+            step, unet, cg = s0.elapsed_time(nxt), s0.elapsed_time(s1), c0.elapsed_time(c1)
+            rows.append({"step": step, "unet": unet, "cg": cg, "rest": step - unet - cg})
+        return rows
+
+
+SPLIT_STEPS = 200    # DDS steps at the end of each image whose parts are timed
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -269,7 +327,8 @@ def check_conv(shapes, gen):
 
 
 def sass_counts(lib_path):
-    """HGMMA and UTMALDG instructions in the built library's SASS."""
+    """HGMMA and UTMALDG instructions in the built library's SASS, and HMMA
+    in the functions of attention_mma.cu."""
     import shutil
 
     cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),
@@ -284,58 +343,142 @@ def sass_counts(lib_path):
         raise RuntimeError("cuobjdump not found under CUDA_HOME, on PATH or in triton's package")
     sass = subprocess.run([tool, "-sass", str(lib_path)], check=True, capture_output=True,
                           text=True, timeout=120).stdout
-    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    counts["HMMA"], function = 0, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :", 1)[1]
+        elif "attention_mma" in function:
+            counts["HMMA"] += line.count("HMMA")
+    return counts
+
+
+def sdpa_backends():
+    """(name, backend) of each SDPA backend this torch names."""
+    from torch.nn.attention import SDPBackend
+
+    names = (("flash", "FLASH_ATTENTION"), ("efficient", "EFFICIENT_ATTENTION"),
+             ("cudnn", "CUDNN_ATTENTION"), ("math", "MATH"))
+    return [(name, getattr(SDPBackend, attr)) for name, attr in names if hasattr(SDPBackend, attr)]
+
+
+def time_sdpa(q4, k4, v4, reps):
+    """Device ms of `F.scaled_dot_product_attention` on (1, B·heads, T, d)
+    views, as dispatched by default and under each backend alone; a backend
+    that refuses the inputs (or the graph capture) maps to its error."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    times = {"default": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), reps)}
+    for name, backend in sdpa_backends():
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q4, k4, v4)
+        try:
+            call()
+            times[name] = time_ms(call, reps)
+        except RuntimeError as err:
+            times[name] = str(err).splitlines()[0][:100]
+    return times
+
+
+def check_attention_once(shape, dt, gen):
+    """One kernel call against the plain version; for mma also a second
+    call, which must give the same bits.  Returns (inputs, plan, max|diff|, rel)."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
+
+    tdt = getattr(torch, dt)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(tdt) for _ in range(3))
+    p = A.plan(*shape, tdt)
+    out = A.attention(q, k, v)
+    ref = A.attention(q, k, v, use_kernel=False)
+    torch.cuda.synchronize()
+    d, r = rel_err(out, ref)
+    if not (torch.isfinite(out).all() and r <= TOL[dt]):
+        raise AssertionError(f"attention {p.variant} {shape} {dt}: rel err {r:.3e} > {TOL[dt]}")
+    if p.variant == "mma" and not torch.equal(out, A.attention(q, k, v)):
+        raise AssertionError(f"attention mma {shape}: two launches differ")
+    return (q, k, v), p, d, r
 
 
 def check_attention(shapes, gen):
-    """Kernel vs plain at the path's attention shapes (timed) and at ragged
-    T and other head widths (checked only)."""
+    """Kernel vs plain at the path's attention shapes, timed beside the plain
+    version, the CUDA-core `simt` kernel, SDPA as dispatched by default and
+    each SDPA backend; and at added shapes, checked only.  Returns
+    per-forward totals."""
     import torch
-    import torch.nn.functional as F
 
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
 
     counts = {}
     for s in shapes:
         counts[s] = counts.get(s, 0) + 1
-    extra = [((8, 300, 64), "bfloat16"), ((2, 257, 40), "float32"), ((3, 100, 128), "float32"),
-             ((8, 256, 64), "float32"), ((1, 5, 8), "float32")]
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+    # checked only, each with the plan's own key splits.  mma: ragged T over
+    # 4 splits (T = 300), a last round with fewer tiles than splits (T = 257),
+    # d = 40 and 128, T = 1024 (4 rounds of 4 splits), d = 20 (scalar loads),
+    # d = 128 over several rounds of 2 splits (T = 300); simt: the fp32
+    # shapes, d = 256 in both dtypes, T = 5
+    extra = [((8, 300, 64), "bfloat16"), ((2, 257, 40), "bfloat16"),
+             ((3, 100, 128), "bfloat16"), ((8, 1024, 64), "bfloat16"),
+             ((2, 37, 20), "bfloat16"), ((3, 300, 128), "bfloat16"),
+             ((2, 257, 40), "float32"), ((3, 100, 128), "float32"),
+             ((8, 256, 64), "float32"), ((1, 5, 8), "float32"),
+             ((2, 64, 256), "float32"), ((2, 64, 256), "bfloat16")]
+    keys = ("ms", "plain_ms", "library_ms", "library_best_ms", "bound_ms", "ops_ms", "bytes_ms",
+            "simt_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    best_names = set()
     worst = {"bfloat16": 0.0, "float32": 0.0}
     max_abs = 0.0
-    log(f"{'attention (BH,T,d)':>28} {'dtype':>8} {'n':>3} {'kernel_ms':>10} {'plain_ms':>9} "
-        f"{'library_ms':>10} {'bound_ms':>9} {'bound_by':>10} {'rel_err':>9}")
-    for (shape, dt) in list(counts) + extra:
+    log(f"{'attention (BH,T,d)':>28} {'dtype':>8} {'n':>3} {'variant':>7} {'w/s':>5} "
+        f"{'kernel_ms':>10} {'simt_ms':>9} {'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} "
+        f"{'bound_by':>10} {'rel_err':>9}")
+    for shape, dt in list(counts) + extra:
         n = counts.get((shape, dt), 0)
-        tdt = getattr(torch, dt)
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(tdt) for _ in range(3))
-        out = A.attention(q, k, v)
-        ref = A.attention(q, k, v, use_kernel=False)
-        torch.cuda.synchronize()
-        d, r = rel_err(out, ref)
+        (q, k, v), p, d, r = check_attention_once(shape, dt, gen)
         worst[dt] = max(worst[dt], r)
-        if not (torch.isfinite(out).all() and r <= TOL[dt]):
-            raise AssertionError(f"attention {shape} {dt}: rel err {r:.3e} > {TOL[dt]}")
+        blocking = f"{p.warps}/{p.key_splits}"
         if n == 0:
-            log(f"{str(shape):>28} {dt:>8} {'-':>3} {'':>10} {'':>9} {'':>10} {'':>9} {'':>10} {r:>9.2e}")
+            log(f"{str(shape):>28} {dt:>8} {'-':>3} {p.variant:>7} {blocking:>5} {'':>10} {'':>9} "
+                f"{'':>9} {'':>10} {'':>9} {'':>10} {r:>9.2e}")
             continue
         max_abs = max(max_abs, d)
         bh, t, dd = shape
         k_ms = time_ms(lambda: A.attention(q, k, v), 100)
+        s_ms = time_ms(lambda: A.attention(q, k, v, variant="simt"), 100)
         p_ms = time_ms(lambda: A.attention(q, k, v, use_kernel=False), 50)
-        l_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 100)
+        sdpa = time_sdpa(*(a.view(1, bh, t, dd) for a in (q, k, v)), 100)
+        taken = {name: ms for name, ms in sdpa.items() if name != "default" and isinstance(ms, float)}
+        best = min(taken, key=taken.get)
+        best_names.add(best)
         flops = 4.0 * bh * t * t * dd
         nbytes = 4.0 * q.numel() * q.element_size()
         b_ms, b_by, ops_ms, bytes_ms = bound(flops, nbytes, dt)
-        log(f"{str(shape):>28} {dt:>8} {n:>3} {k_ms:>10.4f} {p_ms:>9.4f} {l_ms:>10.4f} "
-            f"{b_ms:>9.5f} {b_by:>10} {r:>9.2e}")
-        for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms), ("bound_ms", b_ms),
-                         ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
-            tot[key] += n * val
+        log(f"{str(shape):>28} {dt:>8} {n:>3} {p.variant:>7} {blocking:>5} {k_ms:>10.4f} "
+            f"{s_ms:>9.4f} {p_ms:>9.4f} {sdpa['default']:>10.4f} {b_ms:>9.5f} {b_by:>10} {r:>9.2e}")
+        log(f"{'':>28} SDPA on (1, B·heads, T, d): "
+            + ", ".join(f"{name} {ms:.4f} ms" if isinstance(ms, float) else f"{name} refused ({ms})"
+                        for name, ms in sdpa.items()))
+        row = dict(ms=k_ms, plain_ms=p_ms, library_ms=sdpa["default"], library_best_ms=taken[best],
+                   bound_ms=b_ms, ops_ms=ops_ms, bytes_ms=bytes_ms, simt_ms=s_ms)
+        for key in keys:
+            tot[key] += n * row[key]
     log(f"attention max rel err: bf16 {worst['bfloat16']:.3e} (tol {TOL['bfloat16']}), "
-        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']})")
-    log(f"attention per UNet forward ({len(shapes)} calls): kernel {tot['ms']:.4f} ms, plain "
-        f"{tot['plain_ms']:.4f} ms, SDPA {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms")
+        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']}); mma bitwise equal over two launches")
+    tot["library_best"] = "/".join(sorted(best_names))
+    log(f"attention per UNet forward ({len(shapes)} calls): kernel {tot['ms']:.4f} ms, simt "
+        f"{tot['simt_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, SDPA default "
+        f"{tot['library_ms']:.4f} ms, fastest SDPA backend ({tot['library_best']}) "
+        f"{tot['library_best_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms")
+    log(f"attention: mma per forward takes {tot['ms'] / tot['library_ms']:.3f}x the time of SDPA as "
+        f"dispatched by default, {tot['ms'] / tot['library_best_ms']:.3f}x its fastest backend, "
+        f"{tot['ms'] / tot['simt_ms']:.3f}x the simt kernel")
+    if not (tot["ms"] <= tot["plain_ms"] and tot["ms"] <= tot["library_ms"]
+            and tot["ms"] < tot["simt_ms"]):
+        raise AssertionError("attention: mma is slower per forward than its plain version, "
+                             "than SDPA as dispatched by default or than the simt kernel")
     return tot, max_abs
 
 
@@ -357,7 +500,7 @@ def main() -> None:
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
     from diffusion_models_dev_project_tpu_torch.ops.cg import cg
-    from diffusion_models_dev_project_tpu_torch.sampling.predictors import make_dc_op
+    from diffusion_models_dev_project_tpu_torch.sampling import predictors as P
     from diffusion_models_dev_project_tpu_torch.utils.metrics import PSNR, SSIM
 
     # ---- 1. device
@@ -377,9 +520,11 @@ def main() -> None:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
     sass = sass_counts(_build.build())
-    log(f"  SASS of the library: {sass['HGMMA']} HGMMA, {sass['UTMALDG']} UTMALDG")
-    if not (sass["HGMMA"] and sass["UTMALDG"]):
-        raise AssertionError("the built library holds no HGMMA or no UTMALDG instruction")
+    log(f"  SASS of the library: {sass['HGMMA']} HGMMA, {sass['UTMALDG']} UTMALDG; "
+        f"{sass['HMMA']} HMMA in attention_mma")
+    if not (sass["HGMMA"] and sass["UTMALDG"] and sass["HMMA"]):
+        raise AssertionError("the built library holds no HGMMA, no UTMALDG, or no HMMA in "
+                             "attention_mma")
     log(f"[phase 2 build] nvcc {nvcc_s:.1f} s, total {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernels at the UNet's shapes
@@ -428,17 +573,25 @@ def main() -> None:
     images = np.load(VALSET)["images"][:args.images]            # (N, 256, 256, 1)
     C.launches = A.launches = 0
     C.launches_by_variant = dict.fromkeys(C.VARIANTS, 0)
-    step_s, results = [], []
+    A.launches_by_variant = dict.fromkeys(A.VARIANTS, 0)
+    step_s, results, splits = [], [], []
     for i, img in enumerate(images):
         g = torch.Generator(device="cuda").manual_seed(config.seed + i)
         gt, obs, fbp = F.get_data_from_ground_truth(img, trafo, config.data.stddev, generator=g)
-        sampler = F.get_standard_sampler("dds", score_fn, sde, trafo, obs, num_steps=args.steps,
+        timer = StepTimer(score_fn, P.cg, first_step=max(args.steps - SPLIT_STEPS, 0))
+        sampler = F.get_standard_sampler("dds", timer.score, sde, trafo, obs, num_steps=args.steps,
                                          im_shape=(256, 256, 1), gamma=0.01, eta=0.85, cg_iter=5)
         torch.cuda.synchronize()
-        ts = time.perf_counter()
-        xr, _ = sampler.sample(generator=g)
-        torch.cuda.synchronize()
-        step_s.append((time.perf_counter() - ts) / args.steps)
+        P.cg = timer.cg                # the sampler's CG solve, between CUDA events
+        try:
+            ts = time.perf_counter()
+            xr, _ = sampler.sample(generator=g)
+            timer.finish()
+            torch.cuda.synchronize()
+            step_s.append((time.perf_counter() - ts) / args.steps)
+        finally:
+            P.cg = cg
+        splits.extend(timer.split())
         rec = xr[0, ..., 0].float().cpu().numpy()
         g_np, f_np = gt[0, ..., 0].cpu().numpy(), fbp[0, ..., 0].cpu().numpy()
         if not (xr.shape == (1, 256, 256, 1) and np.isfinite(rec).all()):
@@ -450,29 +603,39 @@ def main() -> None:
             f"{step_s[-1] * 1e3:.2f} ms/step")
     n_fwd = args.steps * len(images)
     conv_launches, attn_launches = C.launches, A.launches
-    by_variant = dict(C.launches_by_variant)
+    by_variant, attn_by_variant = dict(C.launches_by_variant), dict(A.launches_by_variant)
     log(f"  launches in the DDS run: conv3x3 {conv_launches} ({conv_launches / n_fwd:g} per forward: "
         + ", ".join(f"{v} {k / n_fwd:g}" for v, k in by_variant.items())
-        + f"), attention {attn_launches} ({attn_launches / n_fwd:g} per forward)")
+        + f"), attention {attn_launches} ({attn_launches / n_fwd:g} per forward: "
+        + ", ".join(f"{v} {k / n_fwd:g}" for v, k in attn_by_variant.items()) + ")")
     ms_step = 1e3 * float(np.mean(step_s))
     log(f"  DDS {args.steps} steps x {len(images)} images: {ms_step:.2f} ms/step, "
         f"{1e3 / ms_step:.2f} steps/s, mean PSNR {np.mean([p for p, _ in results]):.2f} dB "
         f"vs FBP {np.mean([f for _, f in results]):.2f} dB")
-    # where a step's time goes outside the UNet: the CG solve (6 fused Gram applies)
+    # inside the loop: medians over the last steps of each image
+    med = {key: float(np.median([row[key] for row in splits])) for key in ("step", "unet", "cg", "rest")}
+    log(f"  per step inside the DDS loop (CUDA events, median of the last {len(splits)} steps over "
+        f"{len(images)} images): step {med['step']:.2f} ms = UNet forward {med['unet']:.2f} ms + "
+        f"CG(5) {med['cg']:.2f} ms + rest {med['rest']:.2f} ms (the rest: Tweedie, DDIM, noise, "
+        f"and the loop's own host time)")
+    if min(min(row.values()) for row in splits) < 0:
+        raise AssertionError("a part of a DDS step timed negative")
+    # device time of the CG solve and the fused Gram, each alone (graph replay)
     xhat0 = torch.randn((1, 256, 256, 1), generator=gen, device="cuda")
-    dc_op = make_dc_op(sampler.ray_trafo, 0.01)
-    cg_ms = wall_ms(lambda: cg(dc_op, xhat0, xhat0 + 0.01 * sampler.rhs, n_iter=5), 10)
+    dc_op = P.make_dc_op(sampler.ray_trafo, 0.01)
     cg_dev_ms = time_ms(lambda: cg(dc_op, xhat0, xhat0 + 0.01 * sampler.rhs, n_iter=5), 10)
     gram_ms = time_ms(lambda: sampler.ray_trafo.gram(xhat0), 20)
-    log(f"  per step: UNet forward {fwd_ms:.2f} ms (phase 4), CG(5) {cg_ms:.2f} ms "
-        f"(fused Gram {gram_ms:.3f} ms each), rest {ms_step - fwd_ms - cg_ms:.2f} ms; device time "
-        f"of UNet and CG {fwd_dev_ms:.2f} + {cg_dev_ms:.2f} ms, at most "
-        f"{(fwd_dev_ms + cg_dev_ms) / ms_step:.0%} of the step beside the rest")
+    log(f"  device time alone (graph replay): UNet forward {fwd_dev_ms:.2f} ms (phase 4), CG(5) "
+        f"{cg_dev_ms:.2f} ms (fused Gram {gram_ms:.3f} ms each); together at most "
+        f"{(fwd_dev_ms + cg_dev_ms) / ms_step:.0%} of the step")
     if conv_launches != 62 * n_fwd or attn_launches != 4 * n_fwd:
         raise AssertionError("the DDS run did not launch 62 conv3x3 and 4 attention kernels per forward")
     if by_variant != {"tc": 60 * n_fwd, "narrow": n_fwd, "simt": n_fwd}:
         raise AssertionError(f"conv3x3 launches by variant {by_variant}: want 60 tc, 1 narrow "
                              "and 1 simt per forward")
+    if attn_by_variant != {"mma": 4 * n_fwd, "simt": 0}:
+        raise AssertionError(f"attention launches by variant {attn_by_variant}: want 4 mma and "
+                             "0 simt per forward")
     for i, (p, fp) in enumerate(results):
         if not p > fp:
             raise AssertionError(f"image {i}: DDS {p:.2f} dB does not beat FBP {fp:.2f} dB")
@@ -485,7 +648,7 @@ def main() -> None:
     for name, source, tot, err, launches, replaces in (
             ("conv3x3", conv_src["tc"], conv_tot, conv_err, conv_launches,
              "diffusion_models_dev_project_tpu/ops/conv3x3.py:35"),
-            ("attention", src + "attention.cu", attn_tot, attn_err, attn_launches,
+            ("attention", src + "attention_mma.cu", attn_tot, attn_err, attn_launches,
              "diffusion_models_dev_project_tpu/ops/attention.py:43")):
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -499,6 +662,17 @@ def main() -> None:
         v: {"source": conv_src[v], "launches": by_variant[v], "ms": agg["ms"],
             "bound_ms": agg["bound_ms"], "library_ms": agg["library_ms"]}
         for v, agg in conv_variants.items()}
+    # attention: the simt kernel and the fastest SDPA backend at the
+    # same inputs, per forward; each variant's share
+    kernels[1]["simt_ms"] = attn_tot["simt_ms"]
+    kernels[1]["library_best_ms"] = attn_tot["library_best_ms"]
+    kernels[1]["library_best"] = attn_tot["library_best"]
+    attn_ms = {"mma": attn_tot["ms"], "simt": attn_tot["simt_ms"]}
+    kernels[1]["variants"] = {
+        v: {"source": src + ("attention_mma.cu" if v == "mma" else "attention.cu"),
+            "launches": attn_by_variant[v], "ms": attn_ms[v], "bound_ms": attn_tot["bound_ms"],
+            "library_ms": attn_tot["library_ms"]}
+        for v in A.VARIANTS}
     log(f"(kernel times are per UNet forward: the sum over its calls at their shapes; "
         f"whole run {time.perf_counter() - t_all:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,19 +5,25 @@
 // diffusion_models_dev_project_tpu/ops/attention.py (online softmax over
 // key blocks, padded keys masked to -1e30, any T, any d).
 //
-// What bounds it on the H100: on the UNet's path q, k, v are (8, 256, 64) and
-// (8, 64, 64) per image; that is ~0.27 GFLOP over ~1 MB, a few microseconds
-// at either peak, so the kernel is bound by launch latency and by how few
-// blocks the small grid gives (32 and 8 blocks over 132 SMs).
+// This is the `simt` variant (ops/attention.py::plan): fp32 I/O, and bf16
+// with d > 128.  bf16 with d <= 128, the UNet's path, goes to the
+// tensor-core kernel of csrc/attention_mma.cu.
+//
+// What bounds it on the H100: at the UNet's shapes, (8, 256, 64) and
+// (8, 64, 64) per image, ~0.27 GFLOP over ~1 MB, a few microseconds at either
+// peak; the kernel is bound by its fp32 CUDA-core dot products, by launch
+// latency and by how few blocks the small grid gives (32 and 8 over 132 SMs).
 //
 // Design: one block per (batch*head, 64 query rows), 256 threads, 4 threads
 // per query row.  A thread keeps its quarter of the row's q (pre-scaled) and
 // of the fp32 accumulator in registers, channels part, part+4, part+8, ...
-// Key and value tiles of 32 rows stream through shared memory (converted to
+// Key and value tiles of BKV rows stream through shared memory (converted to
 // fp32, k pre-scaled); each score is a 4-lane partial dot product summed with
 // two shuffles, the running max and sum are updated once per tile, and
 // `acc / l` is written at the end in the input dtype.  Keys past T score
-// -1e30, so exp() gives exactly 0 without inf - inf.  d up to 128.
+// -1e30, so exp() gives exactly 0 without inf - inf.  d up to 256: tiles of
+// 32 keys up to d = 128, of 16 keys above, so that q and the accumulator
+// stay at 64 registers each.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -26,7 +32,6 @@ namespace {
 
 constexpr int BQ = 64;      // query rows per block
 constexpr int TPR = 4;      // threads per query row
-constexpr int BKV = 32;     // keys per shared-memory tile
 constexpr int NT = BQ * TPR;
 
 __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
@@ -38,8 +43,9 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// DMAX: the largest head width this instantiation takes (64 or 128)
-template <typename T, int DMAX>
+// DMAX: the largest head width this instantiation takes (64, 128 or 256);
+// BKV: keys per shared-memory tile
+template <typename T, int DMAX, int BKV>
 __global__ void __launch_bounds__(NT)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int Tn, int D,
@@ -134,21 +140,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(out);
   if (D <= 64)
-    attention_kernel<T, 64><<<grid, NT, 0, stream>>>(qp, kp, vp, op, Tn, D, scale);
+    attention_kernel<T, 64, 32><<<grid, NT, 0, stream>>>(qp, kp, vp, op, Tn, D, scale);
+  else if (D <= 128)
+    attention_kernel<T, 128, 32><<<grid, NT, 0, stream>>>(qp, kp, vp, op, Tn, D, scale);
   else
-    attention_kernel<T, 128><<<grid, NT, 0, stream>>>(qp, kp, vp, op, Tn, D, scale);
+    attention_kernel<T, 256, 16><<<grid, NT, 0, stream>>>(qp, kp, vp, op, Tn, D, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, out (BH, T, D) contiguous on the device, fp32 or bf16 (is_bf16);
-// D <= 128; `scale` = D^-1/4 applied to q and to k.  Launches on `stream`,
+// D <= 256; `scale` = D^-1/4 applied to q and to k.  Launches on `stream`,
 // allocates nothing, returns cudaGetLastError().
 extern "C" int attention_forward(const void* q, const void* k, const void* v,
                                  void* out, int BH, int Tn, int D, float scale,
                                  int is_bf16, void* stream) {
-  if (D < 1 || D > 128 || Tn < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || D > 256 || Tn < 1 || BH < 1 || BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(q, k, v, out, BH, Tn, D, scale, s)
