@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (`diffusion_models_dev_project_tpu_torch`).
 
-Drives the port's main path, the flagship 256² disk-ellipse DDS
-reconstruction, through its factory entry points on one CUDA device:
+Drives the port's two paths through its factory entry points on one CUDA
+device: the flagship 256² disk-ellipse DDS reconstruction, and steerable
+LoRA adaptation inside the DDS loop, whose gradients run through both hand
+kernels' backward passes:
 
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles `csrc/*.cu` with nvcc for sm_90a (ops/_build.py) and
@@ -16,24 +18,43 @@ reconstruction, through its factory entry points on one CUDA device:
    output over two launches, and at added shapes (conv3x3: batch 2, H != W,
    the largest split of K, 64 and 192 channels; attention: ragged T, other
    head widths up to 256, T = 1024); attention also against each SDPA
-   backend that takes the inputs;
+   backend that takes the inputs.  Then the backward kernels: the conv3x3
+   input gradient (and the bias gradient) at every conv shape against
+   autograd of the plain version, and the attention backward at the path's
+   shapes and added ones (ragged T, d = 20, 128, 256, T = 1024, fp32 and
+   bf16) against its plain twin, each bitwise equal over two launches and
+   timed beside its plain twin, cuDNN's `conv2d_input` or SDPA's backward,
+   and its bound;
 4. UNet: one full-width forward of the shipped VESDE prior at 256², batch 1,
    with the kernels against `use_kernel=False`;
-5. DDS: reconstructs the first images of the shipped val set (60 angles,
+5. gradient: the same prior with LoRA rank 4 (up-projections drawn nonzero),
+   the gradient of the adaptation loss (score -> Tweedie -> cg(1) ->
+   mean((Ax - y)²) + 1e-6 TV) for every trainable leaf, in bf16 with the
+   kernels against `use_kernel=False`, both against an fp32 plain
+   gradient, and in fp32 with the kernels against it; the launch counts of
+   one forward and backward;
+6. DDS: reconstructs the first images of the shipped val set (60 angles,
    noise 0.01, gamma 0.01, eta 0.85, 5 CG iterations) and requires each to
    beat its FBP in PSNR, with the kernel launch counts of the run checked
    (per forward 62 conv3x3, of which 60 tc, 1 narrow, 1 simt, and 4
    attention, all mma); CUDA events around the score call and the CG solve
    of the loop's last steps split a step into UNet, CG and the rest;
-6. prints one `{"kernels": [...]}` line, then, last, the device line
+7. adapted: LoRA-adapted DDS (50 outer x 10 inner Adam steps, rank 4,
+   lr 1e-3, TV 1e-6, eta 0.85, cg(1), add_cg) of val image 0 and of an OOD
+   bars phantom; each must beat its FBP (at 50 outer steps or more; a
+   shortened probe is not gated); a plain DDS of as many steps on the same
+   observation is printed beside it; CUDA events split each outer step into
+   the adaptation and the two score forwards; the launch counts are checked;
+8. prints one `{"kernels": [...]}` line, then, last, the device line
    `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-Usage: python3 chip_smoke.py [--steps N] [--images N]
+Usage: python3 chip_smoke.py [--steps N] [--images N] [--adapt-steps N] [--adapt-images N]
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import os
@@ -57,6 +78,18 @@ TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 # whole UNet, kernels against plain versions: one-ulp bf16 flips propagate
 # through ~30 residual blocks
 TOL_UNET = 5e-2
+# full-width LoRA gradient (|g_a - g_b| / |g_b|, 2-norms): bf16 kernels
+# against bf16 plain over all trainable leaves; per leaf, the bf16 kernels'
+# distance from the fp32 plain gradient, at most twice the bf16 plain path's
+# own distance or 5e-2, whichever is larger (bf16 rounding alone moves a
+# single leaf by up to ~7% either way); fp32 kernels against fp32 plain per
+# leaf, free of bf16 rounding
+TOL_GRAD_ALL = 2e-2
+TOL_GRAD_LEAF_FACTOR = 2.0
+TOL_GRAD_LEAF = 5e-2
+TOL_GRAD_FP32 = 1e-3
+LORA_RANK = 4
+ADAPT_PROTOCOL_STEPS = 50     # outer steps of the adapted protocol (10 Adam steps each)
 
 
 def log(msg: str) -> None:
@@ -70,10 +103,16 @@ def time_ms(fn, reps: int) -> float:
     small shapes exceeds the kernels' own (inputs hot in L2)."""
     import torch
 
-    fn()
+    # warm up and capture on one side stream: a backward captured by autograd
+    # needs the gradient accumulators it meets to live on the capture stream
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -481,12 +520,284 @@ def check_attention(shapes, gen):
                              "than SDPA as dispatched by default or than the simt kernel")
     return tot, max_abs
 
+def check_conv_backward(shapes, gen):
+    """The conv3x3 input gradient (`conv3x3_input_grad`, the launch function
+    itself) at every distinct conv shape in both I/O types against autograd
+    of the plain version, bitwise equal over two launches and equal to the
+    autograd Function's; the Function's bias gradient against autograd's.
+    Timed in the path's type beside the plain twin, cuDNN's `conv2d_input`
+    and the bound, summed over the convs whose input takes a gradient (all
+    but the stem, whose input is the diffusion state).  Returns
+    (per-backward totals, max|diff|, launches by variant per backward)."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    counts = {}
+    for sh in shapes:
+        counts[sh] = counts.get(sh, 0) + 1
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    max_abs, by_variant = 0.0, {}
+    log(f"{'input grad (B,H,W,Cin<-Cout)':>28} {'dtype':>8} {'n':>3} {'variant':>7} {'splits':>6} "
+        f"{'kernel_ms':>10} {'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} {'bound_by':>10} "
+        f"{'rel_err':>9} {'bias_err':>9}")
+    for (xshape, cout, dtype), n in sorted(counts.items(), key=lambda kv: (-kv[0][0][1], kv[0][0][3])):
+        b, h, w, cin = xshape
+        needs = cin != 1                 # the stem's input takes no gradient
+        for dt in ("bfloat16", "float32"):
+            x, wt, bias = conv_inputs(xshape, cout, dt, gen)
+            g = torch.randn((b, h, w, cout), generator=gen, device="cuda").to(x.dtype)
+            gx = C.conv3x3_input_grad(g, wt)
+            again = C.conv3x3_input_grad(g, wt)
+            xr, br = x.clone().requires_grad_(), bias.clone().requires_grad_()
+            rx, rb = torch.autograd.grad(C.conv3x3_reference(xr, wt, br), (xr, br), g)
+            xk, bk = x.clone().requires_grad_(), bias.clone().requires_grad_()
+            kx, kb = torch.autograd.grad(C.conv3x3(xk, wt, bk), (xk, bk), g)
+            torch.cuda.synchronize()
+            d, r = rel_err(gx, rx)
+            _, rb_err = rel_err(kb, rb)
+            p = C.plan(b, h, w, cout, cin, x.dtype)
+            label = f"{str((b, h, w, cin)) + '<-' + str(cout):>28} {dt:>8}"
+            if not (torch.isfinite(gx).all() and r <= TOL[dt] and rb_err <= TOL["float32"]):
+                raise AssertionError(f"conv3x3 input grad {label}: rel err {r:.3e}, bias {rb_err:.3e}")
+            if not (torch.equal(gx, again) and torch.equal(kx, gx)):
+                raise AssertionError(f"conv3x3 input grad {label}: launches or the Function differ")
+            worst[dt] = max(worst[dt], r)
+            if dt != dtype or not needs:
+                log(f"{label} {'-':>3} {p.variant:>7} {p.splits:>6} {'':>10} {'':>9} {'':>10} {'':>9} "
+                    f"{'':>10} {r:>9.2e} {rb_err:>9.2e}")
+                continue
+            max_abs = max(max_abs, d)
+            by_variant[p.variant] = by_variant.get(p.variant, 0) + n
+            gl = g.permute(0, 3, 1, 2)                             # channels-last NCHW views
+            wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            size = (b, cin, h, w)
+            reps = 20 if h >= 128 else 50
+            k_ms = time_ms(lambda: C.conv3x3_input_grad(g, wt), reps)
+            p_ms = time_ms(lambda: C.conv3x3_input_grad(g, wt, use_kernel=False), max(reps // 4, 5))
+            l_ms = time_ms(lambda: torch.nn.grad.conv2d_input(size, wl, gl, padding=1), reps)
+            flops = 2.0 * b * h * w * cin * cout * 9
+            nbytes = g.numel() * g.element_size() * (1 + cin / cout) + wt.numel() * wt.element_size()
+            b_ms, b_by, ops_ms, bytes_ms = bound(flops, nbytes, dt)
+            log(f"{label} {n:>3} {p.variant:>7} {p.splits:>6} {k_ms:>10.4f} {p_ms:>9.4f} "
+                f"{l_ms:>10.4f} {b_ms:>9.5f} {b_by:>10} {r:>9.2e} {rb_err:>9.2e}")
+            row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, ops_ms=ops_ms,
+                       bytes_ms=bytes_ms)
+            for key in keys:
+                tot[key] += n * row[key]
+    log(f"conv3x3 input grad max rel err: bf16 {worst['bfloat16']:.3e} (tol {TOL['bfloat16']}), "
+        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']}); bitwise equal over two launches")
+    log(f"conv3x3 input grad per UNet backward ({sum(by_variant.values())} calls: "
+        + ", ".join(f"{v} {k}" for v, k in by_variant.items())
+        + f"): kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN conv2d_input "
+        f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms")
+    return tot, max_abs, by_variant
+
+
+def check_attention_backward(shapes, gen):
+    """`attention_backward` (the launch function) at the path's attention
+    shapes and at added ones against `attention_backward_reference`, dq, dk
+    and dv each within the tolerance of max|plain|, bitwise equal over two
+    launches; at the path's shapes timed beside the plain twin, SDPA's
+    backward (forward and backward captured together, less the forward) and
+    the bound.  Returns (per-backward totals, max|diff|)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
+
+    counts = {}
+    for sh in shapes:
+        counts[sh] = counts.get(sh, 0) + 1
+    extra = [((8, 300, 64), "bfloat16"), ((2, 37, 20), "bfloat16"), ((3, 100, 128), "bfloat16"),
+             ((2, 64, 256), "bfloat16"), ((8, 1024, 64), "bfloat16"), ((8, 256, 64), "float32"),
+             ((2, 257, 40), "float32"), ((2, 64, 256), "float32"), ((1, 5, 8), "float32"),
+             ((1, 1, 16), "float32")]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    max_abs = 0.0
+    log(f"{'attention bwd (BH,T,d)':>28} {'dtype':>8} {'n':>3} {'grid':>9} {'kernel_ms':>10} "
+        f"{'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} {'bound_by':>10} {'rel_err':>9}")
+    for shape, dt in list(counts) + extra:
+        n = counts.get((shape, dt), 0)
+        tdt = getattr(torch, dt)
+        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(tdt) for _ in range(4))
+        o = A.attention(q, k, v)
+        grads = A.attention_backward(q, k, v, o, g)
+        again = A.attention_backward(q, k, v, o, g)
+        ref = A.attention_backward_reference(q, k, v, o, g)
+        torch.cuda.synchronize()
+        r, d = 0.0, 0.0
+        for name, got, want, twice in zip("qkv", grads, ref, again):
+            dd, rr = rel_err(got, want)
+            if shape[1] == 1 and name in "qk":        # T = 1: dq and dk are 0 in exact
+                rr = dd                                 # arithmetic, rounding noise here
+            if not (torch.isfinite(got).all() and rr <= TOL[dt] and torch.equal(got, twice)):
+                raise AssertionError(f"attention backward d{name} {shape} {dt}: rel err {rr:.3e} "
+                                     f"(tol {TOL[dt]}), or two launches differ")
+            r, d = max(r, rr), max(d, dd)
+        worst[dt] = max(worst[dt], r)
+        grid = "x".join(map(str, A.backward_plan(*shape).grid))
+        if n == 0:
+            log(f"{str(shape):>28} {dt:>8} {'-':>3} {grid:>9} {'':>10} {'':>9} {'':>10} {'':>9} "
+                f"{'':>10} {r:>9.2e}")
+            continue
+        max_abs = max(max_abs, d)
+        bh, t, dd = shape
+        k_ms = time_ms(lambda: A.attention_backward(q, k, v, o, g), 50)
+        p_ms = time_ms(lambda: A.attention_backward_reference(q, k, v, o, g), 20)
+        q4, k4, v4 = (a.view(1, bh, t, dd).detach().requires_grad_() for a in (q, k, v))
+        g4 = g.view(1, bh, t, dd)
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 50)
+        sdpa_both = time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), g4), 50)
+        l_ms = sdpa_both - sdpa_fwd
+        # S recomputed, dP, dq, dk and dv: 2·T²·d operations each per batch·head;
+        # q, k, v, out and dout read once, dq, dk and dv written once
+        flops, nbytes = 10.0 * bh * t * t * dd, 8.0 * q.numel() * q.element_size()
+        b_ms, b_by, ops_ms, bytes_ms = bound(flops, nbytes, dt)
+        log(f"{str(shape):>28} {dt:>8} {n:>3} {grid:>9} {k_ms:>10.4f} {p_ms:>9.4f} {l_ms:>10.4f} "
+            f"{b_ms:>9.5f} {b_by:>10} {r:>9.2e}")
+        row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, ops_ms=ops_ms,
+                   bytes_ms=bytes_ms)
+        for key in keys:
+            tot[key] += n * row[key]
+    log(f"attention backward max rel err: bf16 {worst['bfloat16']:.3e} (tol {TOL['bfloat16']}), "
+        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']}); bitwise equal over two launches")
+    log(f"attention backward per UNet backward ({len(shapes)} calls): kernel {tot['ms']:.4f} ms, "
+        f"plain {tot['plain_ms']:.4f} ms, SDPA backward by default {tot['library_ms']:.4f} ms, "
+        f"bound {tot['bound_ms']:.5f} ms")
+    return tot, max_abs
+
+
+def ood_bars(im: int) -> np.ndarray:
+    """Rectangular bars and a frame: the out-of-distribution phantom of the
+    JAX package's adapted evaluation (scripts/eval_adapted_256.py), copied."""
+    x = np.zeros((im, im), np.float32)
+    q = im // 8
+    for i in range(1, 4):
+        x[2 * i * q - q // 2:2 * i * q + q // 2, q:im - q] = 0.4 + 0.2 * i
+    x[q:im - q, q:q + im // 32] = 1.0
+    x[q:im - q, im - q - im // 32:im - q] = 1.0
+    return x
+
+
+class AdaptTimer:
+    """CUDA events around each outer step's adaptation and its two score
+    forwards (adapted, then prior), from the sampler's own calls: a step
+    runs from one adaptation's start to the next's."""
+
+    def __init__(self, sampler):
+        self.steps, self.inner = [], False
+        adapt, score = sampler.adapt_step, sampler.score
+
+        def timed_adapt(x, t):
+            start = StepTimer._event()
+            self.inner = True
+            adapt(x, t)
+            self.inner = False
+            self.steps.append({"start": start, "adapted": StepTimer._event(), "fwd": []})
+
+        def timed_score(x, t, lora_scale, use_kernel=True):
+            if self.inner or not self.steps:
+                return score(x, t, lora_scale, use_kernel)
+            e0 = StepTimer._event()
+            out = score(x, t, lora_scale, use_kernel)
+            self.steps[-1]["fwd"].append((e0, StepTimer._event()))
+            return out
+
+        sampler.adapt_step, sampler.score = timed_adapt, timed_score
+
+    def split(self):
+        """Per outer step but the last, ms of the step, the adaptation, the
+        adapted and the prior forward, and the rest."""
+        import torch
+
+        torch.cuda.synchronize()
+        rows = []
+        for cur, nxt in zip(self.steps, self.steps[1:]):
+            step = cur["start"].elapsed_time(nxt["start"])
+            adapt = cur["start"].elapsed_time(cur["adapted"])
+            f1, f0 = (a.elapsed_time(b) for a, b in cur["fwd"][:2])
+            rows.append({"step": step, "adapt": adapt, "fwd_adapted": f1, "fwd_prior": f0,
+                         "rest": step - adapt - f1 - f0})
+        return rows
+
+
+def reset_counts():
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    C.launches = C.backward_launches = A.launches = A.backward_launches = 0
+    C.launches_by_variant = dict.fromkeys(C.VARIANTS, 0)
+    C.backward_launches_by_variant = dict.fromkeys(C.VARIANTS, 0)
+    A.launches_by_variant = dict.fromkeys(A.VARIANTS, 0)
+
+
+def read_counts():
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    return {"conv_fwd": C.launches, "conv_fwd_by": dict(C.launches_by_variant),
+            "conv_bwd": C.backward_launches, "conv_bwd_by": dict(C.backward_launches_by_variant),
+            "attn_fwd": A.launches, "attn_fwd_by": dict(A.launches_by_variant),
+            "attn_bwd": A.backward_launches}
+
+
+def check_counts(counts, n_fwd, n_bwd, what):
+    """Per forward 62 conv3x3 (60 tc, 1 narrow, 1 simt) and 4 attention
+    (mma); per backward 61 conv3x3 input gradients (60 tc, 1 simt: the
+    final conv's, whose gradient has Cin = 1) and 4 attention backwards."""
+    want = {"conv_fwd": 62 * n_fwd, "conv_fwd_by": {"tc": 60 * n_fwd, "narrow": n_fwd, "simt": n_fwd},
+            "conv_bwd": 61 * n_bwd, "conv_bwd_by": {"tc": 60 * n_bwd, "narrow": 0, "simt": n_bwd},
+            "attn_fwd": 4 * n_fwd, "attn_fwd_by": {"mma": 4 * n_fwd, "simt": 0},
+            "attn_bwd": 4 * n_bwd}
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, want {want} for {n_fwd} forwards "
+                             f"and {n_bwd} backwards")
+
+
+def adaptation_gradients(sampler, x, t, use_kernel):
+    """(loss, {leaf: gradient}) of the sampler's adaptation loss at (x, t),
+    from its start state."""
+    import torch
+
+    with sampler.adapting():
+        names = list(sampler.trainable)
+        loss = sampler.adaptation_loss(x, t, use_kernel=use_kernel)
+        grads = torch.autograd.grad(loss, [sampler.trainable[n] for n in names])
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def lora_leaf_errors(gk, gp):
+    """Per leaf |g_k - g_p| / |g_p| (2-norms), and the same over all leaves."""
+    import torch
+
+    per = {}
+    num = den = 0.0
+    for name in gp:
+        diff = float(torch.linalg.vector_norm((gk[name] - gp[name]).double()))
+        ref = float(torch.linalg.vector_norm(gp[name].double()))
+        per[name] = diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf)
+        num, den = num + diff ** 2, den + ref ** 2
+    return per, math.sqrt(num / den)
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=1000, help="DDS steps per image (protocol: 1000)")
-    ap.add_argument("--images", type=int, default=2, help="val images to reconstruct")
+    ap.add_argument("--images", type=int, default=1, help="val images to reconstruct with DDS")
+    ap.add_argument("--adapt-steps", type=int, default=50,
+                    help="outer steps of the adapted phase (protocol: 50)")
+    ap.add_argument("--adapt-images", type=int, default=2,
+                    help="adapted images: val image 0, then the OOD bars phantom")
     args = ap.parse_args()
+    if args.images < 1 or args.adapt_images < 1 or args.adapt_steps < 2:
+        raise SystemExit("chip_smoke: --images and --adapt-images must be at least 1, "
+                         "--adapt-steps at least 2")
     t_all = time.perf_counter()
 
     import torch
@@ -548,6 +859,8 @@ def main() -> None:
         hnd.remove()
     conv_tot, conv_err, conv_variants = check_conv(seen["conv"], gen)
     attn_tot, attn_err = check_attention(seen["attn"], gen)
+    conv_bwd_tot, conv_bwd_err, conv_bwd_variants = check_conv_backward(seen["conv"], gen)
+    attn_bwd_tot, attn_bwd_err = check_attention_backward(seen["attn"], gen)
     log(f"[phase 3 kernels] {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. one full-width UNet forward, kernels against plain versions
@@ -567,15 +880,84 @@ def main() -> None:
         raise AssertionError("UNet forward with kernels disagrees with the plain path")
     log(f"[phase 4 unet] {time.perf_counter() - t0:.1f} s")
 
-    # ---- 5. DDS reconstruction through the factory entry points
+    # ---- 5. full-width gradient of the adaptation loss, kernels against plain
     t0 = time.perf_counter()
+    model_l, _, _ = F.get_standard_score(config, sde, ckpt_path=CKPT, lora_rank=LORA_RANK)
+    config32 = copy.deepcopy(config)
+    config32.model.dtype = "float32"
+    model_32, _, _ = F.get_standard_score(config32, sde, ckpt_path=CKPT, lora_rank=LORA_RANK)
     trafo = F.get_standard_ray_trafo(config)
-    images = np.load(VALSET)["images"][:args.images]            # (N, 256, 256, 1)
-    C.launches = A.launches = 0
-    C.launches_by_variant = dict.fromkeys(C.VARIANTS, 0)
-    A.launches_by_variant = dict.fromkeys(A.VARIANTS, 0)
+    images = np.load(VALSET)["images"]                          # (N, 256, 256, 1)
+    g = torch.Generator(device="cuda").manual_seed(config.seed)
+    gt, obs, _ = F.get_data_from_ground_truth(images[0], trafo, config.data.stddev, generator=g)
+    samplers = {name: F.get_standard_adapted_sampler(
+        "dds", m, sde, trafo, obs, num_steps=50, lora_rank=LORA_RANK, add_cg=True, cg_iter=1,
+        dc_type="cg", tv_penalty=1e-6, lr=1e-3) for name, m in (("bf16", model_l), ("fp32", model_32))}
+    # every up-projection drawn nonzero, so that every branch carries gradient
+    lora = {n: (v if n.endswith(".down") else 0.01 * torch.randn(v.shape, generator=gen, device="cuda"))
+            for n, v in samplers["bf16"].lora.items()}
+    for smp in samplers.values():
+        smp.lora = lora
+    tg = torch.full((1,), 0.5, device="cuda")
+    xg = gt + sde.marginal_prob_std(tg).reshape(1, 1, 1, 1) * torch.randn(
+        gt.shape, generator=gen, device="cuda")
+    reset_counts()
+    loss_k, gk = adaptation_gradients(samplers["bf16"], xg, tg, True)
+    counts = read_counts()
+    check_counts(counts, 1, 1, "one forward and backward of the adaptation loss")
+    loss_p, gp = adaptation_gradients(samplers["bf16"], xg, tg, False)
+    loss_32, g32 = adaptation_gradients(samplers["fp32"], xg, tg, False)
+    loss_32k, g32k = adaptation_gradients(samplers["fp32"], xg, tg, True)
+    del samplers["fp32"], model_32
+    per_kp, total_kp = lora_leaf_errors(gk, gp)
+    per_k32, total_k32 = lora_leaf_errors(gk, g32)
+    per_p32, total_p32 = lora_leaf_errors(gp, g32)
+    per_f32, total_f32 = lora_leaf_errors(g32k, g32)
+    n_lora = sum(n.endswith((".down", ".up")) for n in gk)
+    slack = {n: per_k32[n] - max(TOL_GRAD_LEAF_FACTOR * per_p32[n], TOL_GRAD_LEAF) for n in gk}
+    worst = sorted(gk, key=lambda n: -slack[n])[:5]
+    log(f"  adaptation loss gradient at 256², LoRA r={LORA_RANK}: {len(gk)} trainable leaves "
+        f"({n_lora} LoRA, {len(gk) - n_lora} biases); loss bf16 kernels {loss_k:.6e}, bf16 plain "
+        f"{loss_p:.6e}, fp32 plain {loss_32:.6e}, fp32 kernels {loss_32k:.6e}")
+    log(f"  |g_a - g_b| / |g_b| over all leaves: bf16 kernels vs bf16 plain {total_kp:.3e} (tol "
+        f"{TOL_GRAD_ALL}); vs the fp32 plain gradient: bf16 kernels {total_k32:.3e}, bf16 plain "
+        f"{total_p32:.3e}; fp32 kernels vs fp32 plain {total_f32:.3e}, worst leaf "
+        f"{max(per_f32.values()):.3e} (tol {TOL_GRAD_FP32})")
+    log(f"  per leaf, distance from the fp32 gradient, bf16 kernels against bf16 plain (tol "
+        f"max({TOL_GRAD_LEAF_FACTOR} x plain, {TOL_GRAD_LEAF})), closest to the bound: "
+        + ", ".join(f"{n} {per_k32[n]:.3e} vs {per_p32[n]:.3e}" for n in worst)
+        + f"; largest per leaf: bf16 kernels vs bf16 plain {max(per_kp.values()):.3e}, distance "
+        f"from the fp32 gradient {max(per_k32.values()):.3e} (bf16 kernels), "
+        f"{max(per_p32.values()):.3e} (bf16 plain)")
+    log("  launches of one forward and backward: " + json.dumps(counts))
+    if not (math.isfinite(total_kp) and total_kp <= TOL_GRAD_ALL and max(slack.values()) <= 0
+            and max(per_f32.values()) <= TOL_GRAD_FP32
+            and all(torch.isfinite(v).all() for v in gk.values())):
+        raise AssertionError("the full-width LoRA gradient with kernels disagrees with the plain path")
+    sampler = samplers["bf16"]
+    with sampler.adapting():
+        params = list(sampler.trainable.values())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss = sampler.adaptation_loss(xg, tg)
+        ev[1].record()
+        torch.autograd.grad(loss, params)
+        ev[2].record()
+        torch.cuda.synchronize()
+        del loss                    # its graph would hold the gradient accumulators
+        fwd_wall, bwd_wall = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        fwd_dev = time_ms(lambda: sampler.adaptation_loss(xg, tg).detach(), 3)
+        both_dev = time_ms(lambda: torch.autograd.grad(sampler.adaptation_loss(xg, tg), params), 3)
+    log(f"  one forward + backward of the loss: wall {fwd_wall:.2f} + {bwd_wall:.2f} ms (CUDA events, "
+        f"eager); device time (graph replay) forward {fwd_dev:.2f} ms, forward + backward "
+        f"{both_dev:.2f} ms, so the backward {both_dev - fwd_dev:.2f} ms")
+    log(f"[phase 5 gradient] {time.perf_counter() - t0:.1f} s")
+
+    # ---- 6. DDS reconstruction through the factory entry points
+    t0 = time.perf_counter()
+    reset_counts()
     step_s, results, splits = [], [], []
-    for i, img in enumerate(images):
+    for i, img in enumerate(images[:args.images]):
         g = torch.Generator(device="cuda").manual_seed(config.seed + i)
         gt, obs, fbp = F.get_data_from_ground_truth(img, trafo, config.data.stddev, generator=g)
         timer = StepTimer(score_fn, P.cg, first_step=max(args.steps - SPLIT_STEPS, 0))
@@ -601,7 +983,7 @@ def main() -> None:
         results.append((p, fp))
         log(f"  image {i}: DDS {p:.2f} dB / {s:.4f} SSIM | FBP {fp:.2f} dB / {fs:.4f} SSIM | "
             f"{step_s[-1] * 1e3:.2f} ms/step")
-    n_fwd = args.steps * len(images)
+    n_fwd = args.steps * len(results)
     conv_launches, attn_launches = C.launches, A.launches
     by_variant, attn_by_variant = dict(C.launches_by_variant), dict(A.launches_by_variant)
     log(f"  launches in the DDS run: conv3x3 {conv_launches} ({conv_launches / n_fwd:g} per forward: "
@@ -609,13 +991,13 @@ def main() -> None:
         + f"), attention {attn_launches} ({attn_launches / n_fwd:g} per forward: "
         + ", ".join(f"{v} {k / n_fwd:g}" for v, k in attn_by_variant.items()) + ")")
     ms_step = 1e3 * float(np.mean(step_s))
-    log(f"  DDS {args.steps} steps x {len(images)} images: {ms_step:.2f} ms/step, "
+    log(f"  DDS {args.steps} steps x {len(results)} images: {ms_step:.2f} ms/step, "
         f"{1e3 / ms_step:.2f} steps/s, mean PSNR {np.mean([p for p, _ in results]):.2f} dB "
         f"vs FBP {np.mean([f for _, f in results]):.2f} dB")
     # inside the loop: medians over the last steps of each image
     med = {key: float(np.median([row[key] for row in splits])) for key in ("step", "unet", "cg", "rest")}
     log(f"  per step inside the DDS loop (CUDA events, median of the last {len(splits)} steps over "
-        f"{len(images)} images): step {med['step']:.2f} ms = UNet forward {med['unet']:.2f} ms + "
+        f"{len(results)} images): step {med['step']:.2f} ms = UNet forward {med['unet']:.2f} ms + "
         f"CG(5) {med['cg']:.2f} ms + rest {med['rest']:.2f} ms (the rest: Tweedie, DDIM, noise, "
         f"and the loop's own host time)")
     if min(min(row.values()) for row in splits) < 0:
@@ -639,23 +1021,95 @@ def main() -> None:
     for i, (p, fp) in enumerate(results):
         if not p > fp:
             raise AssertionError(f"image {i}: DDS {p:.2f} dB does not beat FBP {fp:.2f} dB")
-    log(f"[phase 5 dds] {time.perf_counter() - t0:.1f} s")
+    if C.backward_launches or A.backward_launches:
+        raise AssertionError("the DDS run launched a backward kernel")
+    log(f"[phase 6 dds] {time.perf_counter() - t0:.1f} s")
 
-    # ---- 6. kernel summary, 7. device line
+    # ---- 7. LoRA-adapted DDS of val image 0 and the OOD bars phantom
+    t0 = time.perf_counter()
+    phantoms = [("val image 0", images[0]), ("OOD bars", ood_bars(256)[..., None])]
+    adapt_counts, adapt_rows = None, []
+    n_steps = args.adapt_steps
+    for i, (what, img) in enumerate(phantoms[:args.adapt_images]):
+        g = torch.Generator(device="cuda").manual_seed(config.seed + 100 + i)
+        gt, obs, fbp = F.get_data_from_ground_truth(img, trafo, config.data.stddev, generator=g)
+        sampler = F.get_standard_adapted_sampler(
+            "dds", model_l, sde, trafo, obs, num_steps=n_steps, eta=0.85, gamma=0.01,
+            tv_penalty=1e-6, lr=1e-3, num_optim_step=10, adapt_freq=1, lora_rank=LORA_RANK,
+            add_cg=True, dc_type="cg", cg_iter=1, ground_truth=gt, lora_seed=i)
+        timer = AdaptTimer(sampler)
+        torch.cuda.synchronize()
+        reset_counts()
+        ts = time.perf_counter()
+        xa, trace = sampler.sample(generator=g, return_trace=True)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - ts
+        counts = read_counts()
+        check_counts(counts, n_steps * 12 + 1, n_steps * 10, f"adapted {what}")
+        adapt_counts = counts if adapt_counts is None else {
+            k: (v + counts[k] if isinstance(v, int) else {kk: vv + counts[k][kk] for kk, vv in v.items()})
+            for k, v in adapt_counts.items()}
+        adapt_rows.extend(timer.split())
+        dds = F.get_standard_sampler("dds", score_fn, sde, trafo, obs, num_steps=n_steps,
+                                     im_shape=(256, 256, 1), gamma=0.01, eta=0.85, cg_iter=5)
+        xd, _ = dds.sample(generator=g)
+        g_np, f_np = gt[0, ..., 0].cpu().numpy(), fbp[0, ..., 0].cpu().numpy()
+        rec = {}
+        for name, xr in (("adapted", xa), ("dds", xd)):
+            r = xr[0, ..., 0].float().cpu().numpy()
+            if not (xr.shape == (1, 256, 256, 1) and np.isfinite(r).all()):
+                raise AssertionError(f"{what}: {name} reconstruction not finite or of the wrong shape")
+            r = np.clip(r, 0, 1)
+            rec[name] = (PSNR(r, g_np), SSIM(r, g_np))
+        fb = (PSNR(f_np, g_np), SSIM(f_np, g_np))
+        tr = trace.float().cpu().numpy()
+        log(f"  {what}: adapted {rec['adapted'][0]:.2f} dB / {rec['adapted'][1]:.4f} SSIM | "
+            f"DDS {n_steps} steps {rec['dds'][0]:.2f} dB / {rec['dds'][1]:.4f} | FBP {fb[0]:.2f} dB / "
+            f"{fb[1]:.4f} | {wall_s:.1f} s, {wall_s / n_steps * 1e3:.0f} ms per outer step; Tweedie "
+            f"PSNR trace {tr[0]:.2f} -> {tr[len(tr) // 2]:.2f} -> {tr[-1]:.2f} dB")
+        # the quality gate holds the protocol's 50 outer steps (or more); a
+        # shortened probe (--adapt-steps) prints its numbers ungated
+        if n_steps >= ADAPT_PROTOCOL_STEPS and not rec["adapted"][0] > fb[0]:
+            raise AssertionError(f"{what}: adapted {rec['adapted'][0]:.2f} dB does not beat FBP "
+                                 f"{fb[0]:.2f} dB")
+    if adapt_rows:
+        med = {k: float(np.median([row[k] for row in adapt_rows]))
+               for k in ("step", "adapt", "fwd_adapted", "fwd_prior", "rest")}
+        log(f"  per outer step (CUDA events, median of {len(adapt_rows)} steps): step "
+            f"{med['step']:.1f} ms = adaptation {med['adapt']:.1f} ms (10 Adam steps, "
+            f"{med['adapt'] / 10:.1f} ms each) + adapted forward {med['fwd_adapted']:.2f} ms + prior "
+            f"forward {med['fwd_prior']:.2f} ms + rest {med['rest']:.2f} ms (Tweedie, cg(1), DDIM)")
+    log("  launches in the adapted runs: " + json.dumps(adapt_counts))
+    log(f"[phase 7 adapted] {time.perf_counter() - t0:.1f} s")
+
+    # ---- 8. kernel summary, device line
     src = "diffusion_models_dev_project_tpu_torch/csrc/"
     conv_src = {"tc": src + "conv3x3_tc.cu", "narrow": src + "conv3x3.cu", "simt": src + "conv3x3.cu"}
     kernels = []
-    for name, source, tot, err, launches, replaces in (
+    for name, source, tot, err, launches, replaces, bwd in (
             ("conv3x3", conv_src["tc"], conv_tot, conv_err, conv_launches,
-             "diffusion_models_dev_project_tpu/ops/conv3x3.py:35"),
+             "diffusion_models_dev_project_tpu/ops/conv3x3.py:35",
+             (conv_src["tc"], conv_bwd_tot, conv_bwd_err, adapt_counts["conv_bwd"])),
             ("attention", src + "attention_mma.cu", attn_tot, attn_err, attn_launches,
-             "diffusion_models_dev_project_tpu/ops/attention.py:43")):
+             "diffusion_models_dev_project_tpu/ops/attention.py:43",
+             (src + "attention_bwd.cu", attn_bwd_tot, attn_bwd_err, adapt_counts["attn_bwd"]))):
+        b_src, b_tot, b_err, b_launches = bwd
+        fwd_key = "conv_fwd" if name == "conv3x3" else "attn_fwd"
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
-            "library_ms": tot["library_ms"]})
+            "library_ms": tot["library_ms"],
+            "launches_adapted": adapt_counts[fwd_key],    # forward launches of the adapted runs
+            # per UNet backward; launches from the adapted runs
+            "backward": {"source": b_src, "launches": b_launches, "ms": b_tot["ms"],
+                         "plain_ms": b_tot["plain_ms"], "bound_ms": b_tot["bound_ms"],
+                         "bound_by": "operations" if b_tot["ops_ms"] >= b_tot["bytes_ms"] else "bytes",
+                         "library_ms": b_tot["library_ms"], "max_abs_err": b_err}})
+    kernels[0]["backward"]["variants"] = {
+        v: {"source": conv_src[v], "launches": adapt_counts["conv_bwd_by"][v],
+            "calls_per_backward": k} for v, k in conv_bwd_variants.items()}
     # the simt kernel at the shapes tc takes, per forward; each variant's share
     kernels[0]["simt_ms"] = conv_tot["simt_ms"]
     kernels[0]["variants"] = {

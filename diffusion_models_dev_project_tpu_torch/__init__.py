@@ -3,9 +3,9 @@
 The JAX package beside this one is the reference; this package imports
 nothing of it and nothing of JAX.  Sub-packages carry the same names as the
 JAX package's, so every module has an obvious counterpart.  The two Pallas
-TPU kernels of the reference are hand-written CUDA here (`csrc/`, built by
-`ops/_build.py` with nvcc and loaded with ctypes); everything else is plain
-PyTorch.
+TPU kernels of the reference are hand-written CUDA here, and so are their
+gradients (`csrc/`, built by `ops/_build.py` with nvcc and loaded with
+ctypes); everything else is plain PyTorch.
 
 Entry points (`factory.py`) run on `cuda` unless the caller passes
 `device="cpu"`, and raise when neither is possible.  Public tensors keep the

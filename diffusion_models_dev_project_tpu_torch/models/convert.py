@@ -10,7 +10,8 @@ Arrays arrive as msgpack extension type 1 whose payload is itself msgpack:
 names, which follow the flax tree: fp16/bf16 storage becomes fp32 masters,
 dense kernels (I, O) and 1x1 conv kernels (1, 1, I, O) become `nn.Linear`
 weights (O, I), 3x3 conv kernels stay HWIO, and GroupNorm `scale` becomes
-`weight`.
+`weight`.  `lora_from_flax` maps the JAX `lora` collection (LoRA `down` and
+`up` leaves) onto the port's `<layer>_lora` modules the same way.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["load_flax_msgpack", "unpack_msgpack", "params_from_flax"]
+__all__ = ["load_flax_msgpack", "lora_from_flax", "unpack_msgpack", "params_from_flax"]
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 
@@ -175,4 +176,24 @@ def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         elif name != "bias":
             raise ValueError(f"unexpected parameter {'/'.join(path)}")
         out[".".join([*mods, name])] = torch.from_numpy(np.array(a))   # a writable copy
+    return out
+
+
+def lora_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's LoRA parameters (fp32 tensors on the CPU) from the JAX
+    `lora` collection: 3x3 `down` kernels stay HWIO, 1x1 kernels (1, 1, I, O)
+    and dense (I, O) leaves become (O, I)."""
+    out = {}
+    for path, leaf in _flatten(tree):
+        a = np.asarray(leaf, dtype=np.float32)
+        *mods, name = path
+        if name not in ("down", "up") or not mods or not mods[-1].endswith("_lora"):
+            raise ValueError(f"unexpected LoRA leaf {'/'.join(path)}")
+        if a.ndim == 4 and a.shape[:2] == (1, 1):
+            a = a.reshape(a.shape[2:]).T
+        elif a.ndim == 2:
+            a = a.T
+        elif a.ndim != 4 or a.shape[:2] != (3, 3):
+            raise ValueError(f"unexpected LoRA leaf {'/'.join(path)} {a.shape}")
+        out[".".join([*mods, name])] = torch.from_numpy(np.array(a))
     return out

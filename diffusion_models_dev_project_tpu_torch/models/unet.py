@@ -1,9 +1,9 @@
 """ADM ("guided-diffusion") score UNet in PyTorch, NHWC.
 
-Port of `models/unet.py` of the JAX package without LoRA: the same
-`UNetConfig`, the same `build_arch_spec` walk, and modules named after the
-flax parameter tree (`in_1_0.conv1`, `mid_1.qkv`, `time_dense_0`, ...), so a
-flax checkpoint maps onto `state_dict()` mechanically (`models/convert.py`).
+Port of `models/unet.py` of the JAX package: the same `UNetConfig`, the
+same `build_arch_spec` walk, and modules named after the flax parameter tree
+(`in_1_0.conv1`, `mid_1.qkv`, `time_dense_0`, ...), so a flax checkpoint
+maps onto `state_dict()` mechanically (`models/convert.py`).
 
 Conventions kept from the reference:
 - sinusoidal timestep embedding, cos first, max_period 10000;
@@ -13,12 +13,22 @@ Conventions kept from the reference:
   the channel layout is [head][q|k|v][ch]) and d^-1/4 scaling on q and k;
 - a `learn_sigma` model (2 output channels) returns channel 0.
 
-Every stride-1 3x3 conv runs through `ops.conv3x3.conv3x3` and every
-attention through `ops.attention.attention`, the two hand-written CUDA
-kernels on a CUDA tensor.  With `dtype="bfloat16"` the body computes in bf16
+Every stride-1 3x3 conv of the base model runs through `ops.conv3x3.conv3x3`
+and every attention through `ops.attention.attention`, the two hand-written
+CUDA kernels on a CUDA tensor (the LoRA branches below are `F.conv2d` and
+`F.linear`, as JAX computes them outside its Pallas kernels).  With `dtype="bfloat16"` the body computes in bf16
 (fp32 accumulation inside the kernels and cuBLAS); the final GroupNorm and
 conv run in the input's dtype, as in the reference.  Weights keep the JAX
 layouts: 3x3 convs HWIO, dense and 1x1 layers as `nn.Linear` (O, I).
+
+Steerable adaptation (`lora_rank` > 0): every conv and dense layer of the
+ResBlocks and AttentionBlocks of the groups named in `lora_include_blocks`
+gains a low-rank branch (`LoRAConv`, `LoRADense`; module `<layer>_lora`, as
+the JAX `lora` collection names it), scaled by the forward's `lora_scale`.
+The branches compute in fp32, as JAX casts x to the LoRA weights' dtype; the
+port adds a branch to its base layer's output in the compute dtype, so that
+a bf16 model keeps its bf16 kernels (JAX promotes the sum to fp32 there).
+At `lora_scale` 0 the branches are skipped: their output would be 0.
 """
 from __future__ import annotations
 
@@ -33,8 +43,8 @@ from torch import nn
 from ..ops.attention import attention
 from ..ops.conv3x3 import conv3x3
 
-__all__ = ["UNetModel", "UNetConfig", "build_arch_spec", "timestep_embedding",
-           "create_model_config", "group_norm32"]
+__all__ = ["LoRAConv", "LoRADense", "UNetModel", "UNetConfig", "build_arch_spec",
+           "timestep_embedding", "create_model_config", "group_norm32"]
 
 
 # ----------------------------------------------------------------- config
@@ -61,6 +71,10 @@ class UNetConfig:
     attention_impl: str = "auto"
     small_conv_matmul: int = 0
     pallas_conv_min: int = 0
+    # steerable adaptation: LoRA rank (0: none) and the block groups it covers
+    lora_rank: int = 0
+    lora_include_blocks: Tuple[str, ...] = (
+        "input_blocks", "middle_block", "output_blocks", "out")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -264,6 +278,54 @@ class Dense(nn.Linear):
                         self.bias.to(self.dtype))
 
 
+class LoRAConv(nn.Module):
+    """Low-rank conv branch (JAX `LoRAConv`): a rank-r down-projection with
+    the base conv's geometry, 3x3 zero-pad 1 (`down` HWIO (3, 3, Cin, r)) or
+    1x1 (`down` (r, Cin)), then a 1x1 up-projection (`up` (Cout, r)), times
+    `scale`, in fp32 whatever x's dtype.  Both start at 0 here; the
+    adaptation's `init_lora` draws `down` ~ N(0, 1/r²) and keeps `up` at 0."""
+
+    def __init__(self, cin: int, cout: int, rank: int, kernel: int = 3):
+        super().__init__()
+        self.kernel = kernel
+        self.down = nn.Parameter(torch.zeros((3, 3, cin, rank) if kernel == 3 else (rank, cin)))
+        self.up = nn.Parameter(torch.zeros(cout, rank))
+
+    def forward(self, x, scale: float):
+        x = x.float()
+        if self.kernel == 3:
+            h = F.conv2d(x.permute(0, 3, 1, 2), self.down.float().permute(3, 2, 0, 1),
+                         padding=1).permute(0, 2, 3, 1)
+        else:
+            h = F.linear(x, self.down.float())
+        return _scaled(F.linear(h, self.up.float()), scale)
+
+
+class LoRADense(nn.Module):
+    """Low-rank dense branch (JAX `LoRADense`): x @ downᵀ @ upᵀ times
+    `scale`, in fp32; `down` (r, Cin), `up` (Cout, r)."""
+
+    def __init__(self, cin: int, cout: int, rank: int):
+        super().__init__()
+        self.down = nn.Parameter(torch.zeros(rank, cin))
+        self.up = nn.Parameter(torch.zeros(cout, rank))
+
+    def forward(self, x, scale: float):
+        return _scaled(F.linear(F.linear(x.float(), self.down.float()), self.up.float()), scale)
+
+
+def _with_lora(base_out, branch, x, scale):
+    """base_out plus the LoRA branch on x, in base_out's dtype."""
+    if branch is None or scale == 0:
+        return base_out
+    return base_out + branch(x, scale).to(base_out.dtype)
+
+
+def _scaled(h, scale):
+    """h * scale, without the op at scale 1 (the adapted path's every call)."""
+    return h if scale == 1 else h * scale
+
+
 def _upsample_nearest(x):
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
@@ -275,56 +337,70 @@ def _avg_pool2(x):
 
 class ResBlock(nn.Module):
     def __init__(self, spec: ResSpec, emb_ch: int, use_scale_shift_norm: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, lora_rank: int = 0):
         super().__init__()
         self.spec = spec
         self.use_scale_shift_norm = use_scale_shift_norm
+        r = lora_rank
+        emb_out = 2 * spec.out_ch if use_scale_shift_norm else spec.out_ch
         self.norm1 = GroupNorm32(spec.in_ch)
         self.conv1 = Conv3x3(spec.in_ch, spec.out_ch, dtype)
-        self.emb = Dense(emb_ch, 2 * spec.out_ch if use_scale_shift_norm else spec.out_ch, dtype)
+        self.conv1_lora = LoRAConv(spec.in_ch, spec.out_ch, r) if r else None
+        self.emb = Dense(emb_ch, emb_out, dtype)
+        self.emb_lora = LoRADense(emb_ch, emb_out, r) if r else None
         self.norm2 = GroupNorm32(spec.out_ch)
         self.conv2 = Conv3x3(spec.out_ch, spec.out_ch, dtype)
+        self.conv2_lora = LoRAConv(spec.out_ch, spec.out_ch, r) if r else None
         self.skip = Dense(spec.in_ch, spec.out_ch, dtype) if spec.out_ch != spec.in_ch else None
+        self.skip_lora = (LoRAConv(spec.in_ch, spec.out_ch, r, kernel=1)
+                          if r and self.skip is not None else None)
 
-    def forward(self, x, emb, use_kernel: bool = True):
+    def forward(self, x, emb, use_kernel: bool = True, lora_scale: float = 1.0):
         h = F.silu(self.norm1(x))
         if self.spec.mode == "up":
             h, x = _upsample_nearest(h), _upsample_nearest(x)
         elif self.spec.mode == "down":
             h, x = _avg_pool2(h), _avg_pool2(x)
-        h = self.conv1(h, use_kernel)
-        emb_out = self.emb(F.silu(emb))[:, None, None, :]
+        h = _with_lora(self.conv1(h, use_kernel), self.conv1_lora, h, lora_scale)
+        emb_in = F.silu(emb)
+        emb_out = _with_lora(self.emb(emb_in), self.emb_lora, emb_in, lora_scale)[:, None, None, :]
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=-1)
             h = self.norm2(h) * (1 + scale) + shift
         else:
             h = self.norm2(h + emb_out)
-        h = self.conv2(F.silu(h), use_kernel)
-        skip = x if self.skip is None else self.skip(x)
+        h = F.silu(h)
+        h = _with_lora(self.conv2(h, use_kernel), self.conv2_lora, h, lora_scale)
+        skip = x if self.skip is None else _with_lora(self.skip(x), self.skip_lora, x, lora_scale)
         return skip + h
 
 
 class AttentionBlock(nn.Module):
-    def __init__(self, spec: AttnSpec, dtype: torch.dtype):
+    def __init__(self, spec: AttnSpec, dtype: torch.dtype, lora_rank: int = 0):
         super().__init__()
         self.spec = spec
+        r = lora_rank
         self.norm = GroupNorm32(spec.ch)
         self.qkv = Dense(spec.ch, 3 * spec.ch, dtype)
+        self.qkv_lora = LoRADense(spec.ch, 3 * spec.ch, r) if r else None
         self.proj = Dense(spec.ch, spec.ch, dtype)
+        self.proj_lora = LoRADense(spec.ch, spec.ch, r) if r else None
 
-    def forward(self, x, use_kernel: bool = True):
+    def forward(self, x, use_kernel: bool = True, lora_scale: float = 1.0):
         b, hgt, wid, c = x.shape
         heads = self.spec.num_heads
         ch = c // heads
         hw = hgt * wid
-        qkv = self.qkv(self.norm(x).reshape(b, hw, c))
+        h = self.norm(x).reshape(b, hw, c)
+        qkv = _with_lora(self.qkv(h), self.qkv_lora, h, lora_scale)
         # legacy order: heads split BEFORE q/k/v -> [head][q|k|v][ch]
         qkv = qkv.reshape(b, hw, heads, 3 * ch).permute(0, 2, 1, 3)    # (b, heads, hw, 3ch)
         q, k, v = (a.reshape(b * heads, hw, ch).contiguous()
                    for a in qkv.split(ch, dim=-1))
         att = attention(q, k, v, use_kernel=use_kernel)
         att = att.reshape(b, heads, hw, ch).permute(0, 2, 1, 3).reshape(b, hw, c)
-        return x + self.proj(att).reshape(b, hgt, wid, c)
+        out = _with_lora(self.proj(att), self.proj_lora, att, lora_scale)
+        return x + out.reshape(b, hgt, wid, c)
 
 
 class Sample(nn.Module):
@@ -371,35 +447,45 @@ class UNetModel(nn.Module):
         for group, prefix, block in groups:
             layers = []
             for j, spec in enumerate(block):
-                self.add_module(f"{prefix}_{j}", self._make(spec, dtype))
+                self.add_module(f"{prefix}_{j}", self._make(spec, dtype, self._lora_rank_for(group)))
                 layers.append((f"{prefix}_{j}", spec))
             self._blocks.append((group, layers))
         last_ch = int(cfg.channel_mult[0] * mc)
         self.final_norm = GroupNorm32(last_ch)
         self.final_conv = Conv3x3(last_ch, cfg.out_channels, torch.float32)
 
-    def _make(self, spec, dtype):
+    _LORA_GROUPS = {"in": "input_blocks", "mid": "middle_block", "out": "output_blocks"}
+
+    def _lora_rank_for(self, group: str) -> int:
+        cfg = self.cfg
+        return cfg.lora_rank if self._LORA_GROUPS[group] in cfg.lora_include_blocks else 0
+
+    def _make(self, spec, dtype, lora_rank):
         cfg = self.cfg
         if isinstance(spec, ResSpec):
-            return ResBlock(spec, 4 * cfg.model_channels, cfg.use_scale_shift_norm, dtype)
+            return ResBlock(spec, 4 * cfg.model_channels, cfg.use_scale_shift_norm, dtype,
+                            lora_rank)
         if isinstance(spec, AttnSpec):
-            return AttentionBlock(spec, dtype)
+            return AttentionBlock(spec, dtype, lora_rank)
         if isinstance(spec, SampleSpec):
             return Sample(spec, dtype)
         if isinstance(spec, ConvSpec):
             return Conv3x3(spec.in_ch, spec.out_ch, dtype)
         raise TypeError(spec)
 
-    def _call(self, name, spec, h, emb, use_kernel):
+    def _call(self, name, spec, h, emb, use_kernel, lora_scale):
         layer = getattr(self, name)
         if isinstance(spec, ResSpec):
-            return layer(h, emb, use_kernel)
+            return layer(h, emb, use_kernel, lora_scale)
+        if isinstance(spec, AttnSpec):
+            return layer(h, use_kernel, lora_scale)
         return layer(h, use_kernel)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                use_kernel: bool = True) -> torch.Tensor:
+                use_kernel: bool = True, lora_scale: float = 1.0) -> torch.Tensor:
         """`use_kernel=False` runs every conv and attention through its plain
-        PyTorch version on a CUDA tensor too (for comparisons only)."""
+        PyTorch version on a CUDA tensor too (for comparisons only).
+        `lora_scale` scales the LoRA branches (1: adapted, 0: the prior)."""
         cfg = self.cfg
         in_dtype = x.dtype
         emb = self.time_dense_0(timestep_embedding(timesteps, cfg.model_channels))
@@ -411,7 +497,7 @@ class UNetModel(nn.Module):
             if group == "out":
                 h = torch.cat([h, hs.pop()], dim=-1)
             for name, spec in layers:
-                h = self._call(name, spec, h, emb, use_kernel)
+                h = self._call(name, spec, h, emb, use_kernel, lora_scale)
             if group == "in":
                 hs.append(h)
 

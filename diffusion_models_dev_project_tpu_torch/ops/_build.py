@@ -40,8 +40,10 @@ _SIGNATURES = {
     "conv3x3_tc_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, BH, T, D, scale, is_bf16, stream
     "attention_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # q, k, v, out, BH, T, D, scale_log2, warps, splits, stream
+    # q, k, v, out, BH, T, D, scale_log2, splits, stream
     "attention_mma_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # q, k, v, out, dout, dq, dk, dv, workspace, BH, T, D, scale, is_bf16, stream
+    "attention_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

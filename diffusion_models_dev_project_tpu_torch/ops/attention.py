@@ -15,6 +15,15 @@ kernels, chosen by `plan` from the dtype and the shape alone:
 Both take any T and d up to `MAX_HEAD_DIM` = 256; wider heads raise.  On a
 CPU tensor, or when the caller passes `use_kernel=False`, `attention` runs
 `attention_reference`.
+
+Gradients (the JAX package differentiates its einsum attention with XLA):
+when q, k or v needs one, `attention` runs as a `torch.autograd.Function`
+that saves q, k, v and the output.  Its backward, `attention_backward`,
+launches `csrc/attention_bwd.cu` on a CUDA tensor (fp32 and bf16, any T,
+d <= 256; two passes with no atomics, laid out by `backward_plan`) and runs
+`attention_backward_reference`, the same formula in plain PyTorch, on a CPU
+tensor or with `use_kernel=False`.  Forward and backward launches are
+counted apart.
 """
 from __future__ import annotations
 
@@ -26,12 +35,16 @@ import torch
 
 from . import _build
 
-__all__ = ["MAX_HEAD_DIM", "Plan", "VARIANTS", "attention", "attention_reference",
-           "attention_tiled_reference", "launches", "launches_by_variant", "plan"]
+__all__ = ["BackwardPlan", "MAX_HEAD_DIM", "Plan", "VARIANTS", "attention",
+           "attention_backward", "attention_backward_reference",
+           "attention_backward_tiled_reference", "attention_reference",
+           "attention_tiled_reference", "backward_launches", "backward_plan", "launches",
+           "launches_by_variant", "plan"]
 
 VARIANTS = ("mma", "simt")
-launches = 0    # attention calls that launched a kernel since the caller last set this to 0
+launches = 0    # forward calls that launched a kernel since the caller last set this to 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)    # the same, by variant
+backward_launches = 0    # backward calls that launched the kernels, the same way
 
 MAX_HEAD_DIM = 256       # the widest head `simt` takes
 MMA_MAX_HEAD_DIM = 128   # the widest head `mma` takes
@@ -39,6 +52,8 @@ MMA_KEY_TILE = 64        # keys per shared-memory tile of `mma`
 MMA_ROWS = 16            # query rows per warp of `mma` (one m16n8k16 row block)
 MMA_WARPS = 4            # warps per block of `mma`: row groups x key splits
 SIMT_ROWS = 64           # query rows per block of `simt` (8 warps, 4 lanes a row)
+BWD_THREADS = 128        # threads per block of the backward kernels
+BWD_GROUP = 4            # keys (queries) per group of independent chains in the backward
 LOG2E = 1.4426950408889634
 
 
@@ -140,27 +155,131 @@ def attention_tiled_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc[..., :d] / l).to(torch.bfloat16)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              use_kernel: bool = True, *, variant: Optional[str] = None) -> torch.Tensor:
-    """q, k, v (B·heads, T, d) -> (B·heads, T, d), d <= `MAX_HEAD_DIM`.
+class BackwardPlan(NamedTuple):
+    """How `attention_backward` lays out one shape (csrc/attention_bwd.cu):
+    the head zero-padded to `d_max` channels, `rows` query (or key) rows per
+    block, each held by d_max / `channels` threads, tiles of `tile` keys (or
+    queries) through shared memory, `grid` = (row blocks, B·heads) for each
+    of the two kernels."""
+    d_max: int
+    channels: int
+    tile: int
+    rows: int
+    grid: Tuple[int, int]
 
-    `variant` (measurements only) forces the kernel that `plan` would
-    choose from dtype and shape."""
-    global launches
-    if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    bh, t, d = q.shape
+
+@functools.lru_cache(maxsize=None)
+def backward_plan(bh: int, t: int, d: int) -> BackwardPlan:
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"attention: head width {d} outside 1..{MAX_HEAD_DIM}, "
                          f"the widest the port's kernels take")
+    d_max = 64 if d <= 64 else 128 if d <= 128 else 256
+    channels = 8 if d_max == 64 else 16
+    rows = BWD_THREADS // (d_max // channels)
+    return BackwardPlan(d_max, channels, 32 if d_max <= 128 else 16, rows, (-(-t // rows), bh))
+
+
+def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 out: torch.Tensor, dout: torch.Tensor):
+    """(dq, dk, dv) of `attention_reference` in plain PyTorch, in fp32 and
+    rounded once to q's dtype: P = softmax((q s)(k s)ᵀ), s = d^-1/4;
+    D = rowsum(dout ∘ out); dS = P ∘ (dout vᵀ − D); dq = s² dS k,
+    dk = s² dSᵀ q, dv = Pᵀ dout."""
+    qf, kf, vf, of, gf = (a.float() for a in (q, k, v, out, dout))
+    scale = 1.0 / math.sqrt(math.sqrt(q.shape[-1]))
+    p = torch.softmax(torch.einsum("btc,bsc->bts", qf * scale, kf * scale), dim=-1)
+    dp = torch.einsum("btc,bsc->bts", gf, vf)
+    ds = p * (dp - (gf * of).sum(-1, keepdim=True))
+    s2 = scale * scale
+    dq = torch.einsum("bts,bsc->btc", ds, kf) * s2
+    dk = torch.einsum("bts,btc->bsc", ds, qf) * s2
+    dv = torch.einsum("bts,btc->bsc", p, gf)
+    return tuple(a.to(q.dtype) for a in (dq, dk, dv))
+
+
+def attention_backward_tiled_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                       out: torch.Tensor, dout: torch.Tensor,
+                                       p: BackwardPlan):
+    """The backward kernels' arithmetic, step by step as `p` lays it out
+    (for tests), in fp32: the head zero-padded to `p.d_max`; the query pass
+    keeps a running max and sum of exp over groups of `BWD_GROUP` keys,
+    then D = rowsum(dout ∘ out) and, tile by tile of `p.tile` keys,
+    dq += dS (k s); the key pass
+    takes lse and D from the query pass and, tile by tile of queries,
+    dv += P dout and dk += dS (q s).  Rows and keys past T never enter a
+    sum; dq and dk take their last factor s at the end."""
+    bh, t, d = q.shape
+    scale = 1.0 / math.sqrt(math.sqrt(d))
+
+    def pad(a, mul=1.0):
+        return torch.nn.functional.pad(a.float() * mul, (0, p.d_max - d))
+
+    qs, ks, vf, gf = pad(q, scale), pad(k, scale), pad(v), pad(dout)
+    delta = (gf * pad(out)).sum(-1)                          # (bh, t)
+    m = torch.full((bh, t), -math.inf)
+    l = torch.zeros(bh, t)
+    for j in range(0, t, BWD_GROUP):                         # pass 1, a group at a time
+        s = qs @ ks[:, j:j + BWD_GROUP].transpose(1, 2)      # the group's keys (< T)
+        m_new = torch.maximum(m, s.amax(-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
+        m = m_new
+    lse = m + torch.log(l)
+    dq = torch.zeros(bh, t, p.d_max)
+    for j0 in range(0, t, p.tile):                          # pass 2, key tiles
+        kt, vt = ks[:, j0:j0 + p.tile], vf[:, j0:j0 + p.tile]
+        pm = torch.exp(qs @ kt.transpose(1, 2) - lse[..., None])
+        dq += (pm * (gf @ vt.transpose(1, 2) - delta[..., None])) @ kt
+    dk = torch.zeros(bh, t, p.d_max)
+    dv = torch.zeros(bh, t, p.d_max)
+    for i0 in range(0, t, p.tile):                          # key pass, query tiles
+        qt, gt = qs[:, i0:i0 + p.tile], gf[:, i0:i0 + p.tile]
+        pm = torch.exp(ks @ qt.transpose(1, 2) - lse[:, None, i0:i0 + p.tile])
+        dv += pm @ gt
+        dk += (pm * (vf @ gt.transpose(1, 2) - delta[:, None, i0:i0 + p.tile])) @ qt
+    return tuple((a[..., :d] * mul).to(q.dtype) for a, mul in ((dq, scale), (dk, scale), (dv, 1.0)))
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                       dout: torch.Tensor, use_kernel: bool = True):
+    """(dq, dk, dv) of out = attention(q, k, v) given dL/dout, all
+    (B·heads, T, d) in q's dtype.  On a CUDA tensor the kernels of
+    csrc/attention_bwd.cu; on a CPU tensor, or with `use_kernel=False`,
+    `attention_backward_reference`."""
+    global backward_launches
+    bh, t, d = q.shape
+    if not all(a.shape == q.shape for a in (k, v, out, dout)):
+        raise ValueError(f"attention_backward: shapes {[tuple(a.shape) for a in (q, k, v, out, dout)]}")
+    bp = backward_plan(bh, t, d)
     if q.device.type == "cpu" or not use_kernel:
+        return attention_backward_reference(q, k, v, out, dout)
+    if any(a.device != q.device for a in (k, v, out, dout)) or q.device.type != "cuda":
+        raise ValueError("attention_backward: tensors on more than one device, or not on CUDA")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(
+            a.dtype != q.dtype for a in (k, v, out, dout)):
+        raise TypeError(f"attention_backward: dtypes {[a.dtype for a in (q, k, v, out, dout)]}")
+    q, k, v, out, dout = (a.contiguous() for a in (q, k, v, out, dout))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if q.numel() == 0:
+        return dq, dk, dv
+    ws = torch.empty(2 * bh * t, dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.attention_backward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                    dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                    dv.data_ptr(), ws.data_ptr(), bh, t, d,
+                                    1.0 / math.sqrt(math.sqrt(d)),
+                                    int(q.dtype == torch.bfloat16), stream)
+    _build.check(rc, f"attention backward (grid {bp.grid})")
+    backward_launches += 1
+    return dq, dk, dv
+
+
+def _forward(q, k, v, kernel, variant):
+    global launches
+    if not kernel:
         return attention_reference(q, k, v)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"attention: tensors on {q.device}, {k.device}, {v.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or not (k.dtype == v.dtype == q.dtype):
-        raise TypeError(f"attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("attention: q, k and v must be contiguous")
+    bh, t, d = q.shape
     p = plan(bh, t, d, q.dtype, variant)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -178,3 +297,44 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches += 1
     launches_by_variant[p.variant] += 1
     return out
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kernel, variant):
+        out = _forward(q, k, v, kernel, variant)
+        ctx.kernel = kernel
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        grads = attention_backward(q, k, v, out, dout.to(q.dtype), use_kernel=ctx.kernel)
+        return (*grads, None, None)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              use_kernel: bool = True, *, variant: Optional[str] = None) -> torch.Tensor:
+    """q, k, v (B·heads, T, d) -> (B·heads, T, d), d <= `MAX_HEAD_DIM`;
+    differentiable in q, k and v.
+
+    `variant` (measurements only) forces the kernel that `plan` would
+    choose from dtype and shape."""
+    if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    bh, t, d = q.shape
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"attention: head width {d} outside 1..{MAX_HEAD_DIM}, "
+                         f"the widest the port's kernels take")
+    kernel = use_kernel and q.device.type != "cpu"
+    if kernel:
+        if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+            raise ValueError(f"attention: tensors on {q.device}, {k.device}, {v.device}")
+        if q.dtype not in (torch.float32, torch.bfloat16) or not (k.dtype == v.dtype == q.dtype):
+            raise TypeError(f"attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+        if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+            raise ValueError("attention: q, k and v must be contiguous")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Attention.apply(q, k, v, kernel, variant)
+    return _forward(q, k, v, kernel, variant)

@@ -16,6 +16,19 @@ All three accumulate in fp32, add the fp32 bias and round once to the input
 dtype.  On a CPU tensor, or when the caller passes `use_kernel=False`,
 `conv3x3` runs `conv3x3_reference`, the same nine shifted-tap matmuls
 written in PyTorch.
+
+Gradients (the JAX package differentiates its XLA conv, `MatmulConv3x3`):
+when an input needs one, `conv3x3` runs as a `torch.autograd.Function`.
+- The input gradient of a stride-1 zero-pad-1 3x3 conv is the same conv of
+  the output gradient with the kernel flipped in space and Cin, Cout swapped
+  (`swapped_weight`, made once per frozen weight).  `conv3x3_input_grad`
+  runs it through the same three kernels, chosen by `plan` for the swapped
+  channel counts (on a CPU tensor through `conv3x3_reference`).
+- The bias gradient is an fp32 sum of the output gradient over (B, H, W).
+- The weight gradient has no kernel yet (ROADMAP.md, queue 1 item 8): on a
+  CUDA tensor a weight that requires a gradient raises; on the CPU
+  `conv3x3_weight_grad_reference` computes it.
+Forward and input-gradient launches are counted apart.
 """
 from __future__ import annotations
 
@@ -26,12 +39,18 @@ import torch
 
 from . import _build
 
-__all__ = ["Plan", "VARIANTS", "conv3x3", "conv3x3_reference", "conv3x3_tiled_reference",
-           "launches", "launches_by_variant", "plan"]
+__all__ = ["Plan", "VARIANTS", "backward_launches", "backward_launches_by_variant", "conv3x3",
+           "conv3x3_input_grad", "conv3x3_reference", "conv3x3_tiled_reference",
+           "conv3x3_weight_grad_reference", "launches", "launches_by_variant", "plan",
+           "swapped_weight"]
 
 VARIANTS = ("tc", "narrow", "simt")
-launches = 0    # conv3x3 calls that launched a kernel since the caller last set this to 0
+launches = 0    # forward calls that launched a kernel since the caller last set this to 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)    # the same, by variant
+backward_launches = 0    # input-gradient calls that launched a kernel, the same way
+backward_launches_by_variant = dict.fromkeys(VARIANTS, 0)
+WEIGHT_GRAD_MISSING = ("conv3x3: the weight gradient has no CUDA kernel yet (ROADMAP.md, queue 1 "
+                       "item 8); freeze the base conv weights (requires_grad=False) or run on the CPU")
 
 SMS = 132          # streaming multiprocessors of an H100 SXM
 TC_BK = 64         # input channels per K step of `tc` (128 bytes of bf16: one swizzled row)
@@ -179,32 +198,53 @@ def conv3x3_tiled_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.T
     return (y[:, :h, :w, :cout] + bias.float()).to(x.dtype)
 
 
-def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-            use_kernel: bool = True, *, variant: Optional[str] = None,
-            splits: Optional[int] = None) -> torch.Tensor:
-    """x (B, H, W, Cin), weight (3, 3, Cin, Cout), bias (Cout,) -> (B, H, W, Cout).
+def conv3x3_weight_grad_reference(x: torch.Tensor, grad_out: torch.Tensor) -> torch.Tensor:
+    """dL/dW (3, 3, Cin, Cout) in fp32: per tap, the shifted x (zero halo)
+    transposed times the output gradient (the CPU path's weight gradient)."""
+    b, h, w, cin = x.shape
+    g = grad_out.float().reshape(-1, grad_out.shape[-1])
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    return torch.stack([torch.stack([xp[:, di:di + h, dj:dj + w, :].reshape(-1, cin).T @ g
+                                     for dj in range(3)]) for di in range(3)])
 
-    `variant` and `splits` (measurements only) force what `plan` would
-    choose from dtype and shape."""
-    global launches
-    if x.ndim != 4 or weight.shape[:3] != (3, 3, x.shape[-1]) or bias.shape != weight.shape[3:]:
-        raise ValueError(f"conv3x3: bad shapes x {tuple(x.shape)} weight "
-                         f"{tuple(weight.shape)} bias {tuple(bias.shape)}")
-    if x.device.type == "cpu" or not use_kernel:
-        return conv3x3_reference(x, weight, bias)
+
+def _input_grad_operands(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The input-gradient conv's kernel and its zero bias, made once per
+    weight and kept on the weight until its version changes (a frozen base
+    weight never does)."""
+    cached = getattr(weight, "_conv3x3_swapped", None)
+    if cached is None or cached[0] != weight._version:
+        swapped = weight.detach().flip((0, 1)).transpose(2, 3).contiguous()
+        cached = (weight._version, swapped,
+                  torch.zeros(swapped.shape[-1], device=weight.device))
+        weight._conv3x3_swapped = cached
+    return cached[1], cached[2]
+
+
+def swapped_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The input-gradient conv's kernel: `weight` flipped in space with Cin
+    and Cout swapped, (3, 3, Cout, Cin), contiguous."""
+    return _input_grad_operands(weight)[0]
+
+
+def _check_kernel_inputs(x, weight, bias):
     if x.device.type != "cuda" or weight.device != x.device or bias.device != x.device:
         raise ValueError(f"conv3x3: tensors on {x.device}, {weight.device}, {bias.device}")
     if x.dtype not in (torch.float32, torch.bfloat16) or weight.dtype != x.dtype:
         raise TypeError(f"conv3x3: dtypes {x.dtype}, {weight.dtype}; want fp32 or bf16, equal")
     if not (x.is_contiguous() and weight.is_contiguous()):
         raise ValueError("conv3x3: x and weight must be contiguous")
+
+
+def _launch(x, weight, bias, variant, splits) -> Tuple[torch.Tensor, str]:
+    """One kernel launch on checked CUDA tensors; (output, variant)."""
     bsz, h, w, cin = x.shape
     cout = weight.shape[-1]
     p = plan(bsz, h, w, cin, cout, x.dtype, variant, splits)
-    bias32 = bias.float().contiguous()
+    bias32 = bias.detach().float().contiguous()
     out = torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return out
+        return out, None
     lib = _build.library()
     is_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
@@ -221,7 +261,77 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         else:
             rc = lib.conv3x3_forward(*args, bsz, h, w, cin, cout, is_bf16, stream)
     _build.check(rc, f"conv3x3 ({p.variant})")
-    launches += 1
-    launches_by_variant[p.variant] += 1
+    return out, p.variant
+
+
+def _forward(x, weight, bias, kernel, variant, splits):
+    global launches
+    if not kernel:
+        return conv3x3_reference(x, weight, bias)
+    out, used = _launch(x, weight, bias, variant, splits)
+    if used is not None:
+        launches += 1
+        launches_by_variant[used] += 1
     return out
 
+
+def conv3x3_input_grad(grad_out: torch.Tensor, weight: torch.Tensor,
+                       use_kernel: bool = True) -> torch.Tensor:
+    """dL/dx (B, H, W, Cin) of y = conv3x3(x, weight, bias), given dL/dy
+    (B, H, W, Cout): the conv of dL/dy with `swapped_weight(weight)` and no
+    bias, through the kernel `plan` picks for it (`conv3x3_reference` on a
+    CPU tensor or with `use_kernel=False`).  The result has dL/dy's dtype."""
+    global backward_launches
+    ws, zero = _input_grad_operands(weight)
+    if grad_out.device.type == "cpu" or not use_kernel:
+        return conv3x3_reference(grad_out, ws, zero)
+    grad_out = grad_out.contiguous()
+    _check_kernel_inputs(grad_out, ws, zero)
+    out, used = _launch(grad_out, ws, zero, None, None)
+    if used is not None:
+        backward_launches += 1
+        backward_launches_by_variant[used] += 1
+    return out
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, kernel, variant, splits):
+        ctx.kernel = kernel
+        ctx.x_dtype, ctx.bias_dtype = x.dtype, bias.dtype
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, weight)
+        return _forward(x, weight, bias, kernel, variant, splits)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, weight = ctx.saved_tensors
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = conv3x3_input_grad(grad_out.to(weight.dtype), weight, ctx.kernel).to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:            # the plain path only: `conv3x3` refuses the kernel's
+            gw = conv3x3_weight_grad_reference(x, grad_out).to(weight.dtype)
+        if ctx.needs_input_grad[2]:
+            gb = grad_out.float().sum(dim=(0, 1, 2)).to(ctx.bias_dtype)
+        return gx, gw, gb, None, None, None
+
+
+def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            use_kernel: bool = True, *, variant: Optional[str] = None,
+            splits: Optional[int] = None) -> torch.Tensor:
+    """x (B, H, W, Cin), weight (3, 3, Cin, Cout), bias (Cout,) -> (B, H, W, Cout).
+
+    Differentiable in x and bias on every device, and in weight on the CPU.
+    `variant` and `splits` (measurements only) force what `plan` would
+    choose from dtype and shape."""
+    if x.ndim != 4 or weight.shape[:3] != (3, 3, x.shape[-1]) or bias.shape != weight.shape[3:]:
+        raise ValueError(f"conv3x3: bad shapes x {tuple(x.shape)} weight "
+                         f"{tuple(weight.shape)} bias {tuple(bias.shape)}")
+    kernel = use_kernel and x.device.type != "cpu"
+    if kernel:
+        _check_kernel_inputs(x, weight, bias)
+    if not (torch.is_grad_enabled()
+            and (x.requires_grad or weight.requires_grad or bias.requires_grad)):
+        return _forward(x, weight, bias, kernel, variant, splits)
+    if kernel and weight.requires_grad:
+        raise NotImplementedError(WEIGHT_GRAD_MISSING)
+    return _Conv3x3.apply(x, weight, bias, kernel, variant, splits)

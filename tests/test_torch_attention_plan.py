@@ -9,20 +9,29 @@ it is held against the port's plain version and the JAX package's Pallas
 kernel (`interpret=True`, as the JAX package's own tests run it) on inputs
 from numpy with a fixed seed.
 
-torch and the port are imported inside the tests, never at collection
-(see tests/test_torch_kernels.py).
+The torch half of each test runs in a child interpreter (tests/_torch_child.py):
+no pytest process runs torch code.
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from diffusion_models_dev_project_tpu.ops.attention import flash_attention
+import _torch_child as child
 
 # the path's (T, d) at 16² and 8², ragged T, d = 20 and 40 (padded to 32, 48)
 EMULATED = [(256, 64), (64, 64), (300, 64), (100, 20), (257, 40)]
+# (T, d) of the head-width test: d = 20, 160 and 256
+WIDE = [(300, 20), (130, 160), (70, 256)]
 
 
-def _flagship_attention_shapes(monkeypatch):
+def _bf16(a):
+    """fp32 -> the nearest bf16 value (round to nearest even), kept in fp32."""
+    bits = a.astype(np.float32).view(np.uint32)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return bits.view(np.float32)
+
+
+# ------------------------------------------------------------- torch halves
+def _flagship_attention_shapes():
     """(B·heads, T, d, dtype) of each attention call of one flagship 256²
     forward, traced on the meta device with the kernels' wrappers stubbed out."""
     import torch
@@ -39,9 +48,9 @@ def _flagship_attention_shapes(monkeypatch):
         seen.append((*q.shape, q.dtype))
         return torch.empty_like(q)
 
-    monkeypatch.setattr(U, "conv3x3", lambda x, w, b, use_kernel=True:
-                        x.new_empty(x.shape[:3] + (w.shape[-1],)))
-    monkeypatch.setattr(U, "attention", attention)
+    # the child process ends after the case, so the stubs need no undoing
+    U.conv3x3 = lambda x, w, b, use_kernel=True: x.new_empty(x.shape[:3] + (w.shape[-1],))
+    U.attention = attention
     cfg = U.create_model_config(config.model)
     with torch.device("meta"):
         model = U.UNetModel(cfg).to(cfg.torch_dtype)
@@ -49,12 +58,12 @@ def _flagship_attention_shapes(monkeypatch):
     return seen
 
 
-def test_plan_on_the_flagship_attention_calls_and_its_limits(monkeypatch):
+def plan_on_the_flagship_calls():
     import torch
 
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
 
-    shapes = _flagship_attention_shapes(monkeypatch)
+    shapes = _flagship_attention_shapes()
     assert sorted(shapes, key=lambda s: -s[1]) == [(8, 256, 64, torch.bfloat16)] * 3 + [
         (8, 64, 64, torch.bfloat16)]
     for bh, t, d, dt in shapes:
@@ -87,51 +96,87 @@ def test_plan_on_the_flagship_attention_calls_and_its_limits(monkeypatch):
             A.plan(*args)
 
 
-def test_mma_emulation_matches_reference_and_pallas():
+def mma_emulation(**arrays):
     import torch
 
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
 
-    rng = np.random.default_rng(3)
-    for t, d in EMULATED:
-        q, k, v = (torch.from_numpy(rng.normal(size=(3, t, d)).astype(np.float32)).bfloat16().float()
-                   for _ in range(3))
-        pallas = np.asarray(flash_attention(*(jnp.asarray(a.numpy()) for a in (q, k, v)),
-                                            interpret=True))
-        ref = A.attention_reference(q, k, v).numpy()
+    out = {}
+    for i, (t, d) in enumerate(EMULATED):
+        q, k, v = (torch.from_numpy(arrays[f"{i}_{n}"]) for n in "qkv")
+        out[f"{i}_ref"] = A.attention_reference(q, k, v).numpy()
         chosen = A.plan(3, t, d, torch.bfloat16)
         most = min(-(-t // A.MMA_KEY_TILE), 4 if d <= 64 else 2)
         # the plan's own split and every other split the kernel takes here
         for splits in (s for s in (1, 2, 4) if s <= most):
             p = chosen._replace(key_splits=splits,
                                 grid=(-(-t // (A.MMA_ROWS * chosen.warps // splits)), 3))
-            out = A.attention_tiled_reference(q, k, v, p)
-            assert out.dtype == torch.bfloat16 and out.shape == (3, t, d)
-            out = out.float().numpy()
-            # bf16 inputs on all sides; the emulation rounds P and its output
-            # to bf16 (2^-9 relative each), the fp32 sides do not
-            for other in (ref, pallas):
-                assert np.abs(out - other).max() <= 1e-2 * np.abs(other).max(), (t, d, splits)
+            emu = A.attention_tiled_reference(q, k, v, p)
+            assert emu.dtype == torch.bfloat16 and emu.shape == (3, t, d)
+            out[f"{i}_split{splits}"] = emu.float().numpy()
     with pytest.raises(ValueError):
         A.attention_tiled_reference(q, k, v, A.plan(3, t, d, torch.float32))
+    return out
 
 
-def test_head_widths_up_to_256_match_pallas_and_wider_raise():
+def head_widths(**arrays):
     import torch
 
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
 
-    rng = np.random.default_rng(4)
     A.launches = 0
     A.launches_by_variant = dict.fromkeys(A.VARIANTS, 0)
-    for t, d in ((300, 20), (130, 160), (70, 256)):
-        q, k, v = (rng.normal(size=(2, t, d)).astype(np.float32) for _ in range(3))
-        pallas = np.asarray(flash_attention(*(jnp.asarray(a) for a in (q, k, v)), interpret=True))
-        out = A.attention(*(torch.from_numpy(a) for a in (q, k, v)))
-        # fp32 on both sides, sums of up to 256 products in another order
-        np.testing.assert_allclose(out.numpy(), pallas, rtol=2e-4, atol=2e-5, err_msg=str((t, d)))
+    out = {}
+    for i in range(len(WIDE)):
+        out[str(i)] = A.attention(*(torch.from_numpy(arrays[f"{i}_{n}"]) for n in "qkv")).numpy()
     assert A.launches == 0 and set(A.launches_by_variant.values()) == {0}   # no kernel ran
     wide = torch.zeros(1, 4, 257)
     for kw in ({}, {"use_kernel": False}):
         with pytest.raises(ValueError, match="256"):
             A.attention(wide, wide, wide, **kw)
+    return out
+
+
+if __name__ == "__main__":
+    child.main(globals())
+
+# ------------------------------------------------------------- JAX halves
+import jax.numpy as jnp  # noqa: E402
+
+from diffusion_models_dev_project_tpu.ops.attention import flash_attention  # noqa: E402
+
+
+def test_plan_on_the_flagship_attention_calls_and_its_limits(tmp_path):
+    child.run(__file__, "plan_on_the_flagship_calls", tmp_path)
+
+
+def test_mma_emulation_matches_reference_and_pallas(tmp_path):
+    rng = np.random.default_rng(3)
+    inputs, pallas = {}, {}
+    for i, (t, d) in enumerate(EMULATED):
+        # bf16-representable fp32 inputs (the bf16 rounding done with numpy)
+        q, k, v = (_bf16(rng.normal(size=(3, t, d)).astype(np.float32)) for _ in range(3))
+        inputs.update({f"{i}_q": q, f"{i}_k": k, f"{i}_v": v})
+        pallas[i] = np.asarray(flash_attention(*(jnp.asarray(a) for a in (q, k, v)), interpret=True))
+    out = child.run(__file__, "mma_emulation", tmp_path, **inputs)
+    for i, (t, d) in enumerate(EMULATED):
+        splits = [key for key in out if key.startswith(f"{i}_split")]
+        assert splits
+        for key in splits:
+            # bf16 inputs on all sides; the emulation rounds P and its output
+            # to bf16 (2^-9 relative each), the fp32 sides do not
+            for other in (out[f"{i}_ref"], pallas[i]):
+                assert np.abs(out[key] - other).max() <= 1e-2 * np.abs(other).max(), (t, d, key)
+
+
+def test_head_widths_up_to_256_match_pallas_and_wider_raise(tmp_path):
+    rng = np.random.default_rng(4)
+    inputs, pallas = {}, {}
+    for i, (t, d) in enumerate(WIDE):
+        q, k, v = (rng.normal(size=(2, t, d)).astype(np.float32) for _ in range(3))
+        inputs.update({f"{i}_q": q, f"{i}_k": k, f"{i}_v": v})
+        pallas[i] = np.asarray(flash_attention(*(jnp.asarray(a) for a in (q, k, v)), interpret=True))
+    out = child.run(__file__, "head_widths", tmp_path, **inputs)
+    for i, shape in enumerate(WIDE):
+        # fp32 on both sides, sums of up to 256 products in another order
+        np.testing.assert_allclose(out[str(i)], pallas[i], rtol=2e-4, atol=2e-5, err_msg=str(shape))

@@ -7,15 +7,13 @@ per split, then the reduction); it is held against the port's plain version
 and the JAX package's Pallas kernel, run as the JAX package's own tests run
 it (`force_tpu_interpret_mode`), on inputs from numpy with a fixed seed.
 
-torch and the port are imported inside the tests, never at collection
-(see tests/test_torch_kernels.py).
+The torch half of each test runs in a child interpreter (tests/_torch_child.py):
+no pytest process runs torch code.
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
-from diffusion_models_dev_project_tpu.ops.conv3x3 import conv3x3_same
+import _torch_child as child
 
 # (B, H, W, Cin, Cout, forced splits, Pallas tile_h): batch 2 with the
 # largest split, H != W with ragged boxes and Cout = 192 (half a channel
@@ -25,7 +23,8 @@ EMULATED = [(2, 8, 8, 64, 64, None, 8), (1, 12, 20, 128, 192, None, 4),
             (1, 16, 8, 64, 128, 3, 8), (1, 8, 24, 128, 64, 1, 8)]
 
 
-def _flagship_conv_shapes(monkeypatch):
+# ------------------------------------------------------------- torch halves
+def _flagship_conv_shapes():
     """(x shape, Cout, dtype) of each conv3x3 call of one flagship 256² forward,
     traced on the meta device with the kernels' wrappers stubbed out."""
     import torch
@@ -42,8 +41,9 @@ def _flagship_conv_shapes(monkeypatch):
         seen.append((tuple(x.shape), w.shape[-1], w.dtype))
         return x.new_empty(x.shape[:3] + (w.shape[-1],))
 
-    monkeypatch.setattr(U, "conv3x3", conv)
-    monkeypatch.setattr(U, "attention", lambda q, k, v, use_kernel=True: torch.empty_like(q))
+    # the child process ends after the case, so the stubs need no undoing
+    U.conv3x3 = conv
+    U.attention = lambda q, k, v, use_kernel=True: torch.empty_like(q)
     cfg = U.create_model_config(config.model)
     with torch.device("meta"):
         model = U.UNetModel(cfg).to(cfg.torch_dtype)
@@ -51,12 +51,12 @@ def _flagship_conv_shapes(monkeypatch):
     return seen
 
 
-def test_plan_on_every_flagship_conv(monkeypatch):
+def plan_on_every_flagship_conv():
     import torch
 
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
 
-    shapes = _flagship_conv_shapes(monkeypatch)
+    shapes = _flagship_conv_shapes()
     assert len(shapes) == 62
     plans = [C.plan(*xs, cout, dt) for xs, cout, dt in shapes]
     by_variant = {v: sum(p.variant == v for p in plans) for v in C.VARIANTS}
@@ -85,34 +85,25 @@ def test_plan_on_every_flagship_conv(monkeypatch):
     assert C.plan(1, 8, 8, 1024, 512, torch.bfloat16, splits=144).steps_per_split == 1
 
 
-def test_tiled_emulation_matches_reference_and_pallas():
+def tiled_emulation(**arrays):
     import torch
 
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
 
-    rng = np.random.default_rng(0)
-    for b, h, w, cin, cout, splits, tile_h in EMULATED:
-        x = rng.normal(size=(b, h, w, cin)).astype(np.float32)
-        k = (rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32)
-        bias = rng.normal(size=(cout,)).astype(np.float32)
+    out = {}
+    for i, (b, h, w, cin, cout, splits, _) in enumerate(EMULATED):
+        xt, kt, bt = (torch.from_numpy(arrays[f"{i}_{n}"]) for n in ("x", "k", "bias"))
         p = C.plan(b, h, w, cin, cout, torch.bfloat16, splits=splits)
         assert p.variant == "tc" and (splits is not None or p.splits > 1), p
-        xt, kt, bt = (torch.from_numpy(a) for a in (x, k, bias))
-        out = C.conv3x3_tiled_reference(xt, kt, bt, p).numpy()
-        with pltpu.force_tpu_interpret_mode():
-            pallas = np.asarray(conv3x3_same(jnp.asarray(x), jnp.asarray(k), jnp.asarray(bias),
-                                             tile_h=tile_h))
-        ref = C.conv3x3_reference(xt, kt, bt).numpy()
-        # fp32 on all sides; sums of up to 9*128 products of size ~0.1 in
-        # another order (per 64-channel step, per split) differ by ~1e-6; a
-        # lost or doubled K step would be off by ~0.1
-        for other in (ref, pallas):
-            np.testing.assert_allclose(out, other, rtol=1e-5, atol=1e-4, err_msg=str(p))
+        out[f"{i}_tiled"] = C.conv3x3_tiled_reference(xt, kt, bt, p).numpy()
+        out[f"{i}_ref"] = C.conv3x3_reference(xt, kt, bt).numpy()
+        out[f"{i}_plan"] = np.array(str(p))
     with pytest.raises(ValueError):
         C.conv3x3_tiled_reference(xt, kt, bt, C.plan(1, 8, 24, 128, 64, torch.float32))
+    return out
 
 
-def test_wrapper_on_cpu_takes_the_plain_version_whatever_is_forced():
+def wrapper_on_cpu():
     import torch
 
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
@@ -134,3 +125,42 @@ def test_wrapper_on_cpu_takes_the_plain_version_whatever_is_forced():
     assert emu.dtype == torch.bfloat16
     torch.testing.assert_close(emu.float(), C.conv3x3_reference(x, k, bias).float(),
                                rtol=2 ** -7, atol=1e-4)
+
+
+if __name__ == "__main__":
+    child.main(globals())
+
+# ------------------------------------------------------------- JAX halves
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from diffusion_models_dev_project_tpu.ops.conv3x3 import conv3x3_same  # noqa: E402
+
+
+def test_plan_on_every_flagship_conv(tmp_path):
+    child.run(__file__, "plan_on_every_flagship_conv", tmp_path)
+
+
+def test_tiled_emulation_matches_reference_and_pallas(tmp_path):
+    rng = np.random.default_rng(0)
+    inputs, pallas = {}, {}
+    for i, (b, h, w, cin, cout, splits, tile_h) in enumerate(EMULATED):
+        x = rng.normal(size=(b, h, w, cin)).astype(np.float32)
+        k = (rng.normal(size=(3, 3, cin, cout)) * 0.1).astype(np.float32)
+        bias = rng.normal(size=(cout,)).astype(np.float32)
+        inputs.update({f"{i}_x": x, f"{i}_k": k, f"{i}_bias": bias})
+        with pltpu.force_tpu_interpret_mode():
+            pallas[i] = np.asarray(conv3x3_same(jnp.asarray(x), jnp.asarray(k), jnp.asarray(bias),
+                                                tile_h=tile_h))
+    out = child.run(__file__, "tiled_emulation", tmp_path, **inputs)
+    for i in range(len(EMULATED)):
+        # fp32 on all sides; sums of up to 9*128 products of size ~0.1 in
+        # another order (per 64-channel step, per split) differ by ~1e-6; a
+        # lost or doubled K step would be off by ~0.1
+        for other in (out[f"{i}_ref"], pallas[i]):
+            np.testing.assert_allclose(out[f"{i}_tiled"], other, rtol=1e-5, atol=1e-4,
+                                       err_msg=str(out[f"{i}_plan"]))
+
+
+def test_wrapper_on_cpu_takes_the_plain_version_whatever_is_forced(tmp_path):
+    child.run(__file__, "wrapper_on_cpu", tmp_path)

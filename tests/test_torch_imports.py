@@ -5,15 +5,18 @@ ml_collections, yaml or PIL, so the port and chip_smoke.py import none of
 them.  Entry points run on CUDA unless asked for the CPU, and raise here,
 where there is no CUDA device.
 
-torch and the port are imported inside the tests, never at collection
-(see tests/test_torch_kernels.py).
+The torch half of each test runs in a child interpreter (tests/_torch_child.py):
+no pytest process runs torch code.
 """
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+
+import _torch_child as child
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_NAME = "diffusion_models_dev_project_tpu_torch"
@@ -72,7 +75,8 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
     assert res.stdout.strip() == "False"
 
 
-def test_entry_points_want_cuda_unless_asked_for_the_cpu():
+# ------------------------------------------------------------- torch halves
+def entry_points_want_cuda():
     import torch
 
     import diffusion_models_dev_project_tpu_torch.factory as TF
@@ -80,7 +84,7 @@ def test_entry_points_want_cuda_unless_asked_for_the_cpu():
     from diffusion_models_dev_project_tpu_torch.utils.device import resolve_device
 
     if torch.cuda.is_available():
-        pytest.skip("this machine has a CUDA device")
+        return {"cuda": np.array(True)}
     config = get_config("vesde")
     config.data.im_size = 32
     config.forward_op.num_angles = 6
@@ -95,7 +99,7 @@ def test_entry_points_want_cuda_unless_asked_for_the_cpu():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_paths_raise():
+def unported_paths_raise():
     import diffusion_models_dev_project_tpu_torch.factory as TF
     from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import get_config
 
@@ -107,3 +111,41 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="format"):
         TF.get_standard_score(config, TF.get_standard_sde(config), ckpt_path="model.pt",
                               device="cpu")
+    # adaptation: the full and decoder strategies train base conv weights
+    # (queue 1 item 8); several images per call is item 10
+    from diffusion_models_dev_project_tpu_torch.sampling import adaptation as TA
+
+    for impl in ("full", "decoder"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            TF.get_standard_adapted_sampler("dds", None, None, None, None, adaptation=impl)
+        with pytest.raises(NotImplementedError, match="item 8"):
+            TA.AdaptSpec(impl=impl)
+        with pytest.raises(NotImplementedError, match="item 8"):
+            TA.is_adapt_param("in_1_0.conv1.weight", impl)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        TA.AdaptedSampler.sample_batched(None)
+    # the shipped data is the disk-ellipse val set (generated sets: item 6)
+    config.data.part = "test"
+    with pytest.raises(NotImplementedError, match="item 6"):
+        TF.get_standard_dataset(config)
+    # the adapted CLI: what the port does not have raises, naming its item
+    from diffusion_models_dev_project_tpu_torch import run_adapted_sampling as cli
+
+    for argv, item in ((["--adaptation", "full"], "item 8"), (["--adaptation", "decoder"], "item 8"),
+                       (["--shard_images", "2"], "item 10"), (["--dataset", "walnut"], "item"),
+                       (["--model_learned_on", "aapm"], "item")):
+        with pytest.raises(NotImplementedError, match=item):
+            cli.coordinator(cli.parser.parse_args(argv + ["--device", "cpu"]))
+
+
+if __name__ == "__main__":
+    child.main(globals())
+
+
+def test_entry_points_want_cuda_unless_asked_for_the_cpu(tmp_path):
+    if "cuda" in child.run(__file__, "entry_points_want_cuda", tmp_path):
+        pytest.skip("this machine has a CUDA device")
+
+
+def test_unported_paths_raise(tmp_path):
+    child.run(__file__, "unported_paths_raise", tmp_path)

@@ -6,17 +6,13 @@ The Pallas kernels run as the JAX package's own tests run them: conv3x3
 under `force_tpu_interpret_mode`, attention with `interpret=True`.  Inputs
 come from numpy with a fixed seed; both sides compute in fp32.
 
-torch and the port are imported inside the tests, never at collection:
-a JAX worker process that has imported torch can deadlock in the JAX
-package's eager Pallas-interpret test (tests/test_conv3x3.py).
+The torch half of each test runs in a child interpreter (tests/_torch_child.py):
+no pytest process runs torch code.
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
-from diffusion_models_dev_project_tpu.ops.attention import flash_attention
-from diffusion_models_dev_project_tpu.ops.conv3x3 import conv3x3_same
+import _torch_child as child
 
 # the three shapes of tests/test_conv3x3.py, then Cin = 1 and Cout = 1
 CONV_SHAPES = [(1, 32, 32, 8, 16), (2, 64, 16, 16, 8), (1, 16, 48, 32, 32),
@@ -34,29 +30,22 @@ def _conv_inputs(shape, seed=0):
     return x, k, bias
 
 
-def test_conv3x3_and_attention_plain_versions_match_pallas():
+# ------------------------------------------------------------- torch halves
+def plain_versions(**arrays):
     import torch
 
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
 
-    for shape in CONV_SHAPES:
-        x, k, bias = _conv_inputs(shape)
-        with pltpu.force_tpu_interpret_mode():
-            ref = np.asarray(conv3x3_same(jnp.asarray(x), jnp.asarray(k), jnp.asarray(bias),
-                                          tile_h=8))
-        out = C.conv3x3(torch.from_numpy(x), torch.from_numpy(k), torch.from_numpy(bias))
-        # fp32 sums of up to 9*32 products in another order: a few ulps
-        np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5, err_msg=str(shape))
-    rng = np.random.default_rng(1)
-    for t, d in ATTN_SHAPES:
-        q, k, v = (rng.normal(size=(3, t, d)).astype(np.float32) for _ in range(3))
-        ref = np.asarray(flash_attention(*(jnp.asarray(a) for a in (q, k, v)), interpret=True))
-        out = A.attention(*(torch.from_numpy(a) for a in (q, k, v)))
-        np.testing.assert_allclose(out.numpy(), ref, rtol=2e-4, atol=2e-5, err_msg=str((t, d)))
+    t = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    out = {f"conv{i}": C.conv3x3(t[f"conv{i}_x"], t[f"conv{i}_k"], t[f"conv{i}_bias"]).numpy()
+           for i in range(len(CONV_SHAPES))}
+    out.update({f"attn{i}": A.attention(t[f"attn{i}_q"], t[f"attn{i}_k"], t[f"attn{i}_v"]).numpy()
+                for i in range(len(ATTN_SHAPES))})
+    return out
 
 
-def test_wrappers_on_cpu_tensors_run_the_plain_version_and_check_inputs():
+def wrappers_on_cpu():
     import torch
 
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
@@ -82,11 +71,52 @@ def test_wrappers_on_cpu_tensors_run_the_plain_version_and_check_inputs():
         A.attention(q, q[:, :5], q)
 
 
+if __name__ == "__main__":
+    child.main(globals())
+
+# ------------------------------------------------------------- JAX halves
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from diffusion_models_dev_project_tpu.ops.attention import flash_attention  # noqa: E402
+from diffusion_models_dev_project_tpu.ops.conv3x3 import conv3x3_same  # noqa: E402
+
+
+def test_conv3x3_and_attention_plain_versions_match_pallas(tmp_path):
+    inputs, refs = {}, {}
+    for i, shape in enumerate(CONV_SHAPES):
+        x, k, bias = _conv_inputs(shape)
+        inputs.update({f"conv{i}_x": x, f"conv{i}_k": k, f"conv{i}_bias": bias})
+        with pltpu.force_tpu_interpret_mode():
+            refs[f"conv{i}"] = np.asarray(conv3x3_same(jnp.asarray(x), jnp.asarray(k),
+                                                       jnp.asarray(bias), tile_h=8))
+    rng = np.random.default_rng(1)
+    for i, (t, d) in enumerate(ATTN_SHAPES):
+        q, k, v = (rng.normal(size=(3, t, d)).astype(np.float32) for _ in range(3))
+        inputs.update({f"attn{i}_q": q, f"attn{i}_k": k, f"attn{i}_v": v})
+        refs[f"attn{i}"] = np.asarray(flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                                      interpret=True))
+    out = child.run(__file__, "plain_versions", tmp_path, **inputs)
+    for i, shape in enumerate(CONV_SHAPES):
+        # fp32 sums of up to 9*32 products in another order: a few ulps
+        np.testing.assert_allclose(out[f"conv{i}"], refs[f"conv{i}"], rtol=2e-5, atol=2e-5,
+                                   err_msg=str(shape))
+    for i, shape in enumerate(ATTN_SHAPES):
+        np.testing.assert_allclose(out[f"attn{i}"], refs[f"attn{i}"], rtol=2e-4, atol=2e-5,
+                                   err_msg=str(shape))
+
+
+def test_wrappers_on_cpu_tensors_run_the_plain_version_and_check_inputs(tmp_path):
+    child.run(__file__, "wrappers_on_cpu", tmp_path)
+
+
 def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):
+    # ops/_build.py imports no torch, so this test stays in the pytest process
     from diffusion_models_dev_project_tpu_torch.ops import _build
 
     names = [s.name for s in _build.sources()]
-    assert {"conv3x3.cu", "conv3x3_tc.cu", "attention.cu"} <= set(names)
+    assert {"conv3x3.cu", "conv3x3_tc.cu", "attention.cu", "attention_mma.cu",
+            "attention_bwd.cu"} <= set(names)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
