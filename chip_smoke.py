@@ -9,7 +9,8 @@ kernels' backward passes:
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles `csrc/*.cu` with nvcc for sm_90a (ops/_build.py) and
    requires HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS,
-   and HMMA (mma.sync) in the functions of attention_mma.cu;
+   and HMMA (mma.sync) in the functions of attention_mma.cu and in both
+   kernels of attention_bwd_mma.cu;
 3. kernels: runs each kernel's wrapper at every shape the UNet forward
    gives it (recorded with forward hooks), checks it against its plain
    PyTorch version, and times kernel, plain version and library yardstick;
@@ -18,13 +19,17 @@ kernels' backward passes:
    output over two launches, and at added shapes (conv3x3: batch 2, H != W,
    the largest split of K, 64 and 192 channels; attention: ragged T, other
    head widths up to 256, T = 1024); attention also against each SDPA
-   backend that takes the inputs.  Then the backward kernels: the conv3x3
-   input gradient (and the bias gradient) at every conv shape against
-   autograd of the plain version, and the attention backward at the path's
-   shapes and added ones (ragged T, d = 20, 128, 256, T = 1024, fp32 and
-   bf16) against its plain twin, each bitwise equal over two launches and
-   timed beside its plain twin, cuDNN's `conv2d_input` or SDPA's backward,
-   and its bound;
+   backend that takes the inputs; `mma`'s saved log-sum-exp against a
+   plain one, its output equal with and without it, and its time with it.
+   Then the backward kernels: the conv3x3 input gradient (and the bias
+   gradient) at every conv shape against autograd of the plain version, and
+   the attention backward, each variant that takes the shape (`mma` with
+   the forward's log-sum-exp, `simt`), at the path's shapes and added ones
+   (T = 1 to 1024, ragged T, d = 8 to 256, fp32 and bf16) against its plain
+   twin, each bitwise equal over two launches and timed beside its plain
+   twin, cuDNN's `conv2d_input` or SDPA's backward, and its bound; `mma`
+   must take at most a third of `simt`'s time per UNet backward and less
+   than the plain twin's;
 4. UNet: one full-width forward of the shipped VESDE prior at 256², batch 1,
    with the kernels against `use_kernel=False`;
 5. gradient: the same prior with LoRA rank 4 (up-projections drawn nonzero),
@@ -37,7 +42,8 @@ kernels' backward passes:
    noise 0.01, gamma 0.01, eta 0.85, 5 CG iterations) and requires each to
    beat its FBP in PSNR, with the kernel launch counts of the run checked
    (per forward 62 conv3x3, of which 60 tc, 1 narrow, 1 simt, and 4
-   attention, all mma); CUDA events around the score call and the CG solve
+   attention, all mma; per backward 4 attention backwards, all mma); CUDA
+   events around the score call and the CG solve
    of the loop's last steps split a step into UNet, CG and the rest;
 7. adapted: LoRA-adapted DDS (50 outer x 10 inner Adam steps, rank 4,
    lr 1e-3, TV 1e-6, eta 0.85, cg(1), add_cg) of val image 0 and of an OOD
@@ -365,9 +371,15 @@ def check_conv(shapes, gen):
     return tot, max_abs, by_variant
 
 
+# functions whose SASS must hold HMMA (mma.sync): the attention forward and
+# both kernels of its backward
+HMMA_FUNCTIONS = ("attention_mma_kernel", "attention_bwd_mma_dq_kernel",
+                  "attention_bwd_mma_dkdv_kernel")
+
+
 def sass_counts(lib_path):
     """HGMMA and UTMALDG instructions in the built library's SASS, and HMMA
-    in the functions of attention_mma.cu."""
+    in the functions named in `HMMA_FUNCTIONS`, by name."""
     import shutil
 
     cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),
@@ -383,12 +395,14 @@ def sass_counts(lib_path):
     sass = subprocess.run([tool, "-sass", str(lib_path)], check=True, capture_output=True,
                           text=True, timeout=120).stdout
     counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    counts["HMMA"], function = 0, ""
+    counts["HMMA"], function = dict.fromkeys(HMMA_FUNCTIONS, 0), ""
     for line in sass.splitlines():
         if "Function :" in line:
             function = line.split("Function :", 1)[1]
-        elif "attention_mma" in function:
-            counts["HMMA"] += line.count("HMMA")
+        else:
+            for name in HMMA_FUNCTIONS:
+                if name in function:
+                    counts["HMMA"][name] += line.count("HMMA")
     return counts
 
 
@@ -423,7 +437,9 @@ def time_sdpa(q4, k4, v4, reps):
 
 def check_attention_once(shape, dt, gen):
     """One kernel call against the plain version; for mma also a second
-    call, which must give the same bits.  Returns (inputs, plan, max|diff|, rel)."""
+    call, which must give the same bits, and a call that saves the rows'
+    log-sum-exp: the same output bit for bit, and lse2 against the plain
+    `attention_lse_reference`.  Returns (inputs, plan, max|diff|, rel)."""
     import torch
 
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
@@ -437,8 +453,14 @@ def check_attention_once(shape, dt, gen):
     d, r = rel_err(out, ref)
     if not (torch.isfinite(out).all() and r <= TOL[dt]):
         raise AssertionError(f"attention {p.variant} {shape} {dt}: rel err {r:.3e} > {TOL[dt]}")
-    if p.variant == "mma" and not torch.equal(out, A.attention(q, k, v)):
-        raise AssertionError(f"attention mma {shape}: two launches differ")
+    if p.variant == "mma":
+        if not torch.equal(out, A.attention(q, k, v)):
+            raise AssertionError(f"attention mma {shape}: two launches differ")
+        out_l, lse = A.attention_with_lse(q, k, v)
+        _, r_lse = rel_err(lse, A.attention_lse_reference(q, k))
+        if not (torch.equal(out_l, out) and r_lse <= TOL["float32"]):
+            raise AssertionError(f"attention mma {shape}: the output differs with lse on, or "
+                                 f"lse2 is {r_lse:.3e} of max|plain| away (tol {TOL['float32']})")
     return (q, k, v), p, d, r
 
 
@@ -466,7 +488,7 @@ def check_attention(shapes, gen):
              ((8, 256, 64), "float32"), ((1, 5, 8), "float32"),
              ((2, 64, 256), "float32"), ((2, 64, 256), "bfloat16")]
     keys = ("ms", "plain_ms", "library_ms", "library_best_ms", "bound_ms", "ops_ms", "bytes_ms",
-            "simt_ms")
+            "simt_ms", "lse_ms")
     tot = dict.fromkeys(keys, 0.0)
     best_names = set()
     worst = {"bfloat16": 0.0, "float32": 0.0}
@@ -485,7 +507,11 @@ def check_attention(shapes, gen):
             continue
         max_abs = max(max_abs, d)
         bh, t, dd = shape
-        k_ms = time_ms(lambda: A.attention(q, k, v), 100)
+        # lse off and on in turns: off, on, on, off
+        off = [time_ms(lambda: A.attention(q, k, v), 100)]
+        on = [time_ms(lambda: A.attention_with_lse(q, k, v), 100) for _ in range(2)]
+        off.append(time_ms(lambda: A.attention(q, k, v), 100))
+        k_ms, lse_ms = sum(off) / 2, sum(on) / 2
         s_ms = time_ms(lambda: A.attention(q, k, v, variant="simt"), 100)
         p_ms = time_ms(lambda: A.attention(q, k, v, use_kernel=False), 50)
         sdpa = time_sdpa(*(a.view(1, bh, t, dd) for a in (q, k, v)), 100)
@@ -500,12 +526,14 @@ def check_attention(shapes, gen):
         log(f"{'':>28} SDPA on (1, B·heads, T, d): "
             + ", ".join(f"{name} {ms:.4f} ms" if isinstance(ms, float) else f"{name} refused ({ms})"
                         for name, ms in sdpa.items()))
+        log(f"{'':>28} with the saved log-sum-exp: {lse_ms:.4f} ms ({lse_ms / k_ms - 1:+.2%})")
         row = dict(ms=k_ms, plain_ms=p_ms, library_ms=sdpa["default"], library_best_ms=taken[best],
-                   bound_ms=b_ms, ops_ms=ops_ms, bytes_ms=bytes_ms, simt_ms=s_ms)
+                   bound_ms=b_ms, ops_ms=ops_ms, bytes_ms=bytes_ms, simt_ms=s_ms, lse_ms=lse_ms)
         for key in keys:
             tot[key] += n * row[key]
     log(f"attention max rel err: bf16 {worst['bfloat16']:.3e} (tol {TOL['bfloat16']}), "
-        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']}); mma bitwise equal over two launches")
+        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']}); mma bitwise equal over two launches "
+        f"and with its log-sum-exp saved")
     tot["library_best"] = "/".join(sorted(best_names))
     log(f"attention per UNet forward ({len(shapes)} calls): kernel {tot['ms']:.4f} ms, simt "
         f"{tot['simt_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, SDPA default "
@@ -513,11 +541,14 @@ def check_attention(shapes, gen):
         f"{tot['library_best_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms")
     log(f"attention: mma per forward takes {tot['ms'] / tot['library_ms']:.3f}x the time of SDPA as "
         f"dispatched by default, {tot['ms'] / tot['library_best_ms']:.3f}x its fastest backend, "
-        f"{tot['ms'] / tot['simt_ms']:.3f}x the simt kernel")
+        f"{tot['ms'] / tot['simt_ms']:.3f}x the simt kernel; with the log-sum-exp saved "
+        f"{tot['lse_ms']:.4f} ms ({tot['lse_ms'] / tot['ms'] - 1:+.2%}, at most +5%)")
     if not (tot["ms"] <= tot["plain_ms"] and tot["ms"] <= tot["library_ms"]
             and tot["ms"] < tot["simt_ms"]):
         raise AssertionError("attention: mma is slower per forward than its plain version, "
                              "than SDPA as dispatched by default or than the simt kernel")
+    if not tot["lse_ms"] <= 1.05 * tot["ms"]:
+        raise AssertionError("attention: saving the log-sum-exp costs mma more than 5% per forward")
     return tot, max_abs
 
 def check_conv_backward(shapes, gen):
@@ -597,12 +628,15 @@ def check_conv_backward(shapes, gen):
 
 
 def check_attention_backward(shapes, gen):
-    """`attention_backward` (the launch function) at the path's attention
-    shapes and at added ones against `attention_backward_reference`, dq, dk
-    and dv each within the tolerance of max|plain|, bitwise equal over two
-    launches; at the path's shapes timed beside the plain twin, SDPA's
-    backward (forward and backward captured together, less the forward) and
-    the bound.  Returns (per-backward totals, max|diff|)."""
+    """`attention_backward` (the launch function) with each variant that
+    takes the shape, `mma` given the lse2 of the forward kernel
+    (`attention_with_lse`), at the path's attention shapes and at added ones,
+    against `attention_backward_reference`: dq, dk and dv each within the
+    tolerance of max|plain|, bitwise equal over two launches.  At the path's
+    shapes timed: the planned kernel, `mma` at each chunk it takes, `simt`
+    (the earlier design), the plain twin, SDPA's backward (forward and backward
+    captured together, less the forward) and the bound.  Returns
+    (per-backward totals, max|diff|, calls by variant per backward)."""
     import torch
     import torch.nn.functional as F
 
@@ -611,66 +645,103 @@ def check_attention_backward(shapes, gen):
     counts = {}
     for sh in shapes:
         counts[sh] = counts.get(sh, 0) + 1
+    # checked only: ragged T over several chunks a warp (T = 300, 1024, and
+    # d = 128 in two stages), T = 37 with d = 20 (scalar loads), d = 40, a
+    # single row or a few (T = 1, 5 at d = 8), d = 256 (simt only), fp32
     extra = [((8, 300, 64), "bfloat16"), ((2, 37, 20), "bfloat16"), ((3, 100, 128), "bfloat16"),
-             ((2, 64, 256), "bfloat16"), ((8, 1024, 64), "bfloat16"), ((8, 256, 64), "float32"),
-             ((2, 257, 40), "float32"), ((2, 64, 256), "float32"), ((1, 5, 8), "float32"),
-             ((1, 1, 16), "float32")]
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+             ((3, 300, 128), "bfloat16"), ((2, 257, 40), "bfloat16"), ((8, 1024, 64), "bfloat16"),
+             ((1, 1, 8), "bfloat16"), ((1, 5, 8), "bfloat16"), ((2, 64, 256), "bfloat16"),
+             ((8, 256, 64), "float32"), ((2, 257, 40), "float32"), ((2, 64, 256), "float32"),
+             ((1, 5, 8), "float32"), ((1, 1, 16), "float32")]
+    keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
     tot = dict.fromkeys(keys, 0.0)
-    worst = {"bfloat16": 0.0, "float32": 0.0}
+    by_variant, by_tile = {}, {}
+    worst = {(v, dt): 0.0 for v in A.VARIANTS for dt in ("bfloat16", "float32")}
     max_abs = 0.0
-    log(f"{'attention bwd (BH,T,d)':>28} {'dtype':>8} {'n':>3} {'grid':>9} {'kernel_ms':>10} "
-        f"{'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} {'bound_by':>10} {'rel_err':>9}")
+    log(f"{'attention bwd (BH,T,d)':>28} {'dtype':>8} {'n':>3} {'variant':>7} {'tile':>4} "
+        f"{'grid':>9} {'kernel_ms':>10} {'simt_ms':>9} {'plain_ms':>9} {'library_ms':>10} "
+        f"{'bound_ms':>9} {'bound_by':>10} {'rel_err':>9}")
     for shape, dt in list(counts) + extra:
         n = counts.get((shape, dt), 0)
+        bh, t, dd = shape
         tdt = getattr(torch, dt)
         q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(tdt) for _ in range(4))
-        o = A.attention(q, k, v)
-        grads = A.attention_backward(q, k, v, o, g)
-        again = A.attention_backward(q, k, v, o, g)
+        o, lse = A.attention_with_lse(q, k, v)
         ref = A.attention_backward_reference(q, k, v, o, g)
-        torch.cuda.synchronize()
-        r, d = 0.0, 0.0
-        for name, got, want, twice in zip("qkv", grads, ref, again):
-            dd, rr = rel_err(got, want)
-            if shape[1] == 1 and name in "qk":        # T = 1: dq and dk are 0 in exact
-                rr = dd                                 # arithmetic, rounding noise here
-            if not (torch.isfinite(got).all() and rr <= TOL[dt] and torch.equal(got, twice)):
-                raise AssertionError(f"attention backward d{name} {shape} {dt}: rel err {rr:.3e} "
-                                     f"(tol {TOL[dt]}), or two launches differ")
-            r, d = max(r, rr), max(d, dd)
-        worst[dt] = max(worst[dt], r)
-        grid = "x".join(map(str, A.backward_plan(*shape).grid))
-        if n == 0:
-            log(f"{str(shape):>28} {dt:>8} {'-':>3} {grid:>9} {'':>10} {'':>9} {'':>10} {'':>9} "
-                f"{'':>10} {r:>9.2e}")
-            continue
-        max_abs = max(max_abs, d)
-        bh, t, dd = shape
-        k_ms = time_ms(lambda: A.attention_backward(q, k, v, o, g), 50)
-        p_ms = time_ms(lambda: A.attention_backward_reference(q, k, v, o, g), 20)
-        q4, k4, v4 = (a.view(1, bh, t, dd).detach().requires_grad_() for a in (q, k, v))
-        g4 = g.view(1, bh, t, dd)
-        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 50)
-        sdpa_both = time_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), g4), 50)
-        l_ms = sdpa_both - sdpa_fwd
-        # S recomputed, dP, dq, dk and dv: 2·T²·d operations each per batch·head;
-        # q, k, v, out and dout read once, dq, dk and dv written once
-        flops, nbytes = 10.0 * bh * t * t * dd, 8.0 * q.numel() * q.element_size()
-        b_ms, b_by, ops_ms, bytes_ms = bound(flops, nbytes, dt)
-        log(f"{str(shape):>28} {dt:>8} {n:>3} {grid:>9} {k_ms:>10.4f} {p_ms:>9.4f} {l_ms:>10.4f} "
-            f"{b_ms:>9.5f} {b_by:>10} {r:>9.2e}")
-        row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, ops_ms=ops_ms,
-                   bytes_ms=bytes_ms)
-        for key in keys:
-            tot[key] += n * row[key]
-    log(f"attention backward max rel err: bf16 {worst['bfloat16']:.3e} (tol {TOL['bfloat16']}), "
-        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']}); bitwise equal over two launches")
-    log(f"attention backward per UNet backward ({len(shapes)} calls): kernel {tot['ms']:.4f} ms, "
-        f"plain {tot['plain_ms']:.4f} ms, SDPA backward by default {tot['library_ms']:.4f} ms, "
-        f"bound {tot['bound_ms']:.5f} ms")
-    return tot, max_abs
+        planned = A.backward_plan(bh, t, dd, tdt)
+        variants = ["mma", "simt"] if planned.variant == "mma" else ["simt"]
+        for variant in variants:
+            bp = A.backward_plan(bh, t, dd, tdt, variant)
+            grads = A.attention_backward(q, k, v, o, g, lse, variant=variant)
+            again = A.attention_backward(q, k, v, o, g, lse, variant=variant)
+            torch.cuda.synchronize()
+            r, d = 0.0, 0.0
+            for name, got, want, twice in zip("qkv", grads, ref, again):
+                d_n, r_n = rel_err(got, want)
+                if t == 1 and name in "qk":            # T = 1: dq and dk are 0 in exact
+                    r_n = d_n                          # arithmetic, rounding noise here
+                if not (torch.isfinite(got).all() and r_n <= TOL[dt] and torch.equal(got, twice)):
+                    raise AssertionError(f"attention backward {variant} d{name} {shape} {dt}: rel "
+                                         f"err {r_n:.3e} (tol {TOL[dt]}), or two launches differ")
+                r, d = max(r, r_n), max(d, d_n)
+            worst[variant, dt] = max(worst[variant, dt], r)
+            tile = bp.tile if variant == "mma" else "-"
+            grid = "x".join(map(str, bp.grid))
+            if n == 0 or variant != planned.variant:
+                log(f"{str(shape):>28} {dt:>8} {'-':>3} {variant:>7} {tile:>4} {grid:>9} "
+                    f"{'':>10} {'':>9} {'':>9} {'':>10} {'':>9} {'':>10} {r:>9.2e}")
+                continue
+            max_abs = max(max_abs, d)
+            by_variant[variant] = by_variant.get(variant, 0) + n
+            k_ms = time_ms(lambda: A.attention_backward(q, k, v, o, g, lse), 50)
+            tiles = {}
+            if variant == "mma":
+                for w in (16, 32, 64):
+                    if w != bp.tile and (w <= 32 or dd <= 64):
+                        tiles[w] = time_ms(lambda: A.attention_backward(q, k, v, o, g, lse, tile=w), 50)
+                tiles[bp.tile] = k_ms
+            s_ms = time_ms(lambda: A.attention_backward(q, k, v, o, g, variant="simt"), 50)
+            p_ms = time_ms(lambda: A.attention_backward_reference(q, k, v, o, g), 20)
+            q4, k4, v4 = (a.view(1, bh, t, dd).detach().requires_grad_() for a in (q, k, v))
+            g4 = g.view(1, bh, t, dd)
+            sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 50)
+            sdpa_both = time_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), g4), 50)
+            l_ms = sdpa_both - sdpa_fwd
+            # S recomputed, dP, dq, dk and dv: 2·T²·d operations each per batch·head;
+            # q, k, v, out and dout read once, dq, dk and dv written once
+            flops, nbytes = 10.0 * bh * t * t * dd, 8.0 * q.numel() * q.element_size()
+            b_ms, b_by, ops_ms, bytes_ms = bound(flops, nbytes, dt)
+            log(f"{str(shape):>28} {dt:>8} {n:>3} {variant:>7} {tile:>4} {grid:>9} {k_ms:>10.4f} "
+                f"{s_ms:>9.4f} {p_ms:>9.4f} {l_ms:>10.4f} {b_ms:>9.5f} {b_by:>10} {r:>9.2e}")
+            if tiles:
+                log(f"{'':>28} mma by chunk: " + ", ".join(
+                    f"{w} rows {ms:.4f} ms" for w, ms in sorted(tiles.items())))
+                for w, ms in tiles.items():
+                    by_tile[w] = by_tile.get(w, 0.0) + n * ms
+            row = dict(ms=k_ms, simt_ms=s_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                       ops_ms=ops_ms, bytes_ms=bytes_ms)
+            for key in keys:
+                tot[key] += n * row[key]
+    log("attention backward max rel err: "
+        + ", ".join(f"{v} {dt} {r:.3e} (tol {TOL[dt]})" for (v, dt), r in worst.items() if r)
+        + "; bitwise equal over two launches")
+    log(f"attention backward per UNet backward ({len(shapes)} calls: "
+        + ", ".join(f"{v} {n}" for v, n in by_variant.items())
+        + f"): kernel {tot['ms']:.4f} ms, simt (earlier design) {tot['simt_ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, SDPA backward by default {tot['library_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.5f} ms")
+    if len(by_tile) > 1:
+        log("  mma per UNet backward with one chunk for every call (where it fits): "
+            + ", ".join(f"{w} rows {ms:.4f} ms" for w, ms in sorted(by_tile.items())))
+    log(f"attention backward: mma takes {tot['ms'] / tot['library_ms']:.3f}x the time of SDPA's "
+        f"backward by default (target 1.0 or less), {tot['ms'] / tot['simt_ms']:.3f}x the simt "
+        f"design's (at most 1/3), {tot['ms'] / tot['plain_ms']:.3f}x the plain twin's (below 1)")
+    if not (by_variant == {"mma": len(shapes)} and 3 * tot["ms"] <= tot["simt_ms"]
+            and tot["ms"] < tot["plain_ms"]):
+        raise AssertionError("attention backward: the path is not all mma, or mma takes more than "
+                             "a third of the simt design's time or no less than its plain twin's")
+    return tot, max_abs, by_variant
 
 
 def ood_bars(im: int) -> np.ndarray:
@@ -683,6 +754,21 @@ def ood_bars(im: int) -> np.ndarray:
     x[q:im - q, q:q + im // 32] = 1.0
     x[q:im - q, im - q - im // 32:im - q] = 1.0
     return x
+
+
+def adapted_phantoms(images):
+    """(name, image) of the adapted phase: val image 0 and the OOD bars phantom."""
+    return [("val image 0", images[0]), ("OOD bars", ood_bars(256)[..., None])]
+
+
+def adapted_sampler(F, model, sde, trafo, obs, gt, n_steps: int, lora_seed: int):
+    """The adapted protocol's sampler: LoRA rank 4 drawn from `lora_seed`, 10
+    Adam steps at lr 1e-3 per outer step, TV 1e-6, eta 0.85, gamma 0.01,
+    cg(1), add_cg; `F` is the port's factory module."""
+    return F.get_standard_adapted_sampler(
+        "dds", model, sde, trafo, obs, num_steps=n_steps, eta=0.85, gamma=0.01,
+        tv_penalty=1e-6, lr=1e-3, num_optim_step=10, adapt_freq=1, lora_rank=LORA_RANK,
+        add_cg=True, dc_type="cg", cg_iter=1, ground_truth=gt, lora_seed=lora_seed)
 
 
 class AdaptTimer:
@@ -735,6 +821,7 @@ def reset_counts():
     C.launches_by_variant = dict.fromkeys(C.VARIANTS, 0)
     C.backward_launches_by_variant = dict.fromkeys(C.VARIANTS, 0)
     A.launches_by_variant = dict.fromkeys(A.VARIANTS, 0)
+    A.backward_launches_by_variant = dict.fromkeys(A.VARIANTS, 0)
 
 
 def read_counts():
@@ -744,17 +831,18 @@ def read_counts():
     return {"conv_fwd": C.launches, "conv_fwd_by": dict(C.launches_by_variant),
             "conv_bwd": C.backward_launches, "conv_bwd_by": dict(C.backward_launches_by_variant),
             "attn_fwd": A.launches, "attn_fwd_by": dict(A.launches_by_variant),
-            "attn_bwd": A.backward_launches}
+            "attn_bwd": A.backward_launches, "attn_bwd_by": dict(A.backward_launches_by_variant)}
 
 
 def check_counts(counts, n_fwd, n_bwd, what):
     """Per forward 62 conv3x3 (60 tc, 1 narrow, 1 simt) and 4 attention
     (mma); per backward 61 conv3x3 input gradients (60 tc, 1 simt: the
-    final conv's, whose gradient has Cin = 1) and 4 attention backwards."""
+    final conv's, whose gradient has Cin = 1) and 4 attention backwards
+    (mma)."""
     want = {"conv_fwd": 62 * n_fwd, "conv_fwd_by": {"tc": 60 * n_fwd, "narrow": n_fwd, "simt": n_fwd},
             "conv_bwd": 61 * n_bwd, "conv_bwd_by": {"tc": 60 * n_bwd, "narrow": 0, "simt": n_bwd},
             "attn_fwd": 4 * n_fwd, "attn_fwd_by": {"mma": 4 * n_fwd, "simt": 0},
-            "attn_bwd": 4 * n_bwd}
+            "attn_bwd": 4 * n_bwd, "attn_bwd_by": {"mma": 4 * n_bwd, "simt": 0}}
     if counts != want:
         raise AssertionError(f"{what}: launch counts {counts}, want {want} for {n_fwd} forwards "
                              f"and {n_bwd} backwards")
@@ -831,11 +919,11 @@ def main() -> None:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
     sass = sass_counts(_build.build())
-    log(f"  SASS of the library: {sass['HGMMA']} HGMMA, {sass['UTMALDG']} UTMALDG; "
-        f"{sass['HMMA']} HMMA in attention_mma")
-    if not (sass["HGMMA"] and sass["UTMALDG"] and sass["HMMA"]):
-        raise AssertionError("the built library holds no HGMMA, no UTMALDG, or no HMMA in "
-                             "attention_mma")
+    log(f"  SASS of the library: {sass['HGMMA']} HGMMA, {sass['UTMALDG']} UTMALDG; HMMA: "
+        + ", ".join(f"{n} in {name}" for name, n in sass["HMMA"].items()))
+    if not (sass["HGMMA"] and sass["UTMALDG"] and all(sass["HMMA"].values())):
+        raise AssertionError("the built library holds no HGMMA, no UTMALDG, or no HMMA in one of "
+                             f"{HMMA_FUNCTIONS}")
     log(f"[phase 2 build] nvcc {nvcc_s:.1f} s, total {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernels at the UNet's shapes
@@ -860,7 +948,7 @@ def main() -> None:
     conv_tot, conv_err, conv_variants = check_conv(seen["conv"], gen)
     attn_tot, attn_err = check_attention(seen["attn"], gen)
     conv_bwd_tot, conv_bwd_err, conv_bwd_variants = check_conv_backward(seen["conv"], gen)
-    attn_bwd_tot, attn_bwd_err = check_attention_backward(seen["attn"], gen)
+    attn_bwd_tot, attn_bwd_err, attn_bwd_variants = check_attention_backward(seen["attn"], gen)
     log(f"[phase 3 kernels] {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. one full-width UNet forward, kernels against plain versions
@@ -1027,16 +1115,13 @@ def main() -> None:
 
     # ---- 7. LoRA-adapted DDS of val image 0 and the OOD bars phantom
     t0 = time.perf_counter()
-    phantoms = [("val image 0", images[0]), ("OOD bars", ood_bars(256)[..., None])]
+    phantoms = adapted_phantoms(images)
     adapt_counts, adapt_rows = None, []
     n_steps = args.adapt_steps
     for i, (what, img) in enumerate(phantoms[:args.adapt_images]):
         g = torch.Generator(device="cuda").manual_seed(config.seed + 100 + i)
         gt, obs, fbp = F.get_data_from_ground_truth(img, trafo, config.data.stddev, generator=g)
-        sampler = F.get_standard_adapted_sampler(
-            "dds", model_l, sde, trafo, obs, num_steps=n_steps, eta=0.85, gamma=0.01,
-            tv_penalty=1e-6, lr=1e-3, num_optim_step=10, adapt_freq=1, lora_rank=LORA_RANK,
-            add_cg=True, dc_type="cg", cg_iter=1, ground_truth=gt, lora_seed=i)
+        sampler = adapted_sampler(F, model_l, sde, trafo, obs, gt, n_steps, lora_seed=i)
         timer = AdaptTimer(sampler)
         torch.cuda.synchronize()
         reset_counts()
@@ -1092,7 +1177,7 @@ def main() -> None:
              (conv_src["tc"], conv_bwd_tot, conv_bwd_err, adapt_counts["conv_bwd"])),
             ("attention", src + "attention_mma.cu", attn_tot, attn_err, attn_launches,
              "diffusion_models_dev_project_tpu/ops/attention.py:43",
-             (src + "attention_bwd.cu", attn_bwd_tot, attn_bwd_err, adapt_counts["attn_bwd"]))):
+             (src + "attention_bwd_mma.cu", attn_bwd_tot, attn_bwd_err, adapt_counts["attn_bwd"]))):
         b_src, b_tot, b_err, b_launches = bwd
         fwd_key = "conv_fwd" if name == "conv3x3" else "attn_fwd"
         kernels.append({
@@ -1110,6 +1195,15 @@ def main() -> None:
     kernels[0]["backward"]["variants"] = {
         v: {"source": conv_src[v], "launches": adapt_counts["conv_bwd_by"][v],
             "calls_per_backward": k} for v, k in conv_bwd_variants.items()}
+    # attention backward: each variant's launches in the adapted runs and its
+    # time per UNet backward at the path's shapes (simt: the earlier design)
+    attn_bwd_src = {"mma": src + "attention_bwd_mma.cu", "simt": src + "attention_bwd.cu"}
+    attn_bwd_ms = {"mma": attn_bwd_tot["ms"], "simt": attn_bwd_tot["simt_ms"]}
+    kernels[1]["backward"]["variants"] = {
+        v: {"source": attn_bwd_src[v], "launches": adapt_counts["attn_bwd_by"][v],
+            "calls_per_backward": attn_bwd_variants.get(v, 0), "ms": attn_bwd_ms[v],
+            "bound_ms": attn_bwd_tot["bound_ms"], "library_ms": attn_bwd_tot["library_ms"]}
+        for v in A.VARIANTS}
     # the simt kernel at the shapes tc takes, per forward; each variant's share
     kernels[0]["simt_ms"] = conv_tot["simt_ms"]
     kernels[0]["variants"] = {
@@ -1129,6 +1223,7 @@ def main() -> None:
         for v in A.VARIANTS}
     log(f"(kernel times are per UNet forward: the sum over its calls at their shapes; "
         f"whole run {time.perf_counter() - t_all:.1f} s)")
+    log(smi.splitlines()[0])                # the card again, for readers of the output's tail
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

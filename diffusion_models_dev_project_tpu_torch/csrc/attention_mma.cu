@@ -49,19 +49,19 @@
 // - No atomics, no split across blocks and a fixed merge order: two
 //   launches give the same bits.  The kernel runs on the caller's stream
 //   and allocates nothing, so a CUDA graph can capture it.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// - Given an `lse` buffer, split 0 of each row group also writes the row's
+//   lse2 = m + log2(l) after the merge (fp32, the log2 domain of S above),
+//   so that the backward (attention_bwd_mma.cu) need not recompute it.
 #include <math.h>
 #include <stdint.h>
 
 #include <atomic>
 
+#include "mma_common.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int BK = 64;          // keys per shared-memory tile
-constexpr int PAD = 8;          // bf16 of padding per shared-memory row
 constexpr int WARPS = 4;        // warps per block: row groups x key splits
 
 // shared memory of a block: Q (16 rows per row group), then `stages` K and V
@@ -92,82 +92,6 @@ constexpr int max_smem_bytes() {
   return most;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared; src_bytes 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rows [r0, r0 + rows) of one head's (T, D) matrix into a shared tile of DP
-// columns and row stride DP + PAD, by threads tid = 0 .. nthreads - 1 (a
-// multiple of 32): zeros past T and past D
-template <int DP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, int rows, int Tn,
-                                          int D, bool vec, int tid, int nthreads) {
-  constexpr int LD = DP + PAD;
-  constexpr int CPR = DP / 8;                  // 16-byte chunks per row
-  if (vec) {                                   // D % 8 == 0, 16-byte aligned rows
-    // a thread copies one column chunk of every step-th row
-    const int c = (tid % CPR) * 8;
-    const int step = nthreads / CPR;
-    const bool col_in = c < D;
-    for (int r = tid / CPR; r < rows; r += step) {
-      const bool in = col_in && r0 + r < Tn;
-      const bf16* p = in ? src + static_cast<long long>(r0 + r) * D + c : src;
-      cp_async16(smem_u32(dst + r * LD + c), p, in ? 16 : 0);
-    }
-  } else {
-    for (int e = tid; e < rows * DP; e += nthreads) {
-      const int r = e / DP;
-      const int c = e % DP;
-      const int gr = r0 + r;
-      dst[r * LD + c] = (gr < Tn && c < D) ? src[static_cast<long long>(gr) * D + c]
-                                           : __float2bfloat16(0.f);
-    }
-  }
-}
-
 // DP: the widest head this instantiation takes (64 or 128).  The block's
 // warps are `splits` key splits times `groups` row groups of 16 query rows.
 // The warps of split s (warps s*groups ..) take key tiles s, s + splits, ...
@@ -179,8 +103,9 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, in
 template <int DP>
 __global__ void __launch_bounds__(32 * WARPS)
 attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out, int Tn, int D,
-                     float scale_log2, int splits, int vec) {
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int Tn, int D, float scale_log2, int splits,
+                     int vec) {
   constexpr int LD = DP + PAD;
   constexpr int TILE = BK * LD;
   constexpr int KC = DP / 16;       // 16-wide chunks of d
@@ -348,6 +273,7 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
 
+  float mr0 = m0, mr1 = m1;               // the rows' max over all keys
   if (splits > 1) {
     // splits 1.. of each row group leave (O, m, l) in the ring's bytes; split 0
     // merges them in split order, so the result is the same bits every launch
@@ -374,6 +300,8 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     const float c0 = exp2f(m0 - mm0);
     const float c1 = exp2f(m1 - mm1);
+    mr0 = mm0;
+    mr1 = mm1;
     l0 *= c0;
     l1 *= c1;
 #pragma unroll
@@ -402,6 +330,11 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float inv0 = 1.f / l0;
   const float inv1 = 1.f / l1;
   const int row0 = q0 + group * 16 + g;
+  if (lse != nullptr && t4 == 0) {        // lse2 = m + log2(l) of the whole row, for the backward
+    const long long lbase = static_cast<long long>(blockIdx.y) * Tn;
+    if (row0 < Tn) lse[lbase + row0] = mr0 + log2f(l0);
+    if (row0 + 8 < Tn) lse[lbase + row0 + 8] = mr1 + log2f(l1);
+  }
   const bool pairs = (D & 1) == 0;
 #pragma unroll
   for (int ot = 0; ot < OT; ++ot) {
@@ -425,8 +358,9 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DP>
-cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out, int BH, int Tn,
-                       int D, float scale_log2, int splits, int vec, cudaStream_t stream) {
+cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
+                       int BH, int Tn, int D, float scale_log2, int splits, int vec,
+                       cudaStream_t stream) {
   // dynamic shared memory above 48 KB, allowed once per device (not again
   // while a CUDA graph captures the launches)
   static std::atomic<unsigned long long> allowed{0};
@@ -446,7 +380,7 @@ cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out, i
   const int rows = 16 * groups;
   const dim3 grid(static_cast<unsigned>((Tn + rows - 1) / rows), static_cast<unsigned>(BH));
   attention_mma_kernel<DP><<<grid, 32 * WARPS, smem_bytes<DP>(groups, splits, stages), stream>>>(
-      q, k, v, out, Tn, D, scale_log2, splits, vec);
+      q, k, v, out, lse, Tn, D, scale_log2, splits, vec);
   return cudaGetLastError();
 }
 
@@ -455,11 +389,14 @@ cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out, i
 // q, k, v, out (BH, T, D) bf16, contiguous on the device; D <= 128; of the
 // 4 warps of a block, `splits` (1, 2 or 4, at most 2 for D > 64, at most the
 // number of 64-key tiles) split the keys of one row group
-// (ops/attention.py::plan); `scale_log2` = D^-1/2 * log2(e).
+// (ops/attention.py::plan); `scale_log2` = D^-1/2 * log2(e).  `lse`, when
+// not null, receives BH * T floats: each row's log-sum-exp of its scaled
+// logits in the kernel's log2 domain, lse2 = m + log2(l), for the backward
+// (csrc/attention_bwd_mma.cu); `out` is the same with and without it.
 // Launches on `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int attention_mma_forward(const void* q, const void* k, const void* v, void* out,
-                                     int BH, int Tn, int D, float scale_log2, int splits,
-                                     void* stream) {
+                                     void* lse, int BH, int Tn, int D, float scale_log2,
+                                     int splits, void* stream) {
   const int ntiles = (Tn + BK - 1) / BK;
   const bool ok = D >= 1 && D <= 128 && Tn >= 1 && BH >= 1 && BH <= 65535 &&
                   (splits == 1 || splits == 2 || splits == 4) && splits <= ntiles && (D <= 64 || splits <= 2);
@@ -471,9 +408,10 @@ extern "C" int attention_mma_forward(const void* q, const void* k, const void* v
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(out);
+  float* lp = static_cast<float*>(lse);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      D <= 64 ? launch_mma<64>(qp, kp, vp, op, BH, Tn, D, scale_log2, splits, vec, s)
-              : launch_mma<128>(qp, kp, vp, op, BH, Tn, D, scale_log2, splits, vec, s);
+      D <= 64 ? launch_mma<64>(qp, kp, vp, op, lp, BH, Tn, D, scale_log2, splits, vec, s)
+              : launch_mma<128>(qp, kp, vp, op, lp, BH, Tn, D, scale_log2, splits, vec, s);
   return static_cast<int>(err);
 }

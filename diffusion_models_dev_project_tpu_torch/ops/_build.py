@@ -3,8 +3,8 @@
 Every `csrc/*.cu` is compiled for `sm_90a` (one nvcc per source, all started
 together) and linked into one shared library under `build/torch_kernels/`
 at the repository root.  The library's name carries a hash of the sources
-and flags, so a changed source builds anew and an unchanged one is loaded
-as it is.  Each source exports plain `extern "C"` functions; this module
+(the `*.cuh` headers they include too) and flags, so a changed source
+builds anew and an unchanged one is loaded as it is.  Each source exports plain `extern "C"` functions; this module
 declares their argument types (every pointer and the stream as
 `c_void_p`: a pointer passed as a plain int would be cut to 32 bits).
 
@@ -40,10 +40,14 @@ _SIGNATURES = {
     "conv3x3_tc_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, BH, T, D, scale, is_bf16, stream
     "attention_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # q, k, v, out, BH, T, D, scale_log2, splits, stream
-    "attention_mma_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # q, k, v, out, lse (or null), BH, T, D, scale_log2, splits, stream
+    "attention_mma_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, out, dout, dq, dk, dv, workspace, BH, T, D, scale, is_bf16, stream
     "attention_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # q, k, v, out, dout, lse, dq, dk, dv, workspace, BH, T, D, scale_log2, scale,
+    # tile, stream
+    "attention_mma_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
+                               _P),
 }
 
 _lock = threading.Lock()
@@ -67,7 +71,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted((_PKG / "csrc").glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

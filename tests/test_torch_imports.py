@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package, CUDA by default.
 
 The card's machine has torch, numpy and scipy but no jax, flax, msgpack,
-ml_collections, yaml or PIL, so the port and chip_smoke.py import none of
-them.  Entry points run on CUDA unless asked for the CPU, and raise here,
+ml_collections, yaml or PIL, so the port, chip_smoke.py and
+adapted_spread.py import none of them.  Entry points run on CUDA unless asked for the CPU, and raise here,
 where there is no CUDA device.
 
 The torch half of each test runs in a child interpreter (tests/_torch_child.py):
@@ -43,7 +43,7 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
         f"for name in {ABSENT!r}:",
         "    sys.modules[name] = None      # any import of these now fails",
         f"sys.path.insert(0, {REPO!r})",
-        f"for name in {modules!r} + ['chip_smoke']:",
+        f"for name in {modules!r} + ['chip_smoke', 'adapted_spread']:",
         "    importlib.import_module(name)",
         "print('ok')",
     ])
@@ -56,7 +56,7 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(from|import)\s+(jax|flax|diffusion_models_dev_project_tpu)\b(?!_torch)",
                      re.M)
     files = [os.path.join(root, f) for root, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, name) for name in ("chip_smoke.py", "adapted_spread.py")]
     assert not [f for f in files if pat.search(open(f, encoding="utf-8").read())]
     # collecting the port's test files imports no torch (xdist workers
     # collect every file, and the JAX tests run in those processes)

@@ -116,7 +116,7 @@ def test_build_lists_sources_and_needs_nvcc(monkeypatch, tmp_path):
 
     names = [s.name for s in _build.sources()]
     assert {"conv3x3.cu", "conv3x3_tc.cu", "attention.cu", "attention_mma.cu",
-            "attention_bwd.cu"} <= set(names)
+            "attention_bwd.cu", "attention_bwd_mma.cu"} <= set(names)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
