@@ -51,11 +51,23 @@ kernels' backward passes:
    shortened probe is not gated); a plain DDS of as many steps on the same
    observation is printed beside it; CUDA events split each outer step into
    the adaptation and the two score forwards; the launch counts are checked;
-8. prints one `{"kernels": [...]}` line, then, last, the device line
+8. DPS: the gradient DPS takes in x, of ||y - A·Tweedie(score(x, t), x, t)||
+   at t = 0.5 on val image 0, in bf16 and in fp32 with the kernels against
+   `use_kernel=False`, with the launch counts of one forward and backward
+   (per backward also the stem's input gradient, on `narrow`) and its wall
+   and device times; then DPS and naive (penalty 10, 1000 steps) through the
+   port's conditional CLI on its default data (test-fold image 0, generated
+   at 256²), each started from the prior and from the FBP (the last 500
+   steps of the grid): every run inside the CLI's divergence guard with its
+   launch counts exact; from the FBP, DPS better than naive by
+   `DPS_MARGIN_DB` (on the 1000-step grid or finer); CUDA events splitting
+   a DPS step into the score's forward and backward and the rest;
+9. prints one `{"kernels": [...]}` line, then, last, the device line
    `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Usage: python3 chip_smoke.py [--steps N] [--images N] [--adapt-steps N] [--adapt-images N]
+       [--dps-steps N]
 """
 from __future__ import annotations
 
@@ -96,6 +108,17 @@ TOL_GRAD_LEAF = 5e-2
 TOL_GRAD_FP32 = 1e-3
 LORA_RANK = 4
 ADAPT_PROTOCOL_STEPS = 50     # outer steps of the adapted protocol (10 Adam steps each)
+DPS_PROTOCOL_STEPS = 1000     # steps of the conditional CLI's protocol
+DPS_PENALTY = 10.0            # the best DPS penalty of the JAX package's records (BENCH.md)
+DPS_T = 0.5                   # the time at which the full-width gradient in x is checked
+# the FBP start skips this part of the 1000-step grid (the CLI's
+# --pct_chain_elapsed), where the shipped prior's score is biased (BENCH.md;
+# PERF.md §6)
+DPS_FBP_PCT = 0.5
+# from the FBP, DPS must beat naive on the same observation by this much on
+# the 1000-step grid (dB): half the margin of a probe of both runs (12.54 dB,
+# conditional_probe.py), set before the full run (PERF.md §6)
+DPS_MARGIN_DB = 6.0
 
 
 def log(msg: str) -> None:
@@ -834,18 +857,72 @@ def read_counts():
             "attn_bwd": A.backward_launches, "attn_bwd_by": dict(A.backward_launches_by_variant)}
 
 
-def check_counts(counts, n_fwd, n_bwd, what):
+def check_counts(counts, n_fwd, n_bwd, what, stem_grad=False):
     """Per forward 62 conv3x3 (60 tc, 1 narrow, 1 simt) and 4 attention
     (mma); per backward 61 conv3x3 input gradients (60 tc, 1 simt: the
     final conv's, whose gradient has Cin = 1) and 4 attention backwards
-    (mma)."""
+    (mma).  With `stem_grad` (a gradient in the diffusion state x, as DPS
+    takes it) the backward also takes the stem's input gradient, whose
+    swapped shape (Cin 128 -> Cout 1) runs on `narrow`: 62 per backward."""
+    n_stem = n_bwd if stem_grad else 0
     want = {"conv_fwd": 62 * n_fwd, "conv_fwd_by": {"tc": 60 * n_fwd, "narrow": n_fwd, "simt": n_fwd},
-            "conv_bwd": 61 * n_bwd, "conv_bwd_by": {"tc": 60 * n_bwd, "narrow": 0, "simt": n_bwd},
+            "conv_bwd": 61 * n_bwd + n_stem,
+            "conv_bwd_by": {"tc": 60 * n_bwd, "narrow": n_stem, "simt": n_bwd},
             "attn_fwd": 4 * n_fwd, "attn_fwd_by": {"mma": 4 * n_fwd, "simt": 0},
             "attn_bwd": 4 * n_bwd, "attn_bwd_by": {"mma": 4 * n_bwd, "simt": 0}}
     if counts != want:
         raise AssertionError(f"{what}: launch counts {counts}, want {want} for {n_fwd} forwards "
                              f"and {n_bwd} backwards")
+
+
+class PredictorTimer:
+    """CUDA events at the start of each Euler-Maruyama predictor step and
+    around the gradient of its data fit (`predictors._value_and_grad`: for
+    DPS the score's forward and backward, for naive the data fit alone),
+    from the sampler's own calls; `remove()` puts the functions back."""
+
+    def __init__(self, P):
+        self.P, self.starts, self.grads = P, [], []
+        self._step, self._value_and_grad = P.euler_maruyama_step, P._value_and_grad
+
+        def step(*a, **k):
+            self.starts.append(StepTimer._event())
+            return self._step(*a, **k)
+
+        def value_and_grad(*a, **k):
+            e0 = StepTimer._event()
+            out = self._value_and_grad(*a, **k)
+            self.grads.append((e0, StepTimer._event()))
+            return out
+
+        P.euler_maruyama_step, P._value_and_grad = step, value_and_grad
+
+    def remove(self):
+        self.P.euler_maruyama_step, self.P._value_and_grad = self._step, self._value_and_grad
+
+    def split(self, last: int):
+        """(ms per step over the run, medians over the `last` steps before
+        the final one of the step and its gradient part)."""
+        import torch
+
+        torch.cuda.synchronize()
+        if len(self.grads) != len(self.starts) or len(self.starts) < 2:
+            raise AssertionError(f"{len(self.starts)} predictor steps, {len(self.grads)} gradients")
+        n = len(self.starts)
+        rows = [(a.elapsed_time(b), g0.elapsed_time(g1))
+                for a, b, (g0, g1) in zip(self.starts, self.starts[1:], self.grads)][-last:]
+        return (self.starts[0].elapsed_time(self.starts[-1]) / (n - 1),
+                float(np.median([r[0] for r in rows])), float(np.median([r[1] for r in rows])))
+
+
+def read_report(path) -> dict:
+    """PSNR, SSIM and diverged_images of a CLI's report.yaml."""
+    import re
+
+    text = open(path, encoding="utf-8").read()
+    out = {k: float(re.search(rf"^{k}: (\S+)$", text, re.M).group(1)) for k in ("PSNR", "SSIM")}
+    out["diverged_images"] = re.search(r"^diverged_images: (.*)$", text, re.M).group(1)
+    return out
 
 
 def adaptation_gradients(sampler, x, t, use_kernel):
@@ -882,10 +959,12 @@ def main() -> None:
                     help="outer steps of the adapted phase (protocol: 50)")
     ap.add_argument("--adapt-images", type=int, default=2,
                     help="adapted images: val image 0, then the OOD bars phantom")
+    ap.add_argument("--dps-steps", type=int, default=DPS_PROTOCOL_STEPS,
+                    help="steps of the DPS and naive CLI runs (protocol: 1000)")
     args = ap.parse_args()
-    if args.images < 1 or args.adapt_images < 1 or args.adapt_steps < 2:
+    if args.images < 1 or args.adapt_images < 1 or args.adapt_steps < 2 or args.dps_steps < 6:
         raise SystemExit("chip_smoke: --images and --adapt-images must be at least 1, "
-                         "--adapt-steps at least 2")
+                         "--adapt-steps at least 2, --dps-steps at least 6")
     t_all = time.perf_counter()
 
     import torch
@@ -898,7 +977,9 @@ def main() -> None:
     from diffusion_models_dev_project_tpu_torch.ops import _build
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+    from diffusion_models_dev_project_tpu_torch import run_conditional_sampling as CLI
     from diffusion_models_dev_project_tpu_torch.ops.cg import cg
+    from diffusion_models_dev_project_tpu_torch.ops.diffusion import tweedy
     from diffusion_models_dev_project_tpu_torch.sampling import predictors as P
     from diffusion_models_dev_project_tpu_torch.utils.metrics import PSNR, SSIM
 
@@ -1167,7 +1248,141 @@ def main() -> None:
     log("  launches in the adapted runs: " + json.dumps(adapt_counts))
     log(f"[phase 7 adapted] {time.perf_counter() - t0:.1f} s")
 
-    # ---- 8. kernel summary, device line
+    # ---- 8. DPS: the full-width gradient in x, then DPS and naive through the CLI
+    t0 = time.perf_counter()
+    del model_l, samplers, sampler
+    model_f32, _, _ = F.get_standard_score(config32, sde, ckpt_path=CKPT)
+    g = torch.Generator(device="cuda").manual_seed(config.seed)
+    gt, obs, _ = F.get_data_from_ground_truth(images[0], trafo, config.data.stddev, generator=g)
+    nll = P.make_nloglik(trafo, obs)
+    td = torch.full((1,), DPS_T, device="cuda")
+    xd = gt + sde.marginal_prob_std(td).reshape(1, 1, 1, 1) * torch.randn(
+        gt.shape, generator=gen, device="cuda")
+
+    def dps_loss(m, xx, use_kernel=True):
+        return nll(tweedy(m(xx, td, use_kernel=use_kernel), xx, sde, td))
+
+    def dps_gradient(m, use_kernel):
+        xx = xd.detach().requires_grad_(True)
+        loss = dps_loss(m, xx, use_kernel)
+        return float(loss.detach()), torch.autograd.grad(loss, xx)[0]
+
+    def rel2(a, b):
+        return float(torch.linalg.vector_norm((a - b).double()) / torch.linalg.vector_norm(b.double()))
+
+    reset_counts()
+    loss_k, gk = dps_gradient(model, True)
+    dps_grad_counts = read_counts()
+    check_counts(dps_grad_counts, 1, 1, "one forward and backward of the DPS loss", stem_grad=True)
+    loss_p, gp = dps_gradient(model, False)
+    loss_32, g32 = dps_gradient(model_f32, False)
+    loss_32k, g32k = dps_gradient(model_f32, True)
+    del model_f32
+    e_kp, e_f32 = rel2(gk, gp), rel2(g32k, g32)
+    log(f"  DPS gradient in x at 256², t = {DPS_T}: loss bf16 kernels {loss_k:.6e}, bf16 plain "
+        f"{loss_p:.6e}, fp32 plain {loss_32:.6e}, fp32 kernels {loss_32k:.6e}; |g_a - g_b| / |g_b|: "
+        f"bf16 kernels vs bf16 plain {e_kp:.3e} (tol {TOL_GRAD_ALL}), fp32 kernels vs fp32 plain "
+        f"{e_f32:.3e} (tol {TOL_GRAD_FP32}); vs the fp32 plain gradient: bf16 kernels "
+        f"{rel2(gk, g32):.3e}, bf16 plain {rel2(gp, g32):.3e}")
+    log("  launches of one forward and backward: " + json.dumps(dps_grad_counts))
+    if not (all(torch.isfinite(v).all() for v in (gk, gp, g32, g32k))
+            and e_kp <= TOL_GRAD_ALL and e_f32 <= TOL_GRAD_FP32):
+        raise AssertionError("the full-width DPS gradient with kernels disagrees with the plain path")
+    xleaf = xd.detach().clone().requires_grad_(True)
+    with torch.no_grad():
+        dps_fwd_wall = wall_ms(lambda: dps_loss(model, xleaf), 5)
+        dps_fwd_dev = time_ms(lambda: dps_loss(model, xleaf), 3)
+    dps_both_wall = wall_ms(lambda: torch.autograd.grad(dps_loss(model, xleaf), xleaf), 5)
+    dps_both_dev = time_ms(lambda: torch.autograd.grad(dps_loss(model, xleaf), xleaf), 3)
+    log(f"  one DPS loss (score, Tweedie, ||y - Ax||): forward wall {dps_fwd_wall:.2f} ms, device "
+        f"{dps_fwd_dev:.2f} ms; forward + backward wall {dps_both_wall:.2f} ms, device "
+        f"{dps_both_dev:.2f} ms (wall: CUDA events around eager calls; device: graph replay)")
+
+    # DPS and naive through the CLI, on its default data, each run from the
+    # prior and from the FBP (the last steps of the same grid); outputs under build/
+    workdir = os.path.join(REPO, "build", "chip_smoke_cli")
+    os.makedirs(workdir, exist_ok=True)
+    n_dps = args.dps_steps
+    steps_run = {"prior": n_dps, "fbp": n_dps - math.ceil(DPS_FBP_PCT * n_dps)}
+    cli_runs = {}
+    for start in ("prior", "fbp"):
+        for method in ("dps", "naive"):
+            argv = ["--load_path", CKPT, "--num_channels", "128", "--method", method, "--penalty",
+                    str(DPS_PENALTY), "--num_steps", str(n_dps), "--num_images", "1"]
+            if start == "fbp":
+                argv += ["--pct_chain_elapsed", str(DPS_FBP_PCT)]
+            timer = PredictorTimer(P)
+            cwd = os.getcwd()
+            os.chdir(workdir)
+            try:
+                torch.cuda.synchronize()
+                reset_counts()
+                ts = time.perf_counter()
+                root = CLI.coordinator(CLI.parser.parse_args(argv))
+                wall_s = time.perf_counter() - ts
+                counts = read_counts()
+            finally:
+                os.chdir(cwd)
+                timer.remove()
+            what = f"{method} from the {start} through the CLI"
+            n = steps_run[start]
+            check_counts(counts, n, n if method == "dps" else 0, what, stem_grad=True)
+            ms_step, med_step, med_grad = timer.split(SPLIT_STEPS)
+            report = read_report(os.path.join(workdir, root, "report.yaml"))
+            with np.load(os.path.join(workdir, root, "recon_0_info.npz")) as info:
+                recon, g_np = info["recon"], info["ground_truth"]
+            cli_runs[method, start] = dict(report=report, counts=counts, ms_step=ms_step,
+                                           med_step=med_step, med_grad=med_grad, wall_s=wall_s,
+                                           gt=g_np)
+            # the CLI's divergence guard holds the protocol's 1000 steps (or more);
+            # a shortened probe's coarser steps may leave it, and are not gated
+            if not (recon.shape == (256, 256) and np.isfinite(recon).all()
+                    and (n_dps < DPS_PROTOCOL_STEPS or report["diverged_images"] == "[]")):
+                raise AssertionError(f"{what}: reconstruction of the wrong shape, not finite or "
+                                     f"diverged ({report['diverged_images']})")
+    # FBP of the same observation: the CLI's per-image seed (config seed x 1000 + image)
+    g_np = cli_runs["dps", "prior"]["gt"]
+    if not all(np.array_equal(g_np, run["gt"]) for run in cli_runs.values()):
+        raise AssertionError("the CLI runs reconstructed different images")
+    g = torch.Generator(device="cuda").manual_seed(config.seed * 1000)
+    _, _, fbp = F.get_data_from_ground_truth(g_np[..., None], trafo, config.data.stddev, generator=g)
+    f_np = fbp[0, ..., 0].cpu().numpy()
+    fb = (PSNR(f_np, g_np), SSIM(f_np, g_np))
+    for (method, start), run in cli_runs.items():
+        rep = run["report"]
+        log(f"  {method} from the {start} (penalty {DPS_PENALTY:g}, {steps_run[start]} steps of "
+            f"{n_dps}) through the CLI, "
+            f"test-fold image 0: {rep['PSNR']:.2f} dB / {rep['SSIM']:.4f} SSIM | FBP {fb[0]:.2f} dB / "
+            f"{fb[1]:.4f} | diverged images {rep['diverged_images']} | {run['wall_s']:.1f} s in the "
+            f"CLI, {run['ms_step']:.2f} ms per step")
+    for start in ("prior", "fbp"):
+        dps, naive = cli_runs["dps", start], cli_runs["naive", start]
+        log(f"  per step from the {start} (CUDA events, median of the last "
+            f"{min(SPLIT_STEPS, steps_run[start] - 1)} steps): DPS {dps['med_step']:.2f} ms = score forward + "
+            f"backward through Tweedie and the data fit {dps['med_grad']:.2f} ms + rest "
+            f"{dps['med_step'] - dps['med_grad']:.2f} ms; naive {naive['med_step']:.2f} ms, of it the "
+            f"data fit's gradient {naive['med_grad']:.2f} ms")
+    dps, naive = cli_runs["dps", "prior"], cli_runs["naive", "prior"]
+    log(f"  device time alone (graph replay): DPS forward + backward {dps_both_dev:.2f} ms, so at most "
+        f"{dps_both_dev / dps['med_step']:.0%} of a DPS step; UNet forward {fwd_dev_ms:.2f} ms "
+        f"(phase 4), at most {fwd_dev_ms / naive['med_step']:.0%} of a naive step with the data "
+        f"fit's gradient")
+    for (method, start), run in cli_runs.items():
+        log(f"  launches in the {method} run from the {start}: " + json.dumps(run["counts"]))
+    # from the prior the shipped prior's biased score at large sigma sets the
+    # result (PERF.md §6): printed, not gated; from the FBP DPS must win
+    margins = {start: cli_runs["dps", start]["report"]["PSNR"] - cli_runs["naive", start]["report"]["PSNR"]
+               for start in ("prior", "fbp")}
+    log(f"  DPS - naive: from the prior {margins['prior']:+.2f} dB (not gated), from the FBP "
+        f"{margins['fbp']:+.2f} dB (gate on a grid of {DPS_PROTOCOL_STEPS} steps or more: > "
+        f"{DPS_MARGIN_DB} dB)")
+    if n_dps >= DPS_PROTOCOL_STEPS and not margins["fbp"] > DPS_MARGIN_DB:
+        raise AssertionError(f"from the FBP, DPS {cli_runs['dps', 'fbp']['report']['PSNR']:.2f} dB does "
+                             f"not beat naive {cli_runs['naive', 'fbp']['report']['PSNR']:.2f} dB by "
+                             f"{DPS_MARGIN_DB} dB")
+    log(f"[phase 8 dps] {time.perf_counter() - t0:.1f} s")
+
+    # ---- 9. kernel summary, device line
     src = "diffusion_models_dev_project_tpu_torch/csrc/"
     conv_src = {"tc": src + "conv3x3_tc.cu", "narrow": src + "conv3x3.cu", "simt": src + "conv3x3.cu"}
     kernels = []
@@ -1192,9 +1407,15 @@ def main() -> None:
                          "plain_ms": b_tot["plain_ms"], "bound_ms": b_tot["bound_ms"],
                          "bound_by": "operations" if b_tot["ops_ms"] >= b_tot["bytes_ms"] else "bytes",
                          "library_ms": b_tot["library_ms"], "max_abs_err": b_err}})
+    # launches of the DPS run through the CLI, forward and backward
+    dps_counts = cli_runs["dps", "prior"]["counts"]
+    for kern, (f_key, b_key) in zip(kernels, (("conv_fwd", "conv_bwd"), ("attn_fwd", "attn_bwd"))):
+        kern["launches_dps"] = dps_counts[f_key]
+        kern["backward"]["launches_dps"] = dps_counts[b_key]
     kernels[0]["backward"]["variants"] = {
         v: {"source": conv_src[v], "launches": adapt_counts["conv_bwd_by"][v],
-            "calls_per_backward": k} for v, k in conv_bwd_variants.items()}
+            "launches_dps": dps_counts["conv_bwd_by"][v],
+            "calls_per_backward": conv_bwd_variants.get(v, 0)} for v in C.VARIANTS}
     # attention backward: each variant's launches in the adapted runs and its
     # time per UNet backward at the path's shapes (simt: the earlier design)
     attn_bwd_src = {"mma": src + "attention_bwd_mma.cu", "simt": src + "attention_bwd.cu"}

@@ -9,7 +9,7 @@ of `model`) start empty (None).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 __all__ = ["Config", "get_default_configs"]
 
@@ -55,6 +55,7 @@ class SamplingConfig(_Section):
     eps: float = 1e-3
     travel_length: Optional[int] = None     # DDPM only
     travel_repeat: Optional[int] = None     # DDPM only
+    beta_schedule: Optional[str] = None     # AAPM
 
 
 @dataclasses.dataclass
@@ -73,6 +74,13 @@ class DataConfig(_Section):
     num_n_ellipse: Optional[int] = None
     validation: DataValidationConfig = dataclasses.field(default_factory=DataValidationConfig)
     part: Optional[str] = None
+    base_path: Optional[str] = None         # AAPM
+    # walnut
+    new_shape: Optional[Tuple[int, int]] = None
+    data_path: Optional[str] = None
+    walnut_id: Optional[int] = None
+    fold: Optional[str] = None
+    scaling_factor: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -80,6 +88,10 @@ class ForwardOpConfig(_Section):
     num_angles: Optional[int] = None
     trafo_name: Optional[str] = None
     impl: str = "fft"
+    # walnut
+    orbit_id: Optional[int] = None
+    angular_sub_sampling: Optional[int] = None
+    proj_col_sub_sampling: Optional[int] = None
 
 
 @dataclasses.dataclass

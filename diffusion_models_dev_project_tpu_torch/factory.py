@@ -1,9 +1,11 @@
 """Experiment factory: configs -> SDE, score model, operator, data, sampler.
 
-Port of the main-path part of `factory.py` of the JAX package: the calls
-that `run_conditional_sampling.py` and `run_adapted_sampling.py` make for a
-DDS reconstruction, plain or adapted, on the disk-ellipse workload.  Each entry point runs on `cuda` unless the caller
-passes `device="cpu"`, and raises when CUDA is wanted and absent.
+Port of `factory.py` of the JAX package: the calls that the conditional and
+the adapted sampling CLIs make, for the disk-ellipse workload with the FFT
+parallel-beam operator.  The AAPM and walnut configs resolve as in the JAX
+package; their data and operators raise, naming ROADMAP.md queue 1 item 9.
+Each entry point runs on `cuda` unless the caller passes `device="cpu"`, and
+raises when CUDA is wanted and absent.
 """
 from __future__ import annotations
 
@@ -11,11 +13,13 @@ import dataclasses
 import os
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from .configs import aapm_configs, disk_ellipses_configs, walnut_configs
+from .data.ellipses import get_disk_dist_ellipses_dataset
 from .models.convert import load_flax_msgpack, params_from_flax
 from .models.unet import UNetModel, create_model_config
 from .ops.sde import SDE, get_standard_sde  # noqa: F401  (re-export)
@@ -26,8 +30,12 @@ from .sampling.engine import get_standard_sampler  # noqa: F401  (re-export)
 from .utils.device import resolve_device
 
 __all__ = ["get_standard_sde", "get_standard_score", "get_standard_ray_trafo",
-           "get_standard_dataset", "get_data_from_ground_truth", "get_standard_path",
-           "get_standard_sampler", "get_standard_adapted_sampler"]
+           "get_standard_dataset", "get_data_from_ground_truth", "get_standard_configs",
+           "get_standard_dataset_configs", "get_standard_path", "get_standard_sampler",
+           "get_standard_adapted_sampler"]
+
+NOT_PORTED_DATA = ("the AAPM and walnut data and their operators are not ported yet "
+                   "(ROADMAP.md queue 1 item 9)")
 
 DATA_ASSETS = Path(__file__).resolve().parent.parent / "data_assets"
 
@@ -37,6 +45,10 @@ def get_standard_score(config, sde: SDE, use_ema: bool = False, load_model: bool
                        lora_include_blocks=None, device=None):
     """Build the UNet and load a checkpoint; returns (model, params, score_fn)
     with `params` the model's state_dict and `score_fn(x, t)` its forward.
+
+    Every parameter comes back with `requires_grad` off, as the JAX score
+    carries no parameter gradient: DPS differentiates the network in x
+    alone, and `AdaptedSampler.adapting()` turns its own trainable leaves on.
 
     Checkpoints are the JAX package's flax msgpack trees (`*.msgpack.npz`,
     fp16 storage loaded as fp32 masters).  Without one the weights are
@@ -72,7 +84,7 @@ def get_standard_score(config, sde: SDE, use_ema: bool = False, load_model: bool
         if unexpected or [k for k in missing if "_lora." not in k]:
             raise ValueError(f"checkpoint {ckpt_path} does not fit the model: missing "
                              f"{missing[:5]}, unexpected {unexpected[:5]}")
-    model = model.to(device=dev).eval()
+    model = model.to(device=dev).eval().requires_grad_(False)
     for name, p in model.named_parameters():
         if not (lora_rank and is_adapt_param(name)):
             p.data = p.data.to(cfg.torch_dtype)
@@ -88,7 +100,7 @@ def get_standard_ray_trafo(config, device=None) -> FFTRayTransform:
     name = config.forward_op.trafo_name.lower()
     impl = config.forward_op.get("impl", "fft")
     if name != "simple_trafo" or impl != "fft":
-        raise NotImplementedError(f"operator {name!r} with impl {impl!r} is not ported yet")
+        raise NotImplementedError(f"operator {name!r} with impl {impl!r}: {NOT_PORTED_DATA}")
     dev = resolve_device(device)
     return make_fft_parallel_trafo((config.data.im_size, config.data.im_size),
                                    config.forward_op.num_angles, device=dev)
@@ -109,34 +121,50 @@ def get_data_from_ground_truth(ground_truth, ray_trafo, white_noise_rel_stddev: 
     return ground_truth, observation, ray_trafo.fbp(observation)
 
 
-def get_standard_dataset(config) -> List[np.ndarray]:
-    """The shipped disk-ellipse set of `config.data.part` (JAX
-    `get_standard_dataset` with `data_assets/disk_ellipses_<part>_256.npz`),
-    as a list of NHWC (H, W, 1) fp32 images.  Only the `val` set is shipped;
-    generating ellipses on the fly is not ported yet (ROADMAP.md queue 1
-    item 6).  An `im_size` that divides 256 takes 2x2, 4x4, ... block means
-    of the 256² images (the port's own, for small CPU runs)."""
+def get_standard_dataset(config, ray_trafo=None, device=None) -> Sequence[np.ndarray]:
+    """The evaluation images of `config.data`, NHWC (H, W, 1) fp32 numpy, as
+    the JAX package's `get_standard_dataset` gives them: at 256² the shipped
+    set of `config.data.part` where one exists
+    (`data_assets/disk_ellipses_<part>_256.npz`: `val`), else the test-fold
+    disk-ellipse phantoms generated at `config.data.im_size`, rasterised on
+    the operator's device (or `device`)."""
     name = config.data.name.lower()
+    if name != "diskdistributedellipsesdataset":
+        if name in ("walnut", "aapm"):
+            raise NotImplementedError(f"dataset {config.data.name!r}: {NOT_PORTED_DATA}")
+        raise NotImplementedError(config.data.name)
     path = DATA_ASSETS / f"disk_ellipses_{config.data.part}_256.npz"
-    if name != "diskdistributedellipsesdataset" or not path.exists():
-        raise NotImplementedError(f"dataset {config.data.name!r} part {config.data.part!r}: only "
-                                  f"the shipped disk-ellipse val set is ported (ROADMAP.md "
-                                  f"queue 1 item 6)")
-    images = np.load(path)["images"].astype(np.float32)          # (N, 256, 256, 1)
-    n = config.data.im_size
-    if n != 256:
-        if n <= 0 or 256 % n:
-            raise NotImplementedError(f"im_size {n}: the shipped set is 256², and sizes that "
-                                      f"divide 256 are taken as block means")
-        f = 256 // n
-        images = images.reshape(-1, n, f, n, f, 1).mean(axis=(2, 4))
-    return [images[i] for i in range(images.shape[0])]
+    if config.data.im_size == 256 and path.exists():
+        images = np.load(path)["images"].astype(np.float32)          # (N, 256, 256, 1)
+        return [images[i] for i in range(images.shape[0])]
+    return get_disk_dist_ellipses_dataset(
+        fold="test", im_size=config.data.im_size, length=config.data.val_length,
+        diameter=config.data.diameter, max_n_ellipse=config.data.num_n_ellipse,
+        device=ray_trafo.device if ray_trafo is not None else device)
+
+
+_CONFIG_MODULES = {"ellipses": disk_ellipses_configs, "aapm": aapm_configs,
+                   "walnut": walnut_configs}
+
+
+def get_standard_configs(args):
+    """(config, dataconfig): the model config from `args.model_learned_on`,
+    the data config from `args.dataset`, both for `args.sde`."""
+    model_on = args.model_learned_on.lower()
+    if model_on not in ("ellipses", "aapm"):
+        raise NotImplementedError(model_on)
+    config = _CONFIG_MODULES[model_on].get_config(args.sde.lower())
+    config.ckpt_path = getattr(args, "load_path", None)
+    return config, get_standard_dataset_configs(args)
+
+
+def get_standard_dataset_configs(args):
+    return _CONFIG_MODULES[args.dataset.lower()].get_config(args.sde.lower())
 
 
 def get_standard_path(args, run_type: Optional[str] = None,
                       data_part: Optional[str] = None) -> Path:
-    """Output-path convention of the JAX package (`get_standard_path`),
-    for the run the port's CLI has: `adapt`."""
+    """Output-path convention of the JAX package (`get_standard_path`)."""
     path = os.path.join("./outputs", f"{args.model_learned_on}_{args.dataset}")
     if data_part is not None:
         path = os.path.join(path, data_part)
@@ -145,6 +173,12 @@ def get_standard_path(args, run_type: Optional[str] = None,
                             f"dc_type={args.dc_type}", f"num_steps={args.num_steps}",
                             f"num_optim_step={args.num_optim_step}",
                             f"tv_penalty{args.tv_penalty}")
+    elif run_type == "dds":
+        path = os.path.join(path, run_type, f"num_steps={args.num_steps}",
+                            f"cg_iter={args.cg_iter}", f"gamma={args.gamma}")
+    elif run_type in ("dps", "naive"):
+        path = os.path.join(path, run_type, f"num_steps={args.num_steps}",
+                            f"penalty={args.penalty}")
     if args.dataset != "walnut" and getattr(args, "stddev", None) is not None:
         path = os.path.join(path, f"noise_level={args.stddev}")
     return Path(os.path.join(path, time.strftime("%d-%m-%Y-%H-%M-%S")))

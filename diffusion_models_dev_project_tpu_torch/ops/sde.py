@@ -28,6 +28,11 @@ class SDE:
 
     prediction_type: str = dataclasses.field(default="score", init=False)
 
+    def sde(self, x: torch.Tensor, t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(drift, diffusion) of the forward SDE; drift has x's shape,
+        diffusion is (B,)."""
+        raise NotImplementedError
+
     def marginal_prob_std(self, t: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
@@ -64,6 +69,9 @@ class VESDE(SDE):
         sigma = self.marginal_prob_std(t)
         return sigma * math.sqrt(2.0 * (math.log(self.sigma_max) - math.log(self.sigma_min)))
 
+    def sde(self, x, t):
+        return torch.zeros_like(x), self.diffusion_coeff(t)
+
     def _prior_scale(self):
         return self.sigma_max
 
@@ -86,6 +94,10 @@ class VPSDE(SDE):
 
     def diffusion_coeff(self, t):
         return torch.sqrt(self.beta_min + t * (self.beta_max - self.beta_min))
+
+    def sde(self, x, t):
+        beta_t = self.beta_min + t * (self.beta_max - self.beta_min)
+        return -0.5 * _bcast(beta_t, x.ndim) * x, self.diffusion_coeff(t)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -1,8 +1,9 @@
 """Steerable (adapted) sampling CLI of the port.
 
 Counterpart of the JAX package's `run_adapted_sampling.py` for the path the
-port has: the disk-ellipse data (the shipped val set at 256²), the FFT
-parallel-beam operator, DDS with `--adaptation lora`, one image at a time.
+port has: the disk-ellipse data (the generated test-fold phantoms, which
+the JAX CLI reconstructs too), the FFT parallel-beam operator, DDS with
+`--adaptation lora`, one image at a time.
 Each image starts from a fresh LoRA state (seed = the image's index) and
 the model's own biases.  It writes what the JAX CLI writes under
 `./outputs/...`: `recon_<i>_info.npz`, `recon_<i>.png`, `report.yaml`, and
@@ -20,6 +21,7 @@ have yet raise NotImplementedError naming their ROADMAP.md item.
 import argparse
 import dataclasses
 import json
+from itertools import islice
 
 import numpy as np
 
@@ -50,8 +52,7 @@ parser.add_argument("--early_stopping_pct", default=1.0)
 parser.add_argument("--num_images", default=None)
 parser.add_argument("--version", default=1)
 parser.add_argument("--im_size", default=None,
-                    help="override image size (extension; sizes that divide 256 take block "
-                         "means of the shipped 256² images)")
+                    help="override image size (extension; reference configs are fixed at 256)")
 parser.add_argument("--num_channels", default=None, help="override model channels (extension)")
 parser.add_argument("--sigma_max", default=None,
                     help="override sde.sigma_max: must match the checkpoint's (extension)")
@@ -66,7 +67,7 @@ parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
 def _check_ported(args):
     if args.dataset != "ellipses" or args.model_learned_on != "ellipses":
         raise NotImplementedError("only the disk-ellipse data and prior are ported; the AAPM and "
-                                  "walnut data and configs are ROADMAP.md queue 1 items 6 and 9")
+                                  "walnut data are ROADMAP.md queue 1 item 9")
     if args.adaptation != "lora":
         raise NotImplementedError(f"--adaptation {args.adaptation} trains base conv weights, "
                                   "whose gradient kernel is ROADMAP.md queue 1 item 8")
@@ -90,7 +91,6 @@ def coordinator(args):
     device = resolve_device(args.device)
     config, dataconfig = get_config(args.sde), get_config(args.sde)
     config.ckpt_path = args.load_path
-    dataconfig.data.part = "val"        # the shipped set (generated sets: ROADMAP queue 1 item 6)
     if args.im_size is not None:
         for c in (config, dataconfig):
             c.model.image_size = c.data.im_size = int(args.im_size)
@@ -113,12 +113,12 @@ def coordinator(args):
                                        lora_include_blocks=tuple(args.lora_include_blocks),
                                        device=device)
     ray_trafo = F.get_standard_ray_trafo(dataconfig, device=device)
-    dataset = F.get_standard_dataset(dataconfig)
+    dataset = F.get_standard_dataset(dataconfig, ray_trafo)
     num_images = (int(args.num_images) if args.num_images is not None
                   else dataconfig.data.validation.num_images)
     seed = config.seed or 0
     psnrs, ssims = [], []
-    for i, image in enumerate(dataset[:num_images]):
+    for i, image in enumerate(islice(iter(dataset), num_images)):
         gen = torch.Generator(device=device).manual_seed(seed * 1000 + i)
         ground_truth, observation, _ = F.get_data_from_ground_truth(
             image, ray_trafo, dataconfig.data.stddev, generator=gen)

@@ -1,14 +1,18 @@
-"""Reverse-diffusion sampling loop (DDS in this slice of the port).
+"""Reverse-diffusion sampling loop: naive, DPS, DDS and unconditional.
 
 Port of `SamplerSpec`, `_time_arrays`, `DiffusionSampler` and
 `get_standard_sampler` of `sampling/engine.py` of the JAX package.  The JAX
 package compiles the loop into one `lax.scan`; here it is a Python loop of
-`dds_step`s.  The returned reconstruction is the last Tweedie estimate.
+predictor steps, each followed by the Langevin corrector when it is on.  The
+returned reconstruction is the last step's `x_mean` (for DDS and DPS the
+last Tweedie estimate).  With a ground truth, the per-step PSNR of `x_mean`
+is kept on the device and returned with `return_trace=True`.
 
 Noise comes from a `torch.Generator`, or is injected as `noises`: one prior
-draw followed by one draw per step, all standard normal of the chain's shape.
-The JAX package draws from split PRNG keys, which no torch generator can
-reproduce, so parity tests hand its draws over this way.
+draw, then per step one draw for the predictor and one per corrector step,
+all standard normal of the chain's shape, in the order the JAX engine
+splits its keys.  No torch generator can reproduce JAX's split keys, so
+parity tests hand its draws over this way.
 """
 from __future__ import annotations
 
@@ -20,11 +24,12 @@ import torch
 
 from ..ops.sde import DDPM, SDE
 from ..ops.time_grids import ddpm_time_pairs, score_time_grid
+from ..utils.device import resolve_device
 from . import predictors as P
 
 __all__ = ["SamplerSpec", "DiffusionSampler", "get_standard_sampler"]
 
-_PORTED_METHODS = ("dds",)
+_KNOWN_METHODS = ("naive", "dps", "dds", "uncond")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,10 +40,14 @@ class SamplerSpec:
     im_shape: Tuple[int, int, int] = (256, 256, 1)   # (H, W, C)
     eps: float = 1e-3
     start_time_step: int = 0
+    penalty: float = 1.0             # naive and DPS
     gamma: float = 0.01
     eta: float = 0.15
     cg_iter: int = 5
     use_simplified_eqn: bool = True
+    # Langevin corrector steps after each predictor step (VE/VP)
+    corrector_steps: int = 0
+    corrector_snr: float = 0.16
     # DDPM jump schedule
     travel_length: int = 1
     travel_repeat: int = 1
@@ -46,12 +55,17 @@ class SamplerSpec:
     # accepted for compatibility and ignored: on the TPU it selects bf16x3
     # matmuls for CG; the port runs CG in fp32 with TF32 off
     cg_precision: Optional[str] = "high"
+    # DDS data consistency: "cg" only; the JAX package's exact "woodbury"
+    # solve needs a matrix-backed operator
+    dc_mode: str = "cg"
 
     def __post_init__(self):
-        if self.method not in _PORTED_METHODS:
-            raise NotImplementedError(
-                f"sampling method {self.method!r} is not ported yet; the port has "
-                f"{_PORTED_METHODS}")
+        if self.method not in _KNOWN_METHODS:
+            raise NotImplementedError(f"unknown sampling method {self.method!r}; expected one "
+                                      f"of {_KNOWN_METHODS}")
+        if self.dc_mode != "cg":
+            raise NotImplementedError(f"dc_mode {self.dc_mode!r}: the Woodbury solve and the "
+                                      "matrix operators it needs are ROADMAP.md queue 1 item 9")
 
 
 def _time_arrays(sde: SDE, spec: SamplerSpec):
@@ -76,82 +90,140 @@ def _time_arrays(sde: SDE, spec: SamplerSpec):
 
 
 class DiffusionSampler:
-    """Conditional DDS sampler: `score_fn(x, t)` gives the model output (score
-    or epsilon) for NHWC `x`; `ray_trafo` and `observation` define the data."""
+    """Conditional or unconditional sampler: `score_fn(x, t)` gives the model
+    output (score or epsilon) for NHWC `x`; `ray_trafo` and `observation`
+    define the data (None for `uncond`), `ground_truth` turns on the PSNR
+    trace.  Without an observation the chain runs on `device` (default
+    CUDA)."""
 
-    def __init__(self, score_fn: Callable, sde: SDE, spec: SamplerSpec, ray_trafo,
-                 observation: torch.Tensor, filtbackproj: Optional[torch.Tensor] = None):
+    def __init__(self, score_fn: Callable, sde: SDE, spec: SamplerSpec, ray_trafo=None,
+                 observation: Optional[torch.Tensor] = None,
+                 ground_truth: Optional[torch.Tensor] = None,
+                 filtbackproj: Optional[torch.Tensor] = None, device=None):
         self.score_fn = score_fn
         self.sde = sde
         self.spec = spec
-        if hasattr(ray_trafo, "with_gram"):
+        if spec.method == "dds" and hasattr(ray_trafo, "with_gram"):
             ray_trafo = ray_trafo.with_gram()      # fused AᵀA tables for CG
+        if spec.method in ("naive", "dps", "dds") and (ray_trafo is None or observation is None):
+            raise ValueError(f"method {spec.method!r} needs a ray_trafo and an observation")
         self.ray_trafo = ray_trafo
         self.observation = observation
+        self.ground_truth = ground_truth
         self.filtbackproj = filtbackproj
-        self.rhs = ray_trafo.adjoint(observation)  # Aᵀy, once
+        self.device = observation.device if observation is not None else resolve_device(device)
+        # Aᵀy, once
+        self.rhs = ray_trafo.adjoint(observation) if observation is not None else None
         self._time_data = _time_arrays(sde, spec)
+        self._step_size = self._time_data[3]
+
+    @property
+    def corrector_steps(self) -> int:
+        """Langevin steps after each predictor step (none for DDPM)."""
+        return self.spec.corrector_steps if self.sde.prediction_type == "score" else 0
 
     @property
     def num_draws(self) -> int:
-        """Standard-normal draws per chain: the prior, then one per step."""
-        return 1 + len(self._time_data[0])
+        """Standard-normal draws per chain: the prior, then per step one for
+        the predictor and one per corrector step."""
+        return 1 + len(self._time_data[0]) * (1 + self.corrector_steps)
+
+    def _step(self, x, t, t_prev, datafitscale, noise, nloglik):
+        """One predictor step, dispatched as the JAX engine's `_step`."""
+        spec, sde = self.spec, self.sde
+        if spec.method == "uncond":
+            if sde.prediction_type == "score":
+                return P.euler_maruyama_step(self.score_fn, sde, x, t, self._step_size, noise)
+            return P.wrapper_ddim_step(self.score_fn, sde, x, t, t_prev, noise)
+        if spec.method == "dds":
+            return P.dds_step(self.score_fn, sde, x, t, t_prev, self.rhs, self.ray_trafo,
+                              spec.gamma, spec.eta, spec.cg_iter, noise,
+                              use_simplified_eqn=spec.use_simplified_eqn)
+        if isinstance(sde, DDPM):
+            if spec.method == "dps":
+                return P.ancestral_step(self.score_fn, sde, x, t, noise, nloglik, spec.penalty)
+            raise NotImplementedError(f"{spec.method} for DDPM")
+        return P.euler_maruyama_step(self.score_fn, sde, x, t, self._step_size, noise,
+                                     nloglik=nloglik, datafitscale=datafitscale,
+                                     penalty=spec.penalty, aTweedy=spec.method == "dps")
 
     @torch.no_grad()
     def sample(self, generator: Optional[torch.Generator] = None,
-               noises: Optional[Sequence[torch.Tensor]] = None):
-        """Run the reverse diffusion; returns (x_mean, None) like the JAX
-        package's `sample` without a trace."""
+               noises: Optional[Sequence[torch.Tensor]] = None, return_trace: bool = False):
+        """Run the reverse diffusion; returns (x_mean, trace) with `trace` the
+        per-step PSNR of x_mean against `ground_truth` (zeros without one), a
+        tensor on the chain's device, when `return_trace`, else (x_mean, None)."""
         spec, sde = self.spec, self.sde
-        ts, tps, _, _ = self._time_data
+        ts, tps, dfs, _ = self._time_data
         b = spec.batch_size
         shape = (b, *spec.im_shape)
-        device = self.rhs.device
+        device = self.device
         if noises is not None and len(noises) != self.num_draws:
             raise ValueError(f"{len(noises)} noise draws for {self.num_draws} needed")
+        draws = iter(noises) if noises is not None else None
 
-        def draw(i):
-            if noises is not None:
-                return torch.as_tensor(noises[i], dtype=torch.float32, device=device)
+        def draw():
+            if draws is not None:
+                return torch.as_tensor(next(draws), dtype=torch.float32, device=device)
             return torch.randn(shape, generator=generator, device=device)
 
         if spec.start_time_step > 0 and self.filtbackproj is not None:
             # chain initialised from the FBP at the first time step
             std = sde.marginal_prob_std(torch.full((b,), float(ts[0]), device=device))
-            x = self.filtbackproj + draw(0) * std.reshape(b, 1, 1, 1)
+            x = self.filtbackproj + draw() * std.reshape(b, 1, 1, 1)
         else:
-            x = sde.prior_sampling(shape, noise=draw(0))
+            x = sde.prior_sampling(shape, noise=draw())
+        gt = self.ground_truth
+        if gt is not None:
+            gt_range = 20 * torch.log10(gt.max() - gt.min())
+        trace = torch.zeros(len(ts), device=device)
+        nloglik = (P.make_nloglik(self.ray_trafo, self.observation)
+                   if spec.method in ("naive", "dps") else None)
         t_dtype = torch.int64 if isinstance(sde, DDPM) else torch.float32
         x_mean = torch.zeros_like(x)
-        for i, (t, t_prev) in enumerate(zip(ts.tolist(), tps.tolist())):
+        for i, (t, t_prev, datafitscale) in enumerate(zip(ts.tolist(), tps.tolist(),
+                                                          dfs.tolist())):
             tvec = torch.full((b,), t, dtype=t_dtype, device=device)
             tpvec = torch.full((b,), t_prev, dtype=t_dtype, device=device)
-            x, x_mean = P.dds_step(self.score_fn, sde, x, tvec, tpvec, self.rhs,
-                                   self.ray_trafo, spec.gamma, spec.eta, spec.cg_iter,
-                                   draw(i + 1), use_simplified_eqn=spec.use_simplified_eqn)
-        return x_mean, None
+            x, x_mean = self._step(x, tvec, tpvec, datafitscale, draw(), nloglik)
+            if self.corrector_steps:
+                x = P.langevin_corrector(self.score_fn, sde, x, tvec,
+                                         [draw() for _ in range(self.corrector_steps)],
+                                         nloglik=nloglik, datafitscale=datafitscale,
+                                         penalty=spec.penalty, snr=spec.corrector_snr)
+            if gt is not None:
+                mse = (x_mean[0, ..., 0] - gt[0, ..., 0]).square().mean()
+                trace[i] = gt_range - 10 * torch.log10(mse)
+        return (x_mean, trace) if return_trace else (x_mean, None)
 
 
 def get_standard_sampler(method: str, score_fn, sde, ray_trafo, observation, *,
                          num_steps: int = 1000, batch_size: int = 1, im_shape=None,
-                         eps: float = 1e-3, gamma: float = 0.01, eta: float = 0.15,
-                         cg_iter: int = 5, pct_chain_elapsed: float = 0.0,
+                         eps: float = 1e-3, penalty: float = 1.0, gamma: float = 0.01,
+                         eta: float = 0.15, cg_iter: int = 5, pct_chain_elapsed: float = 0.0,
                          travel_length: int = 1, travel_repeat: int = 1,
-                         early_stopping_pct=None, filtbackproj=None,
-                         cg_precision="high") -> DiffusionSampler:
-    """Factory with the JAX package's defaults and flags (DDS only)."""
+                         early_stopping_pct=None, ground_truth=None, filtbackproj=None,
+                         score_apply=None, score_params=None, add_corrector_step: bool = False,
+                         corrector_snr: float = 0.16, cg_precision="high", dc_mode="cg",
+                         device=None) -> DiffusionSampler:
+    """Factory with the JAX package's defaults and keywords.  `score_apply(
+    params, x, t)` with `score_params` may stand in for `score_fn`, as in the
+    JAX package; `device` places a chain that has no observation."""
     import math
 
+    if score_fn is None and score_apply is not None:
+        score_fn = lambda x, t: score_apply(score_params, x, t)  # noqa: E731
     if im_shape is None:
         h, w = ray_trafo.model_im_shape
         im_shape = (h, w, 1)
     spec = SamplerSpec(
         method=method.lower(), num_steps=int(num_steps), batch_size=batch_size,
-        im_shape=tuple(im_shape), eps=eps, gamma=float(gamma), eta=float(eta),
-        cg_iter=int(cg_iter),
+        im_shape=tuple(im_shape), eps=eps, penalty=float(penalty), gamma=float(gamma),
+        eta=float(eta), cg_iter=int(cg_iter),
         start_time_step=math.ceil(float(pct_chain_elapsed) * int(num_steps)),
         travel_length=travel_length, travel_repeat=travel_repeat,
         early_stopping_pct=early_stopping_pct, use_simplified_eqn=True,
-        cg_precision=cg_precision)
+        corrector_steps=1 if add_corrector_step else 0, corrector_snr=float(corrector_snr),
+        cg_precision=cg_precision, dc_mode=dc_mode)
     return DiffusionSampler(score_fn, sde, spec, ray_trafo, observation,
-                            filtbackproj=filtbackproj)
+                            ground_truth=ground_truth, filtbackproj=filtbackproj, device=device)

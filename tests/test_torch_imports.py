@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, nothing of the JAX package, CUDA by default.
 
 The card's machine has torch, numpy and scipy but no jax, flax, msgpack,
-ml_collections, yaml or PIL, so the port, chip_smoke.py and
-adapted_spread.py import none of them.  Entry points run on CUDA unless asked for the CPU, and raise here,
-where there is no CUDA device.
+ml_collections, yaml or PIL, so the port, chip_smoke.py, adapted_spread.py
+and conditional_probe.py import none of them.  Entry points run on CUDA
+unless asked for the CPU, and raise here, where there is no CUDA device.
 
 The torch half of each test runs in a child interpreter (tests/_torch_child.py):
 no pytest process runs torch code.
@@ -38,12 +38,16 @@ def _port_modules():
 def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
     modules = _port_modules()
     assert len(modules) >= 20
+    # among them the conditional-sampling slice's
+    assert {f"{PKG_NAME}.{m}" for m in (
+        "run_conditional_sampling", "data.ellipses", "configs.aapm_configs",
+        "configs.walnut_configs", "sampling.predictors", "sampling.engine")} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         f"for name in {ABSENT!r}:",
         "    sys.modules[name] = None      # any import of these now fails",
         f"sys.path.insert(0, {REPO!r})",
-        f"for name in {modules!r} + ['chip_smoke', 'adapted_spread']:",
+        f"for name in {modules!r} + ['chip_smoke', 'adapted_spread', 'conditional_probe']:",
         "    importlib.import_module(name)",
         "print('ok')",
     ])
@@ -56,7 +60,8 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(from|import)\s+(jax|flax|diffusion_models_dev_project_tpu)\b(?!_torch)",
                      re.M)
     files = [os.path.join(root, f) for root, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    files += [os.path.join(REPO, name) for name in ("chip_smoke.py", "adapted_spread.py")]
+    files += [os.path.join(REPO, name)
+              for name in ("chip_smoke.py", "adapted_spread.py", "conditional_probe.py")]
     assert not [f for f in files if pat.search(open(f, encoding="utf-8").read())]
     # collecting the port's test files imports no torch (xdist workers
     # collect every file, and the JAX tests run in those processes)
@@ -124,10 +129,19 @@ def unported_paths_raise():
             TA.is_adapt_param("in_1_0.conv1.weight", impl)
     with pytest.raises(NotImplementedError, match="item 10"):
         TA.AdaptedSampler.sample_batched(None)
-    # the shipped data is the disk-ellipse val set (generated sets: item 6)
+    # part "test" has no shipped set: the port generates the test-fold
+    # phantoms, as the JAX package does (tests/test_torch_ellipses.py holds
+    # them to its); the AAPM and walnut data are item 9
     config.data.part = "test"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TF.get_standard_dataset(config)
+    dataset = TF.get_standard_dataset(config, device="cpu")
+    image = dataset[0]
+    assert len(dataset) == config.data.val_length and image.shape == (256, 256, 1)
+    assert image.dtype == np.float32 and image.min() >= 0 and image.max() == 1
+    from diffusion_models_dev_project_tpu_torch.configs import aapm_configs, walnut_configs
+
+    for data_config in (aapm_configs.get_config(), walnut_configs.get_config()):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            TF.get_standard_dataset(data_config, device="cpu")
     # the adapted CLI: what the port does not have raises, naming its item
     from diffusion_models_dev_project_tpu_torch import run_adapted_sampling as cli
 
