@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (`diffusion_models_dev_project_tpu_torch`).
 
-Drives the port's two paths through its factory entry points on one CUDA
-device: the flagship 256² disk-ellipse DDS reconstruction, and steerable
-LoRA adaptation inside the DDS loop, whose gradients run through both hand
-kernels' backward passes:
+Drives the port's paths through its entry points on one CUDA device: the
+flagship 256² disk-ellipse DDS reconstruction, steerable LoRA adaptation
+inside the DDS loop, DPS and naive sampling through the conditional CLI,
+score-model training through the train CLI, and `full` and `decoder`
+adaptation through the adapted CLI, whose gradients run through the hand
+kernels' backward passes (conv3x3's input and weight gradients, the
+attention backward):
 
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles `csrc/*.cu` with nvcc for sm_90a (ops/_build.py) and
@@ -29,7 +32,13 @@ kernels' backward passes:
    twin, each bitwise equal over two launches and timed beside its plain
    twin, cuDNN's `conv2d_input` or SDPA's backward, and its bound; `mma`
    must take at most a third of `simt`'s time per UNet backward and less
-   than the plain twin's;
+   than the plain twin's (the stem's `narrow` input gradient timed apart).
+   Last the conv3x3 weight gradient (csrc/conv3x3_wgrad.cu, `mma` and
+   `simt`) at every conv shape of a batch-3 training forward and of a
+   batch-1 forward, in both I/O types, and at added shapes (H != W, 64 and
+   192 channels, one K step per split), against its plain twin within
+   `TOL_WGRAD`, bitwise equal over two launches, timed per UNet backward
+   beside the plain twin, cuDNN's `conv2d_weight` and the bound;
 4. UNet: one full-width forward of the shipped VESDE prior at 256², batch 1,
    with the kernels against `use_kernel=False`;
 5. gradient: the same prior with LoRA rank 4 (up-projections drawn nonzero),
@@ -62,7 +71,28 @@ kernels' backward passes:
    launch counts exact; from the FBP, DPS better than naive by
    `DPS_MARGIN_DB` (on the 1000-step grid or finer); CUDA events splitting
    a DPS step into the score's forward and backward and the rest;
-9. prints one `{"kernels": [...]}` line, then, last, the device line
+9. training: the flagship warm-started from the shipped VESDE prior, fp32
+   masters under bf16 compute, batch 3: the first step's loss and gradient
+   of every parameter, kernels against plain in bf16 and fp32 (the gates of
+   phase 5), with its launch counts (62 conv3x3 forwards, 62 weight
+   gradients, 61 input gradients, 4 + 4 attention); then the train CLI
+   (`--init_ckpt`, `--lr_warmup`, `--keep_best_probe dds`) for
+   `TRAIN_STEPS` steps: exact launch counts, the plain weight gradient
+   never on CUDA, every step's loss at most `TRAIN_LOSS_RATIO` times the
+   warm-start prior's on the same batch, t and z, wall ms per step, device
+   ms of a step's forward and backward, peak memory, the exported
+   `best_ema.msgpack.npz` equal to the EMA shadow in fp16, and the probe's
+   200-step DDS (the shadow cast to bf16, as the JAX trainer probes it)
+   better than FBP on its images; then, printed and not gated, 8 steps each
+   from the CLI's masters (rounded to bf16), from masters left at the
+   checkpoint's fp16 values and in fp32, their losses and probes (what the
+   rounding guards against); then DDPM from the fresh init (output exactly
+   0, the epsilon loss finite, counts exact);
+10. full and decoder: the full-width gradient of the adaptation loss under
+   each strategy, kernels against plain with the gates of phase 5 and launch
+   counts derived from the model's structure; a short run of each through
+   the adapted CLI (finite, PSNR printed and not gated);
+11. prints one `{"kernels": [...]}` line, then, last, the device line
    `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -76,6 +106,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -106,7 +137,21 @@ TOL_GRAD_ALL = 2e-2
 TOL_GRAD_LEAF_FACTOR = 2.0
 TOL_GRAD_LEAF = 5e-2
 TOL_GRAD_FP32 = 1e-3
+# conv3x3 weight gradient against its plain twin on the same (bf16-rounded)
+# inputs: both sum the same fp32 products over K (up to 196,608 pixels) in
+# another order; max|diff| / max|plain|
+TOL_WGRAD = 1e-4
 LORA_RANK = 4
+TRAIN_BATCH = 3               # the config's training.batch_size
+TRAIN_STEPS = 4               # steps of the warm-started training run through the CLI
+TRAIN_WARMUP = 100            # its --lr_warmup (a fresh Adam on a warm start)
+# every training step's loss at most this times the warm-start prior's loss on
+# the same batch, t and z: the first steps move each value by at most 1e-5
+TRAIN_LOSS_RATIO = 1.02
+TRAIN_WITNESS_STEPS = 8       # steps of the bf16-tie witness (phase 9b')
+DDPM_TRAIN_STEPS = 2          # steps of the DDPM run from the fresh init
+PROBE_DDS_STEPS = 200         # the keep-best probe's DDS (run_score_based_models_train.py)
+ADAPT_CLI_STEPS, ADAPT_CLI_OPTIM = 10, 3    # the short full and decoder runs through the CLI
 ADAPT_PROTOCOL_STEPS = 50     # outer steps of the adapted protocol (10 Adam steps each)
 DPS_PROTOCOL_STEPS = 1000     # steps of the conditional CLI's protocol
 DPS_PENALTY = 10.0            # the best DPS penalty of the JAX package's records (BENCH.md)
@@ -580,9 +625,11 @@ def check_conv_backward(shapes, gen):
     of the plain version, bitwise equal over two launches and equal to the
     autograd Function's; the Function's bias gradient against autograd's.
     Timed in the path's type beside the plain twin, cuDNN's `conv2d_input`
-    and the bound, summed over the convs whose input takes a gradient (all
-    but the stem, whose input is the diffusion state).  Returns
-    (per-backward totals, max|diff|, launches by variant per backward)."""
+    and the bound, summed over the convs whose input takes a gradient in the
+    adapted and training backwards (all but the stem, whose input is the
+    diffusion state); the stem's (`narrow`, DPS's gradient in x) apart.
+    Returns (per-backward totals, max|diff|, launches by variant per
+    backward, the stem's row)."""
     import torch
 
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
@@ -592,6 +639,7 @@ def check_conv_backward(shapes, gen):
         counts[sh] = counts.get(sh, 0) + 1
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
     tot = dict.fromkeys(keys, 0.0)
+    stem = None
     worst = {"bfloat16": 0.0, "float32": 0.0}
     max_abs, by_variant = 0.0, {}
     log(f"{'input grad (B,H,W,Cin<-Cout)':>28} {'dtype':>8} {'n':>3} {'variant':>7} {'splits':>6} "
@@ -619,12 +667,11 @@ def check_conv_backward(shapes, gen):
             if not (torch.equal(gx, again) and torch.equal(kx, gx)):
                 raise AssertionError(f"conv3x3 input grad {label}: launches or the Function differ")
             worst[dt] = max(worst[dt], r)
-            if dt != dtype or not needs:
+            if dt != dtype:
                 log(f"{label} {'-':>3} {p.variant:>7} {p.splits:>6} {'':>10} {'':>9} {'':>10} {'':>9} "
                     f"{'':>10} {r:>9.2e} {rb_err:>9.2e}")
                 continue
             max_abs = max(max_abs, d)
-            by_variant[p.variant] = by_variant.get(p.variant, 0) + n
             gl = g.permute(0, 3, 1, 2)                             # channels-last NCHW views
             wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             size = (b, cin, h, w)
@@ -636,9 +683,14 @@ def check_conv_backward(shapes, gen):
             nbytes = g.numel() * g.element_size() * (1 + cin / cout) + wt.numel() * wt.element_size()
             b_ms, b_by, ops_ms, bytes_ms = bound(flops, nbytes, dt)
             log(f"{label} {n:>3} {p.variant:>7} {p.splits:>6} {k_ms:>10.4f} {p_ms:>9.4f} "
-                f"{l_ms:>10.4f} {b_ms:>9.5f} {b_by:>10} {r:>9.2e} {rb_err:>9.2e}")
+                f"{l_ms:>10.4f} {b_ms:>9.5f} {b_by:>10} {r:>9.2e} {rb_err:>9.2e}"
+                + ("" if needs else "  (the stem: only DPS's gradient in x takes it)"))
             row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, ops_ms=ops_ms,
                        bytes_ms=bytes_ms)
+            if not needs:
+                stem = dict(row, variant=p.variant)
+                continue
+            by_variant[p.variant] = by_variant.get(p.variant, 0) + n
             for key in keys:
                 tot[key] += n * row[key]
     log(f"conv3x3 input grad max rel err: bf16 {worst['bfloat16']:.3e} (tol {TOL['bfloat16']}), "
@@ -646,8 +698,102 @@ def check_conv_backward(shapes, gen):
     log(f"conv3x3 input grad per UNet backward ({sum(by_variant.values())} calls: "
         + ", ".join(f"{v} {k}" for v, k in by_variant.items())
         + f"): kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN conv2d_input "
-        f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms")
-    return tot, max_abs, by_variant
+        f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms; the stem's ({stem['variant']}, "
+        f"DPS only) {stem['ms']:.4f} ms, plain {stem['plain_ms']:.4f}, cuDNN {stem['library_ms']:.4f}, "
+        f"bound {stem['bound_ms']:.5f}")
+    return tot, max_abs, by_variant, stem
+
+
+def check_conv_wgrad(shapes, gen):
+    """The conv3x3 weight gradient (`conv3x3_weight_grad`, the launch
+    function) at every conv shape of a batch-3 training forward and of a
+    batch-1 forward (`shapes`: the batch-1 calls), in both I/O types,
+    against `conv3x3_weight_grad_reference` on the same inputs, bitwise
+    equal over two launches; at added shapes (H != W, 64 and 192 channels,
+    the largest split: one K step per split) checked only.  Timed in the
+    path's type per UNet backward beside the plain twin, cuDNN's
+    `conv2d_weight` (channels-last) and the bound.  Returns ({batch:
+    per-backward totals}, max|diff|, {batch: launches by variant per
+    backward})."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    tots, by_batch = {}, {}
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    max_abs = 0.0
+    log(f"{'weight grad (B,H,W,Cin->Cout)':>30} {'dtype':>8} {'n':>3} {'variant':>7} {'splits':>6} "
+        f"{'kernel_ms':>10} {'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} {'bound_by':>10} "
+        f"{'rel_err':>9}")
+
+    def check_once(xshape, cout, dt, splits=None):
+        b, h, w, cin = xshape
+        tdt = getattr(torch, dt)
+        x = torch.randn(xshape, generator=gen, device="cuda").to(tdt)
+        g = (0.1 * torch.randn((b, h, w, cout), generator=gen, device="cuda")).to(tdt)
+        p = C.wgrad_plan(b, h, w, cin, cout, tdt, splits=splits)
+        dw = C.conv3x3_weight_grad(x, g, splits=splits)
+        again = C.conv3x3_weight_grad(x, g, splits=splits)
+        ref = C.conv3x3_weight_grad_reference(x, g)
+        torch.cuda.synchronize()
+        d, r = rel_err(dw, ref)
+        if not (dw.dtype == torch.float32 and torch.isfinite(dw).all() and r <= TOL_WGRAD):
+            raise AssertionError(f"conv3x3 weight grad {xshape}->{cout} {dt} ({p.variant}, "
+                                 f"{p.splits} splits): rel err {r:.3e} > {TOL_WGRAD}")
+        if not torch.equal(dw, again):
+            raise AssertionError(f"conv3x3 weight grad {xshape}->{cout} {dt}: two launches differ")
+        worst[dt] = max(worst[dt], r)
+        return x, g, p, d, r
+
+    for batch in (TRAIN_BATCH, 1):
+        counts = {}
+        for xs, cout, dt in shapes:
+            key = ((batch,) + tuple(xs[1:]), cout, dt)
+            counts[key] = counts.get(key, 0) + 1
+        tot, variants = dict.fromkeys(keys, 0.0), {}
+        for (xshape, cout, dtype), n in sorted(counts.items(), key=lambda kv: (-kv[0][0][1], kv[0][0][3])):
+            b, h, w, cin = xshape
+            for dt in ("bfloat16", "float32"):
+                x, g, p, d, r = check_once(xshape, cout, dt)
+                label = f"{str(xshape) + '->' + str(cout):>30} {dt:>8}"
+                if dt != dtype:
+                    log(f"{label} {'-':>3} {p.variant:>7} {p.splits:>6} {'':>10} {'':>9} {'':>10} "
+                        f"{'':>9} {'':>10} {r:>9.2e}")
+                    continue
+                max_abs = max(max_abs, d)
+                variants[p.variant] = variants.get(p.variant, 0) + n
+                xl, gl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)    # channels-last NCHW views
+                size = (cout, cin, 3, 3)
+                reps = 5 if b * h * w >= 65536 else 20
+                k_ms = time_ms(lambda: C.conv3x3_weight_grad(x, g), reps)
+                p_ms = time_ms(lambda: C.conv3x3_weight_grad(x, g, use_kernel=False), max(reps // 4, 2))
+                l_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(xl, size, gl, padding=1), reps)
+                flops = 2.0 * b * h * w * cin * cout * 9
+                nbytes = x.numel() * x.element_size() + g.numel() * g.element_size() + 4 * 9 * cin * cout
+                b_ms, b_by, ops_ms, bytes_ms = bound(flops, nbytes, dt)
+                log(f"{label} {n:>3} {p.variant:>7} {p.splits:>6} {k_ms:>10.4f} {p_ms:>9.4f} "
+                    f"{l_ms:>10.4f} {b_ms:>9.5f} {b_by:>10} {r:>9.2e}")
+                row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, ops_ms=ops_ms,
+                           bytes_ms=bytes_ms)
+                for agg in (tot, tots.setdefault((batch, p.variant), dict.fromkeys(keys, 0.0))):
+                    for key in keys:
+                        agg[key] += n * row[key]
+        tots[batch], by_batch[batch] = tot, variants
+        log(f"conv3x3 weight grad per batch-{batch} UNet backward ({sum(variants.values())} calls: "
+            + ", ".join(f"{v} {k}" for v, k in variants.items())
+            + f"): kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN conv2d_weight "
+            f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms "
+            f"({tot['ms'] and tot['bound_ms'] / tot['ms']:.1%} of it)")
+    # checked only: H != W, Cin = Cout = 64, 192 channels, one K step per split
+    for xshape, cout, splits in (((2, 16, 48, 128), 128, None), ((1, 32, 32, 64), 64, None),
+                                 ((1, 12, 20, 192), 192, None), ((1, 64, 64, 128), 128, 128)):
+        _, _, p, _, r = check_once(xshape, cout, "bfloat16", splits)
+        log(f"{str(xshape) + '->' + str(cout):>30} {'bfloat16':>8} {'-':>3} {p.variant:>7} "
+            f"{p.splits:>6} {'':>10} {'':>9} {'':>10} {'':>9} {'':>10} {r:>9.2e}")
+    log(f"conv3x3 weight grad max rel err: bf16 {worst['bfloat16']:.3e}, fp32 {worst['float32']:.3e} "
+        f"(tol {TOL_WGRAD}); bitwise equal over two launches")
+    return tots, max_abs, by_batch
 
 
 def check_attention_backward(shapes, gen):
@@ -840,9 +986,10 @@ def reset_counts():
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
 
-    C.launches = C.backward_launches = A.launches = A.backward_launches = 0
+    C.launches = C.backward_launches = C.wgrad_launches = A.launches = A.backward_launches = 0
     C.launches_by_variant = dict.fromkeys(C.VARIANTS, 0)
     C.backward_launches_by_variant = dict.fromkeys(C.VARIANTS, 0)
+    C.wgrad_launches_by_variant = dict.fromkeys(C.WGRAD_VARIANTS, 0)
     A.launches_by_variant = dict.fromkeys(A.VARIANTS, 0)
     A.backward_launches_by_variant = dict.fromkeys(A.VARIANTS, 0)
 
@@ -853,26 +1000,85 @@ def read_counts():
 
     return {"conv_fwd": C.launches, "conv_fwd_by": dict(C.launches_by_variant),
             "conv_bwd": C.backward_launches, "conv_bwd_by": dict(C.backward_launches_by_variant),
+            "conv_wgrad": C.wgrad_launches, "conv_wgrad_by": dict(C.wgrad_launches_by_variant),
             "attn_fwd": A.launches, "attn_fwd_by": dict(A.launches_by_variant),
             "attn_bwd": A.backward_launches, "attn_bwd_by": dict(A.backward_launches_by_variant)}
 
 
-def check_counts(counts, n_fwd, n_bwd, what, stem_grad=False):
+def check_counts(counts, n_fwd, n_bwd, what, stem_grad=False, per_backward=None):
     """Per forward 62 conv3x3 (60 tc, 1 narrow, 1 simt) and 4 attention
-    (mma); per backward 61 conv3x3 input gradients (60 tc, 1 simt: the
-    final conv's, whose gradient has Cin = 1) and 4 attention backwards
-    (mma).  With `stem_grad` (a gradient in the diffusion state x, as DPS
-    takes it) the backward also takes the stem's input gradient, whose
-    swapped shape (Cin 128 -> Cout 1) runs on `narrow`: 62 per backward."""
+    (mma); per backward, by default (LoRA: frozen base weights), 61 conv3x3
+    input gradients (60 tc, 1 simt: the final conv's, whose gradient has
+    Cin = 1), no weight gradient and 4 attention backwards (mma).  With
+    `stem_grad` (a gradient in the diffusion state x, as DPS takes it) the
+    backward also takes the stem's input gradient, whose swapped shape
+    (Cin 128 -> Cout 1) runs on `narrow`: 62 per backward.  `per_backward`
+    (from `backward_pattern`) replaces the backward's counts where base
+    weights train."""
     n_stem = n_bwd if stem_grad else 0
+    pb = per_backward or {"conv_bwd_by": {"tc": 60, "narrow": 0, "simt": 1},
+                          "conv_wgrad_by": {"mma": 0, "simt": 0}, "attn_bwd": 4}
+    bwd_by = {v: k * n_bwd for v, k in pb["conv_bwd_by"].items()}
+    bwd_by["narrow"] += n_stem
+    wgrad_by = {v: k * n_bwd for v, k in pb["conv_wgrad_by"].items()}
     want = {"conv_fwd": 62 * n_fwd, "conv_fwd_by": {"tc": 60 * n_fwd, "narrow": n_fwd, "simt": n_fwd},
-            "conv_bwd": 61 * n_bwd + n_stem,
-            "conv_bwd_by": {"tc": 60 * n_bwd, "narrow": n_stem, "simt": n_bwd},
+            "conv_bwd": sum(bwd_by.values()), "conv_bwd_by": bwd_by,
+            "conv_wgrad": sum(wgrad_by.values()), "conv_wgrad_by": wgrad_by,
             "attn_fwd": 4 * n_fwd, "attn_fwd_by": {"mma": 4 * n_fwd, "simt": 0},
-            "attn_bwd": 4 * n_bwd, "attn_bwd_by": {"mma": 4 * n_bwd, "simt": 0}}
+            "attn_bwd": pb["attn_bwd"] * n_bwd, "attn_bwd_by": {"mma": pb["attn_bwd"] * n_bwd, "simt": 0}}
     if counts != want:
         raise AssertionError(f"{what}: launch counts {counts}, want {want} for {n_fwd} forwards "
                              f"and {n_bwd} backwards")
+
+
+def module_calls(model, x, t):
+    """(kind, module name, x shape, Cout, dtype) of each conv3x3 ("conv") and
+    attention block ("attn", shapes None) call of one forward of `model` on
+    (x, t), in call order."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.models import unet as U
+
+    calls, handles = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, U.Conv3x3):
+            handles.append(m.register_forward_pre_hook(
+                lambda mod, args, name=name: calls.append(
+                    ("conv", name, tuple(args[0].shape), mod.weight.shape[-1], mod.dtype))))
+        elif isinstance(m, U.AttentionBlock):
+            handles.append(m.register_forward_pre_hook(
+                lambda mod, args, name=name: calls.append(("attn", name, None, None, None))))
+    with torch.no_grad():
+        model(x, t)
+    for hnd in handles:
+        hnd.remove()
+    return calls
+
+
+def backward_pattern(calls, trains):
+    """Launches per backward of a loss of the UNet's output, derived from the
+    model's structure (`calls` of `module_calls`, `trains(conv name)` whether
+    the conv's weight trains): a weight gradient for each trained conv; an
+    input gradient for each conv from the first trained one on but the
+    stem, whose input is the diffusion state (every block of the trained
+    sets starts with a trained GroupNorm, so under `decoder` no encoder or
+    middle conv takes one); each on the variant its plan picks; an attention
+    backward for each block after the first trained conv."""
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    bwd_by, wgrad_by = dict.fromkeys(C.VARIANTS, 0), dict.fromkeys(C.WGRAD_VARIANTS, 0)
+    attn_bwd, downstream = 0, False
+    for i, (kind, name, shape, cout, dt) in enumerate(calls):
+        if kind == "attn":
+            attn_bwd += downstream
+            continue
+        b, h, w, cin = shape
+        if trains(name):
+            wgrad_by[C.wgrad_plan(b, h, w, cin, cout, dt).variant] += 1
+            downstream = True
+        if downstream and i > 0:
+            bwd_by[C.plan(b, h, w, cout, cin, dt).variant] += 1
+    return {"conv_bwd_by": bwd_by, "conv_wgrad_by": wgrad_by, "attn_bwd": attn_bwd}
 
 
 class PredictorTimer:
@@ -916,12 +1122,14 @@ class PredictorTimer:
 
 
 def read_report(path) -> dict:
-    """PSNR, SSIM and diverged_images of a CLI's report.yaml."""
+    """PSNR, SSIM and (the conditional CLI's) diverged_images of a CLI's
+    report.yaml."""
     import re
 
     text = open(path, encoding="utf-8").read()
     out = {k: float(re.search(rf"^{k}: (\S+)$", text, re.M).group(1)) for k in ("PSNR", "SSIM")}
-    out["diverged_images"] = re.search(r"^diverged_images: (.*)$", text, re.M).group(1)
+    diverged = re.search(r"^diverged_images: (.*)$", text, re.M)
+    out["diverged_images"] = diverged.group(1) if diverged else None
     return out
 
 
@@ -949,6 +1157,43 @@ def lora_leaf_errors(gk, gp):
         per[name] = diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf)
         num, den = num + diff ** 2, den + ref ** 2
     return per, math.sqrt(num / den)
+
+
+def gradient_gates(gk, gp, g32, g32k, losses, what):
+    """The gates of a full-width parameter gradient: bf16 kernels against
+    bf16 plain over all leaves (`TOL_GRAD_ALL`); per leaf the bf16 kernels'
+    distance from the fp32 plain gradient at most `TOL_GRAD_LEAF_FACTOR`
+    times the bf16 plain path's own or `TOL_GRAD_LEAF`; fp32 kernels
+    against fp32 plain per leaf (`TOL_GRAD_FP32`).  `losses`: (bf16
+    kernels, bf16 plain, fp32 plain, fp32 kernels)."""
+    import torch
+
+    per_kp, total_kp = lora_leaf_errors(gk, gp)
+    per_k32, total_k32 = lora_leaf_errors(gk, g32)
+    per_p32, total_p32 = lora_leaf_errors(gp, g32)
+    per_f32, total_f32 = lora_leaf_errors(g32k, g32)
+    n_lora = sum(n.endswith((".down", ".up")) for n in gk)
+    slack = {n: per_k32[n] - max(TOL_GRAD_LEAF_FACTOR * per_p32[n], TOL_GRAD_LEAF) for n in gk}
+    worst = sorted(gk, key=lambda n: -slack[n])[:5]
+    loss_k, loss_p, loss_32, loss_32k = losses
+    log(f"  {what}: {len(gk)} trainable leaves ({n_lora} LoRA, {len(gk) - n_lora} base), "
+        f"{sum(g.numel() for g in gk.values()) / 1e6:.2f}M values; loss bf16 kernels {loss_k:.6e}, "
+        f"bf16 plain {loss_p:.6e}, fp32 plain {loss_32:.6e}, fp32 kernels {loss_32k:.6e}")
+    log(f"  |g_a - g_b| / |g_b| over all leaves: bf16 kernels vs bf16 plain {total_kp:.3e} (tol "
+        f"{TOL_GRAD_ALL}); vs the fp32 plain gradient: bf16 kernels {total_k32:.3e}, bf16 plain "
+        f"{total_p32:.3e}; fp32 kernels vs fp32 plain {total_f32:.3e}, worst leaf "
+        f"{max(per_f32.values()):.3e} (tol {TOL_GRAD_FP32})")
+    log(f"  per leaf, distance from the fp32 gradient, bf16 kernels against bf16 plain (tol "
+        f"max({TOL_GRAD_LEAF_FACTOR} x plain, {TOL_GRAD_LEAF})), closest to the bound: "
+        + ", ".join(f"{n} {per_k32[n]:.3e} vs {per_p32[n]:.3e}" for n in worst)
+        + f"; largest per leaf: bf16 kernels vs bf16 plain {max(per_kp.values()):.3e}, distance "
+        f"from the fp32 gradient {max(per_k32.values()):.3e} (bf16 kernels), "
+        f"{max(per_p32.values()):.3e} (bf16 plain)")
+    if not (math.isfinite(total_kp) and total_kp <= TOL_GRAD_ALL and max(slack.values()) <= 0
+            and max(per_f32.values()) <= TOL_GRAD_FP32
+            and all(torch.isfinite(v).all() for v in gk.values())):
+        raise AssertionError(f"{what}: the full-width gradient with kernels disagrees with the "
+                             "plain path")
 
 
 def main() -> None:
@@ -1028,7 +1273,8 @@ def main() -> None:
         hnd.remove()
     conv_tot, conv_err, conv_variants = check_conv(seen["conv"], gen)
     attn_tot, attn_err = check_attention(seen["attn"], gen)
-    conv_bwd_tot, conv_bwd_err, conv_bwd_variants = check_conv_backward(seen["conv"], gen)
+    conv_bwd_tot, conv_bwd_err, conv_bwd_variants, stem_bwd = check_conv_backward(seen["conv"], gen)
+    wgrad_tots, wgrad_err, wgrad_variants = check_conv_wgrad(seen["conv"], gen)
     attn_bwd_tot, attn_bwd_err, attn_bwd_variants = check_attention_backward(seen["attn"], gen)
     log(f"[phase 3 kernels] {time.perf_counter() - t0:.1f} s")
 
@@ -1078,31 +1324,9 @@ def main() -> None:
     loss_32, g32 = adaptation_gradients(samplers["fp32"], xg, tg, False)
     loss_32k, g32k = adaptation_gradients(samplers["fp32"], xg, tg, True)
     del samplers["fp32"], model_32
-    per_kp, total_kp = lora_leaf_errors(gk, gp)
-    per_k32, total_k32 = lora_leaf_errors(gk, g32)
-    per_p32, total_p32 = lora_leaf_errors(gp, g32)
-    per_f32, total_f32 = lora_leaf_errors(g32k, g32)
-    n_lora = sum(n.endswith((".down", ".up")) for n in gk)
-    slack = {n: per_k32[n] - max(TOL_GRAD_LEAF_FACTOR * per_p32[n], TOL_GRAD_LEAF) for n in gk}
-    worst = sorted(gk, key=lambda n: -slack[n])[:5]
-    log(f"  adaptation loss gradient at 256², LoRA r={LORA_RANK}: {len(gk)} trainable leaves "
-        f"({n_lora} LoRA, {len(gk) - n_lora} biases); loss bf16 kernels {loss_k:.6e}, bf16 plain "
-        f"{loss_p:.6e}, fp32 plain {loss_32:.6e}, fp32 kernels {loss_32k:.6e}")
-    log(f"  |g_a - g_b| / |g_b| over all leaves: bf16 kernels vs bf16 plain {total_kp:.3e} (tol "
-        f"{TOL_GRAD_ALL}); vs the fp32 plain gradient: bf16 kernels {total_k32:.3e}, bf16 plain "
-        f"{total_p32:.3e}; fp32 kernels vs fp32 plain {total_f32:.3e}, worst leaf "
-        f"{max(per_f32.values()):.3e} (tol {TOL_GRAD_FP32})")
-    log(f"  per leaf, distance from the fp32 gradient, bf16 kernels against bf16 plain (tol "
-        f"max({TOL_GRAD_LEAF_FACTOR} x plain, {TOL_GRAD_LEAF})), closest to the bound: "
-        + ", ".join(f"{n} {per_k32[n]:.3e} vs {per_p32[n]:.3e}" for n in worst)
-        + f"; largest per leaf: bf16 kernels vs bf16 plain {max(per_kp.values()):.3e}, distance "
-        f"from the fp32 gradient {max(per_k32.values()):.3e} (bf16 kernels), "
-        f"{max(per_p32.values()):.3e} (bf16 plain)")
+    gradient_gates(gk, gp, g32, g32k, (loss_k, loss_p, loss_32, loss_32k),
+                   f"adaptation loss gradient at 256², LoRA r={LORA_RANK}")
     log("  launches of one forward and backward: " + json.dumps(counts))
-    if not (math.isfinite(total_kp) and total_kp <= TOL_GRAD_ALL and max(slack.values()) <= 0
-            and max(per_f32.values()) <= TOL_GRAD_FP32
-            and all(torch.isfinite(v).all() for v in gk.values())):
-        raise AssertionError("the full-width LoRA gradient with kernels disagrees with the plain path")
     sampler = samplers["bf16"]
     with sampler.adapting():
         params = list(sampler.trainable.values())
@@ -1382,7 +1606,275 @@ def main() -> None:
                              f"{DPS_MARGIN_DB} dB")
     log(f"[phase 8 dps] {time.perf_counter() - t0:.1f} s")
 
-    # ---- 9. kernel summary, device line
+    # ---- 9. training through the train CLI: the flagship warm-started, then DDPM from the fresh init
+    t0 = time.perf_counter()
+    from diffusion_models_dev_project_tpu_torch import run_score_based_models_train as TRAIN_CLI
+    from diffusion_models_dev_project_tpu_torch.training import losses as L
+    from diffusion_models_dev_project_tpu_torch.training import trainer as T
+    from diffusion_models_dev_project_tpu_torch.training.ema import ema_init
+
+    # 9a. the first step's loss and full gradient, kernels against plain
+    model_t, _, _ = F.get_standard_score(config, sde, ckpt_path=CKPT, train=True)
+    _, batches = F.get_standard_train_dataset(config)
+    batch = next(batches)
+    tt, zz = L.draw_time_and_noise(batch, sde, T.step_generator(config.seed, 0, "cuda"))
+
+    def train_loss(m, use_kernel=True):
+        return L.score_matching_loss(batch, lambda xx, t_: m(xx, t_, use_kernel=use_kernel), sde,
+                                     t=tt, z=zz)
+
+    def train_grads(m, use_kernel):
+        names = [n for n, _ in m.named_parameters()]
+        loss = train_loss(m, use_kernel)
+        return float(loss.detach()), dict(zip(names, torch.autograd.grad(loss, list(m.parameters()))))
+
+    calls = module_calls(model_t, batch, tt)
+    train_pattern = backward_pattern(calls, lambda name: True)
+    reset_counts()
+    loss_k, gk = train_grads(model_t, True)
+    train_counts = read_counts()
+    check_counts(train_counts, 1, 1, "one training forward and backward", per_backward=train_pattern)
+    loss_p, gp = train_grads(model_t, False)
+    model_t32, _, _ = F.get_standard_score(config32, sde, ckpt_path=CKPT, train=True)
+    loss_32, g32 = train_grads(model_t32, False)
+    loss_32k, g32k = train_grads(model_t32, True)
+    del model_t32
+    gradient_gates(gk, gp, g32, g32k, (loss_k, loss_p, loss_32, loss_32k),
+                   f"score-matching loss gradient at 256², batch {TRAIN_BATCH}, every parameter")
+    del gk, gp, g32, g32k
+    log("  launches of one training forward and backward: " + json.dumps(train_counts))
+    params = list(model_t.parameters())
+    with torch.no_grad():
+        train_fwd_dev = time_ms(lambda: train_loss(model_t), 2)
+    train_both_dev = time_ms(lambda: torch.autograd.grad(train_loss(model_t), params), 2)
+    # the warm-start prior's loss on each batch, t and z that the CLI's steps draw
+    prior_losses = []
+    _, batches = F.get_standard_train_dataset(config)
+    with torch.no_grad():
+        for k in range(TRAIN_STEPS):
+            bk = next(batches)
+            tk, zk = L.draw_time_and_noise(bk, sde, T.step_generator(config.seed, k, "cuda"))
+            prior_losses.append(float(L.score_matching_loss(bk, model_t, sde, t=tk, z=zk)))
+    del model_t, params
+
+    # 9b. the train CLI: warm start from the shipped prior, TRAIN_STEPS steps, the DDS probe
+    workdir = os.path.join(REPO, "build", "chip_smoke_train")
+    shutil.rmtree(workdir, ignore_errors=True)
+    argv = ["--num_channels", "128", "--dtype", "bfloat16", "--epochs", "1", "--steps_per_epoch",
+            str(TRAIN_STEPS), "--init_ckpt", CKPT, "--lr_warmup", str(TRAIN_WARMUP),
+            "--keep_best_probe", "dds", "--base_path", workdir]
+    step_events, step_losses, make_step = [], [], T.make_train_step
+    plain_wgrad, wgrad_reference = [0], C.conv3x3_weight_grad_reference
+
+    def timed_make_train_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def timed(*aa, **kk):
+            e0 = StepTimer._event()
+            out = step(*aa, **kk)
+            step_events.append((e0, StepTimer._event()))
+            step_losses.append(out)
+            return out
+        return timed
+
+    def counted_reference(xx, gg):
+        plain_wgrad[0] += xx.is_cuda
+        return wgrad_reference(xx, gg)
+
+    T.make_train_step, C.conv3x3_weight_grad_reference = timed_make_train_step, counted_reference
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ts = time.perf_counter()
+        state = TRAIN_CLI.coordinator(TRAIN_CLI.parser.parse_args(argv))
+        torch.cuda.synchronize()
+        train_wall_s = time.perf_counter() - ts
+        train_run_counts = read_counts()
+        train_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        T.make_train_step, C.conv3x3_weight_grad_reference = make_step, wgrad_reference
+    # TRAIN_STEPS forwards and backwards, and the probe's DDS forwards (one save)
+    check_counts(train_run_counts, TRAIN_STEPS + PROBE_DDS_STEPS, TRAIN_STEPS,
+                 "the training run through the CLI", per_backward=train_pattern)
+    if plain_wgrad[0]:
+        raise AssertionError(f"the plain weight gradient ran {plain_wgrad[0]} times on CUDA")
+    step_ms = [a.elapsed_time(b) for a, b in step_events]
+    run_dir = os.path.join(workdir, "DiskEllipses", "vesde", "version_01")
+    log_rows = [json.loads(line) for line in open(os.path.join(run_dir, "train_log.jsonl"))]
+    cli_losses = [r["value"] for r in log_rows if r["name"] == "train/loss"]
+    train_losses = [float(v) for v in step_losses]
+    best = json.load(open(os.path.join(run_dir, "best_ema.json")))
+    exported = F.load_params(os.path.join(run_dir, "best_ema.msgpack.npz"))
+    mismatch = [n for n, v in state.ema.shadow.items()
+                if not torch.equal(exported[n], v.detach().half().float().cpu())]
+    # the probe's images and observation (val images 0 and 1, seed + 7): their FBP
+    g = torch.Generator(device="cuda").manual_seed(config.seed + 7)
+    _, _, fbp2 = F.get_data_from_ground_truth(images[:2], trafo, config.data.stddev, generator=g)
+    fbp_psnr = float(np.mean([PSNR(fbp2[i, ..., 0].cpu().numpy(), images[i, ..., 0]) for i in range(2)]))
+    probe_psnr = -float(best["score"])
+    log(f"  train CLI: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} from {os.path.relpath(CKPT, REPO)} "
+        f"(--lr_warmup {TRAIN_WARMUP}), {train_wall_s:.1f} s in the CLI; per step (CUDA events "
+        f"around the trainer's step) " + ", ".join(f"{v:.1f}" for v in step_ms)
+        + f" ms, median {np.median(step_ms):.1f} ms; device time of one step's loss forward "
+        f"{train_fwd_dev:.2f} ms, forward + backward {train_both_dev:.2f} ms (graph replay); peak "
+        f"memory {train_peak_gb:.2f} GiB")
+    log("  loss per step: " + ", ".join(f"{v:.6e}" for v in train_losses) + "; the warm-start "
+        "prior's on the same batch, t and z: " + ", ".join(f"{v:.6e}" for v in prior_losses)
+        + "; ratios " + ", ".join(f"{a / b:.5f}" for a, b in zip(train_losses, prior_losses))
+        + f" (at most {TRAIN_LOSS_RATIO})")
+    log(f"  first loss: CLI {cli_losses[0]:.6e}, phase 9a with kernels {loss_k:.6e}; probe: "
+        f"{PROBE_DDS_STEPS}-step DDS (eta 0.15) of val images 0 and 1 with the EMA shadow "
+        f"{probe_psnr:.2f} dB vs FBP {fbp_psnr:.2f} dB; best_ema.msgpack.npz read back: "
+        f"{len(exported)} leaves, {len(mismatch)} differ from the shadow in fp16")
+    log("  launches in the training run: " + json.dumps(train_run_counts))
+    if not (len(step_ms) == TRAIN_STEPS == len(train_losses)
+            and all(math.isfinite(v) for v in cli_losses + train_losses)
+            and abs(cli_losses[0] - loss_k) <= 1e-6 * abs(loss_k)
+            and train_losses[0] == cli_losses[0]):
+        raise AssertionError("the training run's steps or losses are off")
+    if not all(a <= TRAIN_LOSS_RATIO * b for a, b in zip(train_losses, prior_losses)):
+        raise AssertionError(f"a training step's loss exceeds {TRAIN_LOSS_RATIO} times the "
+                             f"warm-start prior's: {train_losses} vs {prior_losses}")
+    if mismatch or set(exported) != set(state.ema.shadow):
+        raise AssertionError(f"best_ema.msgpack.npz differs from the EMA shadow: {mismatch[:5]}")
+    if not probe_psnr > fbp_psnr:
+        raise AssertionError(f"the keep-best probe's DDS {probe_psnr:.2f} dB does not beat FBP "
+                             f"{fbp_psnr:.2f} dB")
+    del state, exported
+
+    # 9b'. the bf16 ties (printed, not gated): TRAIN_WITNESS_STEPS steps from the
+    # masters the CLI starts from (rounded to bf16), from masters left at the
+    # checkpoint's fp16 values (an eighth of them halfway between two bf16
+    # values) and in fp32; the probe of the EMA shadow, cast to bf16 under bf16
+    # compute as the JAX trainer probes it
+    def witness(cfg, rounded):
+        if rounded:
+            m, _, _ = F.get_standard_score(cfg, sde, ckpt_path=CKPT, train=True)
+        else:
+            m, _, _ = F.get_standard_score(cfg, sde, load_model=False, train=True)
+            m.load_state_dict(F.load_params(CKPT))
+        ps = dict(m.named_parameters())
+        opt = T.Optimizer(ps, cfg.training.lr, TRAIN_WARMUP)
+        st = T.TrainState(ps, opt, ema_init(ps), 0)
+        step = T.make_train_step(m, sde, opt, cfg.training.ema_decay, cfg.training.ema_warm_start_steps)
+        em, _, _ = F.get_standard_score(cfg, sde, load_model=False)
+        probe = TRAIN_CLI._make_probe("dds", F, cfg, sde, em, torch.device("cuda"))
+        bf16 = cfg.model.dtype == "bfloat16"
+        start = []                  # this start's own loss on each step's batch, t and z
+        _, bs = F.get_standard_train_dataset(cfg)
+        with torch.no_grad():
+            for k in range(TRAIN_WITNESS_STEPS):
+                bk = next(bs)
+                tk, zk = L.draw_time_and_noise(bk, sde, T.step_generator(cfg.seed, k, "cuda"))
+                start.append(float(L.score_matching_loss(bk, m, sde, t=tk, z=zk)))
+        _, bs = F.get_standard_train_dataset(cfg)
+        out, probes = [], {}
+        for k in range(TRAIN_WITNESS_STEPS):
+            out.append(float(step(st, next(bs), T.step_generator(cfg.seed, k, "cuda"))))
+            if k + 1 in (TRAIN_STEPS, TRAIN_WITNESS_STEPS) and (bf16 or k + 1 == TRAIN_WITNESS_STEPS):
+                probes[k + 1] = -probe({n: v.to(torch.bfloat16) if bf16 else v
+                                        for n, v in st.ema.shadow.items()})
+        return out, start, probes
+
+    for what, cfg, rounded in (("bf16, masters rounded to bf16 (the CLI's)", config, True),
+                               ("bf16, masters at the checkpoint's fp16 values", config, False),
+                               ("fp32", config32, False)):
+        w_losses, w_start, w_probes = witness(cfg, rounded)
+        log(f"  {what}: loss per step " + ", ".join(f"{v:.6e}" for v in w_losses)
+            + "; ratio to this start's loss on the same batch, t and z "
+            + ", ".join(f"{a / b:.5f}" for a, b in zip(w_losses, w_start))
+            + "; probe " + ", ".join(f"after {k} steps {v:.2f} dB" for k, v in w_probes.items())
+            + f" (FBP {fbp_psnr:.2f} dB)")
+        torch.cuda.empty_cache()
+
+    # 9c. DDPM from the fresh init: the zero output of the init rule on the card, the epsilon loss
+    dconfig = get_config("ddpm")
+    dconfig.model.num_channels = 128
+    dconfig.model.dtype = "bfloat16"
+    fresh, _, _ = F.get_standard_score(dconfig, F.get_standard_sde(dconfig), load_model=False)
+    with torch.no_grad():
+        fresh_out = fresh(x, torch.full((1,), 500, dtype=torch.long, device="cuda"))
+    if fresh_out.any():
+        raise AssertionError("a fresh UNet does not output exactly zero on the card")
+    del fresh
+    argv = ["--sde", "ddpm", "--num_channels", "128", "--dtype", "bfloat16", "--epochs", "1",
+            "--steps_per_epoch", str(DDPM_TRAIN_STEPS), "--base_path", workdir]
+    reset_counts()
+    TRAIN_CLI.coordinator(TRAIN_CLI.parser.parse_args(argv))
+    ddpm_counts = read_counts()
+    check_counts(ddpm_counts, DDPM_TRAIN_STEPS, DDPM_TRAIN_STEPS, "the DDPM training run",
+                 per_backward=train_pattern)
+    ddpm_dir = os.path.join(workdir, "DiskEllipses", "ddpm", "version_01")
+    ddpm_losses = [json.loads(line)["value"] for line in open(os.path.join(ddpm_dir, "train_log.jsonl"))
+                   if json.loads(line)["name"] == "train/loss"]
+    log(f"  DDPM from the fresh init (output exactly 0 before training): {DDPM_TRAIN_STEPS} steps, "
+        f"first epsilon loss {ddpm_losses[0]:.6e}; launches " + json.dumps(ddpm_counts))
+    if not all(math.isfinite(v) for v in ddpm_losses):
+        raise AssertionError("the DDPM training loss is not finite")
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[phase 9 train] {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10. full and decoder adaptation: the full-width gradient, then short runs through the CLI
+    t0 = time.perf_counter()
+    from diffusion_models_dev_project_tpu_torch import run_adapted_sampling as ACLI
+    from diffusion_models_dev_project_tpu_torch.sampling.adaptation import is_adapt_param
+
+    strategy_counts = {}
+    calls = module_calls(model, x, torch.full((1,), 0.5, device="cuda"))
+    # phase 5's observation of val image 0 and its noised state at t = 0.5
+    g = torch.Generator(device="cuda").manual_seed(config.seed)
+    _, obs, _ = F.get_data_from_ground_truth(images[0], trafo, config.data.stddev, generator=g)
+    for impl in ("full", "decoder"):
+        pattern = backward_pattern(calls, lambda name: is_adapt_param(name + ".weight", impl))
+        m16, _, _ = F.get_standard_score(config, sde, ckpt_path=CKPT, adaptation=impl)
+        m32, _, _ = F.get_standard_score(config32, sde, ckpt_path=CKPT, adaptation=impl)
+        smp = {name: F.get_standard_adapted_sampler(
+            "dds", m, sde, trafo, obs, num_steps=50, add_cg=True, cg_iter=1, dc_type="cg",
+            tv_penalty=1e-6, lr=1e-3, adaptation=impl) for name, m in (("bf16", m16), ("fp32", m32))}
+        reset_counts()
+        loss_k, gk = adaptation_gradients(smp["bf16"], xg, tg, True)
+        counts = read_counts()
+        check_counts(counts, 1, 1, f"one forward and backward under {impl}", per_backward=pattern)
+        loss_p, gp = adaptation_gradients(smp["bf16"], xg, tg, False)
+        loss_32, g32 = adaptation_gradients(smp["fp32"], xg, tg, False)
+        loss_32k, g32k = adaptation_gradients(smp["fp32"], xg, tg, True)
+        del smp, m16, m32
+        gradient_gates(gk, gp, g32, g32k, (loss_k, loss_p, loss_32, loss_32k),
+                       f"adaptation loss gradient at 256², {impl}")
+        del gk, gp, g32, g32k
+        log(f"  launches of one forward and backward under {impl} (derived: "
+            + json.dumps(pattern) + "): " + json.dumps(counts))
+        argv = ["--load_path", CKPT, "--num_channels", "128", "--dtype", "bfloat16", "--adaptation",
+                impl, "--num_steps", str(ADAPT_CLI_STEPS), "--num_optim_step", str(ADAPT_CLI_OPTIM),
+                "--add_cg", "--num_images", "1"]
+        cwd = os.getcwd()
+        os.makedirs(workdir, exist_ok=True)
+        os.chdir(workdir)
+        try:
+            reset_counts()
+            ts = time.perf_counter()
+            root = ACLI.coordinator(ACLI.parser.parse_args(argv))
+            wall_s = time.perf_counter() - ts
+            counts = read_counts()
+            report = read_report(os.path.join(workdir, root, "report.yaml"))
+            with np.load(os.path.join(workdir, root, "recon_0_info.npz")) as info:
+                recon = info["recon"]
+        finally:
+            os.chdir(cwd)
+        n = ADAPT_CLI_STEPS
+        check_counts(counts, n * (ADAPT_CLI_OPTIM + 2) + 1, n * ADAPT_CLI_OPTIM,
+                     f"the {impl} run through the adapted CLI", per_backward=pattern)
+        if not (recon.shape == (256, 256) and np.isfinite(recon).all()):
+            raise AssertionError(f"{impl}: the adapted CLI's reconstruction is not finite")
+        strategy_counts[impl] = counts
+        log(f"  {impl} through the adapted CLI ({n} x {ADAPT_CLI_OPTIM}, add_cg, test-fold image 0; a "
+            f"shortened protocol, not gated): {report['PSNR']:.2f} dB / {report['SSIM']:.4f} SSIM, "
+            f"{wall_s:.1f} s, {wall_s / n * 1e3:.0f} ms per outer step; launches " + json.dumps(counts))
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[phase 10 full, decoder] {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11. kernel summary, device line
     src = "diffusion_models_dev_project_tpu_torch/csrc/"
     conv_src = {"tc": src + "conv3x3_tc.cu", "narrow": src + "conv3x3.cu", "simt": src + "conv3x3.cu"}
     kernels = []
@@ -1416,6 +1908,31 @@ def main() -> None:
         v: {"source": conv_src[v], "launches": adapt_counts["conv_bwd_by"][v],
             "launches_dps": dps_counts["conv_bwd_by"][v],
             "calls_per_backward": conv_bwd_variants.get(v, 0)} for v in C.VARIANTS}
+    # the stem's input gradient (narrow), DPS's gradient in x only, per backward
+    kernels[0]["backward"]["stem"] = {k: stem_bwd[k] for k in ("variant", "ms", "plain_ms",
+                                                               "bound_ms", "library_ms")}
+    # the weight gradient (this slice's kernel), per batch-3 training backward
+    # (the per-batch-1 times beside); launches from the training run through
+    # the CLI, then per strategy through the adapted CLI
+    w3, w1 = wgrad_tots[TRAIN_BATCH], wgrad_tots[1]
+    wgrad_src = src + "conv3x3_wgrad.cu"
+    kernels[0]["backward"]["weight_grad"] = {
+        "name": "conv3x3_weight_grad", "route": "cuda", "source": wgrad_src,
+        "replaces": "diffusion_models_dev_project_tpu/ops/conv3x3.py:35",
+        "launches": train_run_counts["conv_wgrad"], "max_abs_err": wgrad_err, "ms": w3["ms"],
+        "plain_ms": w3["plain_ms"], "bound_ms": w3["bound_ms"],
+        "bound_by": "operations" if w3["ops_ms"] >= w3["bytes_ms"] else "bytes",
+        "library_ms": w3["library_ms"], "batch": TRAIN_BATCH,
+        "batch1": {"ms": w1["ms"], "plain_ms": w1["plain_ms"], "bound_ms": w1["bound_ms"],
+                   "library_ms": w1["library_ms"]},
+        "launches_ddpm": ddpm_counts["conv_wgrad"],
+        "launches_full": strategy_counts["full"]["conv_wgrad"],
+        "launches_decoder": strategy_counts["decoder"]["conv_wgrad"],
+        "variants": {v: {"source": wgrad_src, "launches": train_run_counts["conv_wgrad_by"][v],
+                         "calls_per_backward": wgrad_variants[TRAIN_BATCH].get(v, 0),
+                         **{k: wgrad_tots.get((TRAIN_BATCH, v), {}).get(k, 0.0)
+                            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+                     for v in C.WGRAD_VARIANTS}}
     # attention backward: each variant's launches in the adapted runs and its
     # time per UNet backward at the path's shapes (simt: the earlier design)
     attn_bwd_src = {"mma": src + "attention_bwd_mma.cu", "simt": src + "attention_bwd.cu"}

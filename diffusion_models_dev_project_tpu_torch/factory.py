@@ -1,9 +1,10 @@
 """Experiment factory: configs -> SDE, score model, operator, data, sampler.
 
-Port of `factory.py` of the JAX package: the calls that the conditional and
-the adapted sampling CLIs make, for the disk-ellipse workload with the FFT
-parallel-beam operator.  The AAPM and walnut configs resolve as in the JAX
-package; their data and operators raise, naming ROADMAP.md queue 1 item 9.
+Port of `factory.py` of the JAX package: the calls that the training, the
+conditional and the adapted sampling CLIs make, for the disk-ellipse
+workload with the FFT parallel-beam operator.  The AAPM and walnut configs
+resolve as in the JAX package; their data and operators raise, naming
+ROADMAP.md queue 1 item 9.
 Each entry point runs on `cuda` unless the caller passes `device="cpu"`, and
 raises when CUDA is wanted and absent.
 """
@@ -25,51 +26,111 @@ from .models.unet import UNetModel, create_model_config
 from .ops.sde import SDE, get_standard_sde  # noqa: F401  (re-export)
 from .physics.fft_radon import FFTRayTransform, make_fft_parallel_trafo
 from .physics.simulation import simulate
-from .sampling.adaptation import get_standard_adapted_sampler, is_adapt_param  # noqa: F401
+from .sampling.adaptation import (check_strategy, get_standard_adapted_sampler,  # noqa: F401
+                                  is_adapt_param)
 from .sampling.engine import get_standard_sampler  # noqa: F401  (re-export)
 from .utils.device import resolve_device
 
 __all__ = ["get_standard_sde", "get_standard_score", "get_standard_ray_trafo",
-           "get_standard_dataset", "get_data_from_ground_truth", "get_standard_configs",
-           "get_standard_dataset_configs", "get_standard_path", "get_standard_sampler",
-           "get_standard_adapted_sampler"]
+           "get_standard_dataset", "get_standard_train_dataset", "get_data_from_ground_truth",
+           "get_standard_configs", "get_standard_dataset_configs", "get_standard_path",
+           "get_standard_sampler", "get_standard_adapted_sampler", "load_params",
+           "round_to_compute_dtype_"]
 
 NOT_PORTED_DATA = ("the AAPM and walnut data and their operators are not ported yet "
                    "(ROADMAP.md queue 1 item 9)")
 
+NOT_PORTED_TORCH_CKPT = ("reference torch checkpoints (.pt) are not read yet: their converter, the "
+                         "JAX package's models/torch_convert.py, is ROADMAP.md queue 1 item 11")
+
 DATA_ASSETS = Path(__file__).resolve().parent.parent / "data_assets"
+
+
+def load_params(path: str, use_ema: bool = False):
+    """The port's state_dict (fp32 tensors on the CPU) stored at `path`, as
+    the JAX package's `_load_params` reads it: a flax msgpack tree (`*.npz`,
+    fp16 storage widened to fp32 masters) or the port's own checkpoint
+    directory (`utils.checkpoint.Checkpointer`: its latest save, the EMA
+    shadow with `use_ema`, else the parameters)."""
+    path = str(path)
+    if path.endswith(".pt"):
+        raise NotImplementedError(f"{path}: {NOT_PORTED_TORCH_CKPT}")
+    if os.path.isdir(path):
+        from .utils.checkpoint import Checkpointer
+
+        state = Checkpointer(path).restore()
+        if state is None:
+            raise FileNotFoundError(f"no checkpoint found under {path}")
+        return {n: v.float() for n, v in
+                (state["ema"]["shadow"] if use_ema else state["params"]).items()}
+    if path.endswith(".npz"):
+        return params_from_flax(load_flax_msgpack(path))
+    raise ValueError(f"unrecognized checkpoint format: {path} (the port reads flax msgpack "
+                     "*.npz trees and its own checkpoint directories)")
+
+
+@torch.no_grad()
+def round_to_compute_dtype_(model: UNetModel) -> UNetModel:
+    """Round every parameter of a bf16-compute `model` in place to its
+    nearest bf16 value (ties to even), fp32 masters staying fp32; under fp32
+    compute, nothing.  A trainer's warm start does this: a checkpoint loaded
+    with `train=True`, and the train CLI's `--init_ckpt`.
+
+    Every leaf is cast to bf16 somewhere: by a bf16 layer's forward, or by
+    the bf16 copy that the keep-best probe and the samplers run, as the JAX
+    package casts them.  An eighth of the values of an fp16 checkpoint lie
+    exactly halfway between two bf16 values, where the cast rounds to even.
+    Left there, the first warmup update, far below bf16's resolution, tips
+    every such value the update's way: a coherent step of half a bf16 ulp
+    on an eighth of the weights, which breaks the flagship prior's
+    keep-best probe within two warmup steps (PERF.md §6).  A master on the
+    bf16 grid changes its cast only once updates have moved it half an
+    ulp.  (Adaptation moves its leaves by about its lr of 1e-3 per step,
+    far past the ties, and keeps the stored values, as JAX does.)"""
+    if model.cfg.torch_dtype == torch.bfloat16:
+        for p in model.parameters():
+            p.copy_(p.to(torch.bfloat16))
+    return model
 
 
 def get_standard_score(config, sde: SDE, use_ema: bool = False, load_model: bool = True,
                        ckpt_path: Optional[str] = None, lora_rank: int = 0,
-                       lora_include_blocks=None, device=None):
+                       lora_include_blocks=None, device=None, adaptation: Optional[str] = None,
+                       train: bool = False):
     """Build the UNet and load a checkpoint; returns (model, params, score_fn)
     with `params` the model's state_dict and `score_fn(x, t)` its forward.
 
-    Every parameter comes back with `requires_grad` off, as the JAX score
-    carries no parameter gradient: DPS differentiates the network in x
-    alone, and `AdaptedSampler.adapting()` turns its own trainable leaves on.
-
     Checkpoints are the JAX package's flax msgpack trees (`*.msgpack.npz`,
-    fp16 storage loaded as fp32 masters).  Without one the weights are
-    random, drawn from `config.seed`.  With
-    `config.model.dtype == "bfloat16"` the whole model is then stored and run
-    in bf16, as the JAX package's `--params_dtype bfloat16` runs it.
-    `use_ema` is accepted for compatibility: the shipped trees are EMA weights.
+    fp16 storage loaded as fp32 masters) or the port's own checkpoint
+    directories (`load_params`; `use_ema` picks the EMA shadow there; the
+    shipped trees are EMA weights).  Without one the weights are random,
+    drawn from `config.seed` by the JAX package's rule (`models/unet.py`).
+
+    Parameters are stored in the compute dtype (`config.model.dtype`, bf16
+    as the JAX package's `--params_dtype bfloat16` runs it) and come back
+    with `requires_grad` off, as the JAX score carries no parameter
+    gradient: DPS differentiates the network in x alone.  Two exceptions
+    keep fp32 masters under a bf16 compute dtype, as the JAX package keeps
+    every parameter (Adam at lr 1e-3 or 1e-4 would round updates of bf16
+    leaves away):
+    - `train`: every parameter, requiring a gradient (the trainer's model);
+    - `adaptation` ("lora" by default when `lora_rank` > 0, or "full" or
+      "decoder"): the strategy's trainable leaves (`is_adapt_param`), which
+      `AdaptedSampler.adapting()` turns on.
+    With `train`, under bf16 compute, a checkpoint's masters start at their
+    bf16 values (`round_to_compute_dtype_`).
 
     With `lora_rank` the model carries LoRA branches over
     `lora_include_blocks` (all three block groups by default), for adapted
     sampling; they start at 0 (`sampling.adaptation.init_lora` draws them).
-    Its trainable leaves, the LoRA weights and the non-emb biases, then stay
-    fp32 masters under a bf16 compute dtype, as the JAX package keeps every
-    parameter (Adam at lr 1e-3 would round updates of bf16 biases away).
     """
-    del sde, use_ema
     dev = resolve_device(device)
     ckpt_path = (ckpt_path or config.get("ckpt_path")) if load_model else None
-    if ckpt_path and not str(ckpt_path).endswith(".npz"):
-        raise ValueError(f"unsupported checkpoint format: {ckpt_path} "
-                         "(the port reads flax msgpack *.npz trees)")
+    if adaptation is None and lora_rank:
+        adaptation = "lora"
+    if adaptation is not None:
+        check_strategy(adaptation)
+    state = load_params(ckpt_path, use_ema) if ckpt_path else None
     cfg = create_model_config(config.model)
     if lora_rank:
         cfg = dataclasses.replace(cfg, lora_rank=int(lora_rank))
@@ -78,21 +139,38 @@ def get_standard_score(config, sde: SDE, use_ema: bool = False, load_model: bool
     with torch.random.fork_rng(devices=[]):     # leave the caller's RNG alone
         torch.manual_seed(config.seed)
         model = UNetModel(cfg)
-    if ckpt_path:
-        missing, unexpected = model.load_state_dict(
-            params_from_flax(load_flax_msgpack(str(ckpt_path))), strict=False)
+    if state is not None:
+        missing, unexpected = model.load_state_dict(state, strict=False)
         if unexpected or [k for k in missing if "_lora." not in k]:
             raise ValueError(f"checkpoint {ckpt_path} does not fit the model: missing "
                              f"{missing[:5]}, unexpected {unexpected[:5]}")
-    model = model.to(device=dev).eval().requires_grad_(False)
+        if train:
+            round_to_compute_dtype_(model)
+    model = model.to(device=dev).eval().requires_grad_(train)
     for name, p in model.named_parameters():
-        if not (lora_rank and is_adapt_param(name)):
+        if not (train or (adaptation and is_adapt_param(name, adaptation))):
             p.data = p.data.to(cfg.torch_dtype)
 
     def score_fn(x, t):
         return model(x, t)
 
     return model, model.state_dict(), score_fn
+
+
+def get_standard_train_dataset(config, device=None):
+    """(dataset, endless iterator of NHWC batches of `config.training.batch_size`)
+    of the training fold (JAX `get_standard_train_dataset`): generated
+    disk-ellipse phantoms, rasterised on `device`."""
+    name = config.data.name.lower()
+    if name == "diskdistributedellipsesdataset":
+        ds = get_disk_dist_ellipses_dataset(
+            fold="train", im_size=config.data.im_size, length=config.data.length,
+            diameter=config.data.diameter, max_n_ellipse=config.data.num_n_ellipse,
+            device=device)
+        return ds, ds.batches(config.training.batch_size)
+    if name == "aapm":
+        raise NotImplementedError(f"dataset {config.data.name!r}: {NOT_PORTED_DATA}")
+    raise NotImplementedError(config.data.name)
 
 
 def get_standard_ray_trafo(config, device=None) -> FFTRayTransform:

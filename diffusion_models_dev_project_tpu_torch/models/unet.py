@@ -21,6 +21,13 @@ CUDA kernels on a CUDA tensor (the LoRA branches below are `F.conv2d` and
 conv run in the input's dtype, as in the reference.  Weights keep the JAX
 layouts: 3x3 convs HWIO, dense and 1x1 layers as `nn.Linear` (O, I).
 
+Initialisation follows the JAX package's rule (the values differ: weights
+cross over through `models/convert.py`): every ResBlock's `conv2`, the
+attention `proj` and the `final_conv` start at zero, kernel and bias, so a
+fresh model outputs exactly zero; every other conv and dense kernel draws
+flax's `lecun_normal` (a normal truncated at two standard deviations,
+scaled to variance 1/fan_in), every bias starts at zero.
+
 Steerable adaptation (`lora_rank` > 0): every conv and dense layer of the
 ResBlocks and AttentionBlocks of the groups named in `lora_include_blocks`
 gains a low-rank branch (`LoRAConv`, `LoRADense`; module `<layer>_lora`, as
@@ -249,16 +256,38 @@ class GroupNorm32(nn.Module):
         return group_norm32(x, self.weight, self.bias, self.num_groups)
 
 
+# flax's truncated_normal draws from a standard normal cut at +-2, whose
+# standard deviation this is; `variance_scaling` divides by it
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's `lecun_normal` in place: a normal truncated at two standard
+    deviations, scaled to variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
+def _init_kernel(weight: torch.Tensor, fan_in: int, zero_init: bool) -> None:
+    if zero_init:
+        nn.init.zeros_(weight)
+    else:
+        lecun_normal_(weight, fan_in)
+
+
 class Conv3x3(nn.Module):
     """Stride-1 zero-pad-1 3x3 conv; weight HWIO (3, 3, Cin, Cout).  Input
-    and weight are cast to `dtype` (no copy when they already have it)."""
+    and weight are cast to `dtype` (no copy when they already have it).
+    `zero_init` starts kernel and bias at 0, else the kernel is
+    `lecun_normal` (fan_in 9 Cin)."""
 
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype, zero_init: bool = False):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(3, 3, cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout))
-        nn.init.normal_(self.weight, std=1.0 / math.sqrt(9 * cin))
+        _init_kernel(self.weight, 9 * cin, zero_init)
 
     def forward(self, x, use_kernel: bool = True):
         return conv3x3(x.to(self.dtype), self.weight.to(self.dtype), self.bias,
@@ -267,11 +296,15 @@ class Conv3x3(nn.Module):
 
 class Dense(nn.Linear):
     """`nn.Linear` computing in `dtype` (flax `nn.Dense(dtype=...)`); also the
-    1x1 conv of a ResBlock skip, which is a dense layer over NHWC channels."""
+    1x1 conv of a ResBlock skip, which is a dense layer over NHWC channels.
+    Initialised as flax's: the kernel `lecun_normal` (fan_in Cin) or, with
+    `zero_init`, 0; the bias 0."""
 
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype, zero_init: bool = False):
         super().__init__(cin, cout)
         self.dtype = dtype
+        _init_kernel(self.weight, cin, zero_init)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
@@ -349,7 +382,7 @@ class ResBlock(nn.Module):
         self.emb = Dense(emb_ch, emb_out, dtype)
         self.emb_lora = LoRADense(emb_ch, emb_out, r) if r else None
         self.norm2 = GroupNorm32(spec.out_ch)
-        self.conv2 = Conv3x3(spec.out_ch, spec.out_ch, dtype)
+        self.conv2 = Conv3x3(spec.out_ch, spec.out_ch, dtype, zero_init=True)
         self.conv2_lora = LoRAConv(spec.out_ch, spec.out_ch, r) if r else None
         self.skip = Dense(spec.in_ch, spec.out_ch, dtype) if spec.out_ch != spec.in_ch else None
         self.skip_lora = (LoRAConv(spec.in_ch, spec.out_ch, r, kernel=1)
@@ -383,7 +416,7 @@ class AttentionBlock(nn.Module):
         self.norm = GroupNorm32(spec.ch)
         self.qkv = Dense(spec.ch, 3 * spec.ch, dtype)
         self.qkv_lora = LoRADense(spec.ch, 3 * spec.ch, r) if r else None
-        self.proj = Dense(spec.ch, spec.ch, dtype)
+        self.proj = Dense(spec.ch, spec.ch, dtype, zero_init=True)
         self.proj_lora = LoRADense(spec.ch, spec.ch, r) if r else None
 
     def forward(self, x, use_kernel: bool = True, lora_scale: float = 1.0):
@@ -452,7 +485,7 @@ class UNetModel(nn.Module):
             self._blocks.append((group, layers))
         last_ch = int(cfg.channel_mult[0] * mc)
         self.final_norm = GroupNorm32(last_ch)
-        self.final_conv = Conv3x3(last_ch, cfg.out_channels, torch.float32)
+        self.final_conv = Conv3x3(last_ch, cfg.out_channels, torch.float32, zero_init=True)
 
     _LORA_GROUPS = {"in": "input_blocks", "mid": "middle_block", "out": "output_blocks"}
 

@@ -38,6 +38,10 @@ _SIGNATURES = {
     # x, w, bias, out, workspace, B, H, W, Cin, Cout, box_h, box_w, bm, splits,
     # steps_per_split, stream
     "conv3x3_tc_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, dy, dw, workspace, B, H, W, Cin, Cout, splits, steps_per_split, stream
+    "conv3x3_wgrad_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, dy, dw, workspace, B, H, W, Cin, Cout, is_bf16, bn, splits, steps_per_split, stream
+    "conv3x3_wgrad_simt": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, BH, T, D, scale, is_bf16, stream
     "attention_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, out, lse (or null), BH, T, D, scale_log2, splits, stream

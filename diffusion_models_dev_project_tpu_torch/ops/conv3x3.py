@@ -25,10 +25,15 @@ when an input needs one, `conv3x3` runs as a `torch.autograd.Function`.
   runs it through the same three kernels, chosen by `plan` for the swapped
   channel counts (on a CPU tensor through `conv3x3_reference`).
 - The bias gradient is an fp32 sum of the output gradient over (B, H, W).
-- The weight gradient has no kernel yet (ROADMAP.md, queue 1 item 8): on a
-  CUDA tensor a weight that requires a gradient raises; on the CPU
-  `conv3x3_weight_grad_reference` computes it.
-Forward and input-gradient launches are counted apart.
+- The weight gradient, dW[di, dj] = x(shifted by the tap)^T dL/dy, is a
+  GEMM of M = 9 Cin, N = Cout, K = B H W pixels: `conv3x3_weight_grad`
+  launches `csrc/conv3x3_wgrad.cu`, `mma` (bf16 tensor cores, Cin and Cout
+  multiples of 16) or `simt` (fp32 FMA: fp32, the stem, the final conv),
+  with K split over blocks as `wgrad_plan` lays it out and the splits added
+  in a fixed order (deterministic).  On a CPU tensor
+  `conv3x3_weight_grad_reference` computes it.  x is saved for it only when
+  the weight requires a gradient.
+Forward, input-gradient and weight-gradient launches are counted apart.
 """
 from __future__ import annotations
 
@@ -39,18 +44,20 @@ import torch
 
 from . import _build
 
-__all__ = ["Plan", "VARIANTS", "backward_launches", "backward_launches_by_variant", "conv3x3",
-           "conv3x3_input_grad", "conv3x3_reference", "conv3x3_tiled_reference",
-           "conv3x3_weight_grad_reference", "launches", "launches_by_variant", "plan",
-           "swapped_weight"]
+__all__ = ["Plan", "VARIANTS", "WGRAD_VARIANTS", "WgradPlan", "backward_launches",
+           "backward_launches_by_variant", "conv3x3", "conv3x3_input_grad", "conv3x3_reference",
+           "conv3x3_tiled_reference", "conv3x3_weight_grad", "conv3x3_weight_grad_reference",
+           "conv3x3_wgrad_tiled_reference", "launches", "launches_by_variant", "plan",
+           "swapped_weight", "wgrad_launches", "wgrad_launches_by_variant", "wgrad_plan"]
 
 VARIANTS = ("tc", "narrow", "simt")
 launches = 0    # forward calls that launched a kernel since the caller last set this to 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)    # the same, by variant
 backward_launches = 0    # input-gradient calls that launched a kernel, the same way
 backward_launches_by_variant = dict.fromkeys(VARIANTS, 0)
-WEIGHT_GRAD_MISSING = ("conv3x3: the weight gradient has no CUDA kernel yet (ROADMAP.md, queue 1 "
-                       "item 8); freeze the base conv weights (requires_grad=False) or run on the CPU")
+WGRAD_VARIANTS = ("mma", "simt")
+wgrad_launches = 0    # weight-gradient calls that launched a kernel, the same way
+wgrad_launches_by_variant = dict.fromkeys(WGRAD_VARIANTS, 0)
 
 SMS = 132          # streaming multiprocessors of an H100 SXM
 TC_BK = 64         # input channels per K step of `tc` (128 bytes of bf16: one swizzled row)
@@ -58,6 +65,14 @@ TC_BN = 128        # output channels per `tc` tile
 MIN_BLOCKS = 100   # a grid of fewer blocks leaves a quarter of the SMs idle
 NARROW_MAX_COUT = 15
 NARROW_TILE = 16   # `narrow` tiles are 16 x 16 output pixels
+# weight gradient (csrc/conv3x3_wgrad.cu): `mma` tiles are 128 channels of
+# one tap x 128 output channels over 32-pixel steps; `simt` tiles 64 (tap,
+# channel) rows x 64 output channels, or 256 rows x all Cout <= 16, over
+# 16-pixel steps
+WGRAD_MMA_TILE = (128, 128, 32)
+WGRAD_SIMT_TILES = {64: (64, 64, 16), 16: (256, 16, 16)}
+WGRAD_BLOCKS = 4 * SMS        # blocks to aim for: four per SM
+WGRAD_MIN_STEPS = 16          # K steps per split at least, so partial sums stay few
 
 
 class Plan(NamedTuple):
@@ -208,6 +223,84 @@ def conv3x3_weight_grad_reference(x: torch.Tensor, grad_out: torch.Tensor) -> to
                                      for dj in range(3)]) for di in range(3)])
 
 
+class WgradPlan(NamedTuple):
+    """How `conv3x3_weight_grad` runs one shape: output tiles of `bm` rows
+    of dW (`mma`: input channels of one tap; `simt`: (tap, channel) rows) by
+    `bn` output channels, a K loop of `k_steps` steps of `bk` pixels cut
+    into `splits` ranges of `steps_per_split`, one block each, whose fp32
+    partial sums (`workspace_bytes`) a second kernel adds in split order."""
+    variant: str
+    bm: int
+    bn: int
+    bk: int
+    tiles: int
+    k_steps: int
+    splits: int
+    steps_per_split: int
+    workspace_bytes: int
+
+
+def _wgrad_mma_eligible(cin: int, cout: int, dtype: torch.dtype) -> bool:
+    return dtype == torch.bfloat16 and cin % 16 == 0 and cout % 16 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(b: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
+               variant: Optional[str] = None, splits: Optional[int] = None) -> WgradPlan:
+    """The weight-gradient kernel and its split of K = b*h*w pixels for x
+    (b, h, w, cin) and dL/dy (b, h, w, cout) in `dtype`: `mma` for bf16 with
+    Cin and Cout multiples of 16, `simt` otherwise.  Without `splits`, K is
+    split until the grid holds about `WGRAD_BLOCKS` blocks, keeping at least
+    `WGRAD_MIN_STEPS` steps per split; where the output tiles alone fill the
+    card it is not split.  `variant` and `splits` force a choice
+    (measurements only); one that cannot take the shape raises."""
+    if variant is None:
+        variant = "mma" if _wgrad_mma_eligible(cin, cout, dtype) else "simt"
+    if variant == "mma":
+        if not _wgrad_mma_eligible(cin, cout, dtype):
+            raise ValueError(f"conv3x3 weight grad: mma takes bf16 with Cin, Cout multiples of "
+                             f"16, not {dtype} {cin}->{cout}")
+        bm, bn, bk = WGRAD_MMA_TILE
+        tiles = 9 * -(-cin // bm) * -(-cout // bn)
+    elif variant == "simt":
+        bm, bn, bk = WGRAD_SIMT_TILES[16 if cout <= 16 else 64]
+        tiles = -(-9 * cin // bm) * -(-cout // bn)
+    else:
+        raise ValueError(f"conv3x3 weight grad: unknown variant {variant!r}")
+    k_steps = -(-b * h * w // bk)
+    if splits is None:
+        splits = max(1, min(-(-WGRAD_BLOCKS // tiles), k_steps // WGRAD_MIN_STEPS))
+    if not 1 <= splits <= min(k_steps, 65535):
+        raise ValueError(f"conv3x3 weight grad: {splits} splits of {k_steps} K steps")
+    per_split = -(-k_steps // splits)
+    splits = -(-k_steps // per_split)           # no split left empty
+    ws = 4 * splits * 9 * cin * cout if splits > 1 else 0
+    return WgradPlan(variant, bm, bn, bk, tiles, k_steps, splits, per_split, ws)
+
+
+def conv3x3_wgrad_tiled_reference(x: torch.Tensor, grad_out: torch.Tensor,
+                                  p: WgradPlan) -> torch.Tensor:
+    """The weight-gradient kernels' split and summation order as plan `p`
+    lays it out (for tests): per split, fp32 sums over its K steps of
+    `p.bk` pixels of the tap-shifted x (zero halo) transposed times dL/dy;
+    then the splits' partials added in order."""
+    b, h, w, cin = x.shape
+    cout = grad_out.shape[-1]
+    n = b * h * w
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    taps = torch.stack([xp[:, di:di + h, dj:dj + w, :].reshape(n, cin)
+                        for di in range(3) for dj in range(3)], dim=1).reshape(n, 9 * cin)
+    g = grad_out.float().reshape(n, cout)
+    total = None
+    for s in range(p.splits):
+        acc = taps.new_zeros(9 * cin, cout)
+        for k in range(s * p.steps_per_split, min((s + 1) * p.steps_per_split, p.k_steps)):
+            rows = slice(k * p.bk, min((k + 1) * p.bk, n))
+            acc += taps[rows].T @ g[rows]
+        total = acc if total is None else total + acc
+    return total.reshape(3, 3, cin, cout)
+
+
 def _input_grad_operands(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The input-gradient conv's kernel and its zero bias, made once per
     weight and kept on the weight until its version changes (a frozen base
@@ -294,6 +387,49 @@ def conv3x3_input_grad(grad_out: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+def conv3x3_weight_grad(x: torch.Tensor, grad_out: torch.Tensor,
+                        use_kernel: bool = True, *, splits: Optional[int] = None) -> torch.Tensor:
+    """dL/dW (3, 3, Cin, Cout) in fp32 of y = conv3x3(x, weight, bias), given
+    x (B, H, W, Cin) and dL/dy (B, H, W, Cout) of one dtype: on a CUDA
+    tensor the kernel `wgrad_plan` picks (`splits` forces its split of K,
+    for measurements), on a CPU tensor or with `use_kernel=False`
+    `conv3x3_weight_grad_reference`."""
+    global wgrad_launches
+    if x.ndim != 4 or grad_out.shape[:3] != x.shape[:3]:
+        raise ValueError(f"conv3x3 weight grad: bad shapes x {tuple(x.shape)} "
+                         f"grad {tuple(grad_out.shape)}")
+    if x.device.type == "cpu" or not use_kernel:
+        return conv3x3_weight_grad_reference(x, grad_out)
+    if x.device.type != "cuda" or grad_out.device != x.device:
+        raise ValueError(f"conv3x3 weight grad: tensors on {x.device}, {grad_out.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or grad_out.dtype != x.dtype:
+        raise TypeError(f"conv3x3 weight grad: dtypes {x.dtype}, {grad_out.dtype}; want fp32 "
+                        "or bf16, equal")
+    x, grad_out = x.contiguous(), grad_out.contiguous()
+    bsz, h, w, cin = x.shape
+    cout = grad_out.shape[-1]
+    dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    if x.numel() == 0 or grad_out.numel() == 0:
+        return dw.zero_()
+    p = wgrad_plan(bsz, h, w, cin, cout, x.dtype, None, splits)
+    ws = (torch.empty(p.workspace_bytes // 4, dtype=torch.float32, device=x.device)
+          if p.splits > 1 else None)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = (x.data_ptr(), grad_out.data_ptr(), dw.data_ptr(),
+                ws.data_ptr() if ws is not None else None, bsz, h, w, cin, cout)
+        if p.variant == "mma":
+            rc = lib.conv3x3_wgrad_mma(*args, p.splits, p.steps_per_split, stream)
+        else:
+            rc = lib.conv3x3_wgrad_simt(*args, int(x.dtype == torch.bfloat16), p.bn, p.splits,
+                                        p.steps_per_split, stream)
+    _build.check(rc, f"conv3x3 weight grad ({p.variant})")
+    wgrad_launches += 1
+    wgrad_launches_by_variant[p.variant] += 1
+    return dw
+
+
 class _Conv3x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, kernel, variant, splits):
@@ -308,8 +444,9 @@ class _Conv3x3(torch.autograd.Function):
         gx = gw = gb = None
         if ctx.needs_input_grad[0]:
             gx = conv3x3_input_grad(grad_out.to(weight.dtype), weight, ctx.kernel).to(ctx.x_dtype)
-        if ctx.needs_input_grad[1]:            # the plain path only: `conv3x3` refuses the kernel's
-            gw = conv3x3_weight_grad_reference(x, grad_out).to(weight.dtype)
+        if ctx.needs_input_grad[1]:     # fp32, rounded to the weight's dtype (bf16 as JAX's conv)
+            gw = conv3x3_weight_grad(x.to(weight.dtype), grad_out.to(weight.dtype),
+                                     ctx.kernel).to(weight.dtype)
         if ctx.needs_input_grad[2]:
             gb = grad_out.float().sum(dim=(0, 1, 2)).to(ctx.bias_dtype)
         return gx, gw, gb, None, None, None
@@ -320,8 +457,10 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             splits: Optional[int] = None) -> torch.Tensor:
     """x (B, H, W, Cin), weight (3, 3, Cin, Cout), bias (Cout,) -> (B, H, W, Cout).
 
-    Differentiable in x and bias on every device, and in weight on the CPU.
-    `variant` and `splits` (measurements only) force what `plan` would
+    Differentiable in x, weight and bias.  The weight's gradient comes
+    back in the weight's dtype: for a bf16 weight the kernel's fp32 sum
+    rounded to bf16, as the JAX package's bf16 conv gives it, before
+    autograd casts it to an fp32 master's dtype.  `variant` and `splits` (measurements only) force what `plan` would
     choose from dtype and shape."""
     if x.ndim != 4 or weight.shape[:3] != (3, 3, x.shape[-1]) or bias.shape != weight.shape[3:]:
         raise ValueError(f"conv3x3: bad shapes x {tuple(x.shape)} weight "
@@ -332,6 +471,4 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if not (torch.is_grad_enabled()
             and (x.requires_grad or weight.requires_grad or bias.requires_grad)):
         return _forward(x, weight, bias, kernel, variant, splits)
-    if kernel and weight.requires_grad:
-        raise NotImplementedError(WEIGHT_GRAD_MISSING)
     return _Conv3x3.apply(x, weight, bias, kernel, variant, splits)

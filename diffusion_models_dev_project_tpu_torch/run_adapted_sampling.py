@@ -3,9 +3,9 @@
 Counterpart of the JAX package's `run_adapted_sampling.py` for the path the
 port has: the disk-ellipse data (the generated test-fold phantoms, which
 the JAX CLI reconstructs too), the FFT parallel-beam operator, DDS with
-`--adaptation lora`, one image at a time.
-Each image starts from a fresh LoRA state (seed = the image's index) and
-the model's own biases.  It writes what the JAX CLI writes under
+`--adaptation lora`, `full` or `decoder`, one image at a time.
+Each image starts from the model's own weights (and for `lora` a fresh
+LoRA state, seed = the image's index).  It writes what the JAX CLI writes under
 `./outputs/...`: `recon_<i>_info.npz`, `recon_<i>.png`, `report.yaml`, and
 prints a JSON line of the mean PSNR and SSIM last.
 
@@ -45,7 +45,8 @@ parser.add_argument("--lora_rank", default=4)
 parser.add_argument("--add_cg", action="store_true", help="do DDS steps after adaptation")
 parser.add_argument("--cg_iter", default=1)
 parser.add_argument("--gamma", default=0.01)
-parser.add_argument("--load_path", help="path to a model checkpoint (flax msgpack *.npz)")
+parser.add_argument("--load_path", help="path to a model checkpoint (flax msgpack *.npz, or a "
+                    "checkpoint directory of the port's train CLI)")
 parser.add_argument("--dc_type", default="cg", choices=["cg", "gd", "none"])
 parser.add_argument("--stddev", default=None)
 parser.add_argument("--early_stopping_pct", default=1.0)
@@ -68,9 +69,6 @@ def _check_ported(args):
     if args.dataset != "ellipses" or args.model_learned_on != "ellipses":
         raise NotImplementedError("only the disk-ellipse data and prior are ported; the AAPM and "
                                   "walnut data are ROADMAP.md queue 1 item 9")
-    if args.adaptation != "lora":
-        raise NotImplementedError(f"--adaptation {args.adaptation} trains base conv weights, "
-                                  "whose gradient kernel is ROADMAP.md queue 1 item 8")
     if int(args.shard_images) > 0:
         raise NotImplementedError("--shard_images (several images per call, each with its own "
                                   "LoRA) is ROADMAP.md queue 1 item 10")
@@ -107,11 +105,13 @@ def coordinator(args):
     save_root.mkdir(parents=True, exist_ok=True)
 
     sde = F.get_standard_sde(config)
+    use_lora = args.adaptation == "lora"       # full and decoder carry no LoRA branches
     model, _, _ = F.get_standard_score(config, sde, use_ema=args.ema,
                                        load_model=args.load_path is not None,
-                                       ckpt_path=args.load_path, lora_rank=int(args.lora_rank),
+                                       ckpt_path=args.load_path,
+                                       lora_rank=int(args.lora_rank) if use_lora else 0,
                                        lora_include_blocks=tuple(args.lora_include_blocks),
-                                       device=device)
+                                       device=device, adaptation=args.adaptation)
     ray_trafo = F.get_standard_ray_trafo(dataconfig, device=device)
     dataset = F.get_standard_dataset(dataconfig, ray_trafo)
     num_images = (int(args.num_images) if args.num_images is not None
@@ -147,6 +147,7 @@ def coordinator(args):
     report["SSIM"] = float(np.mean(ssims))
     write_report(save_root / "report.yaml", report)
     print(json.dumps({"PSNR": report["PSNR"], "SSIM": report["SSIM"]}))
+    return save_root
 
 
 if __name__ == "__main__":

@@ -1,28 +1,34 @@
-"""Steerable test-time adaptation (LoRA) inside the DDS sampling loop.
+"""Steerable test-time adaptation inside the DDS sampling loop.
 
-Port of `sampling/adaptation.py` of the JAX package for its `lora` strategy.
-At every `adapt_freq`-th step the sampler trains the LoRA branches of the
-UNet and its non-emb biases for `num_optim_step` Adam steps on
+Port of `sampling/adaptation.py` of the JAX package, with its three
+strategies (`is_adapt_param`): `lora` trains the LoRA branches of the UNet
+and its non-emb biases, `full` every parameter, `decoder` the output blocks
+and the final norm and conv but their time-embedding projections.  At
+every `adapt_freq`-th step the sampler trains them for `num_optim_step`
+Adam steps on
 
     mean((A x̂ - y)²) + tv_penalty · TV(x̂),   x̂ = DC(Tweedie(score(x, t)))
 
 with a fresh Adam per adaptation (β 0.9/0.999, ε 1e-8 outside the square
 root, as `optax.adam`).  Then the adapted score (`lora_scale` 1) drives
 Tweedie and the data consistency, and the prior score (`lora_scale` 0)
-drives the DDIM step.  The result is the last Tweedie estimate under the
+drives the DDIM step; `full` and `decoder` models carry no LoRA branches,
+so there `lora_scale` changes nothing and the adapted score drives both, as
+in the JAX package.  The result is the last Tweedie estimate under the
 adapted score.
 
 The JAX package compiles the two-level loop into one program; here it is a
 Python loop under `torch.no_grad()`, each adaptation under
 `torch.enable_grad()`.  The gradient runs through the port's hand kernels:
-the conv3x3 input gradient and the attention backward (`ops/`).  The base
-weights stay frozen; the trainable leaves (`split_adapt_params`) are fp32
-masters, cast at use.  Noise comes from a `torch.Generator` or is injected
-as `noises`: the prior draw, then one draw per step.
+the conv3x3 input and weight gradients and the attention backward
+(`ops/`).  The other weights stay frozen; the trainable leaves
+(`split_adapt_params`) are fp32 masters, cast at use
+(`factory.get_standard_score(..., adaptation=...)`).  Noise comes from a
+`torch.Generator` or is injected as `noises`: the prior draw, then one draw
+per step.
 
-Not ported yet: the `full` and `decoder` strategies, which train base conv
-weights and need the conv3x3 weight-gradient kernel (ROADMAP.md queue 1
-item 8), and `sample_batched`, the vmapped multi-image mode (item 10).
+Not ported yet: `sample_batched`, the vmapped multi-image mode (ROADMAP.md
+queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -40,11 +46,16 @@ from ..ops.sde import DDPM, SDE
 from .engine import SamplerSpec, _time_arrays
 from .predictors import make_dc_op
 
-__all__ = ["tv_loss", "is_adapt_param", "split_adapt_params", "init_lora", "AdaptSpec",
-           "AdaptedSampler", "get_standard_adapted_sampler"]
+__all__ = ["STRATEGIES", "check_strategy", "tv_loss", "is_adapt_param", "split_adapt_params",
+           "init_lora", "AdaptSpec", "AdaptedSampler", "get_standard_adapted_sampler"]
 
-NOT_PORTED_STRATEGY = ("adaptation={!r} is not ported yet: it trains base conv weights, whose "
-                       "gradient kernel is ROADMAP.md queue 1 item 8")
+STRATEGIES = ("lora", "full", "decoder")
+
+
+def check_strategy(impl: str) -> None:
+    """Raise NotImplementedError unless `impl` is one of `STRATEGIES`."""
+    if impl not in STRATEGIES:
+        raise NotImplementedError(f"adaptation strategy {impl!r}; the port has {STRATEGIES}")
 
 
 def tv_loss(x: torch.Tensor) -> torch.Tensor:
@@ -62,13 +73,19 @@ def _is_lora(name: str) -> bool:
 
 def is_adapt_param(name: str, impl: str = "lora") -> bool:
     """Whether parameter `name` of the port's UNet is trained by strategy
-    `impl` (JAX `_is_adapt_param`): for `lora`, every bias outside the
-    ResBlocks' time-embedding projection `emb` (GroupNorm biases included),
-    and every LoRA weight (the JAX package carries those in their own
-    collection)."""
-    if impl != "lora":
-        raise NotImplementedError(NOT_PORTED_STRATEGY.format(impl))
+    `impl` (JAX `_is_adapt_param`, on the port's names, which follow the
+    flax tree): `full`, every parameter; `decoder`, the `out_*` blocks and
+    `final_norm` / `final_conv`, but the ResBlocks' time-embedding
+    projections `emb`; `lora`, every bias outside `emb` (GroupNorm biases
+    included) and every LoRA weight (the JAX package carries those in their
+    own collection).  Another strategy raises NotImplementedError."""
     parts = name.split(".")
+    if impl == "full":
+        return True
+    if impl == "decoder":
+        in_decoder = parts[0].startswith("out_") or parts[0] in ("final_norm", "final_conv")
+        return in_decoder and "emb" not in parts[:-1]
+    check_strategy(impl)
     return _is_lora(name) or (parts[-1] == "bias" and "emb" not in parts[:-1])
 
 
@@ -108,20 +125,19 @@ class AdaptSpec:
     dc_type: str = "cg"            # 'cg' | 'gd' | 'none'
     add_cg: bool = False
     cg_iter: int = 1
-    impl: str = "lora"             # 'full' and 'decoder' are not ported yet
+    impl: str = "lora"             # 'lora' | 'full' | 'decoder'
 
     def __post_init__(self):
-        if self.impl != "lora":
-            raise NotImplementedError(NOT_PORTED_STRATEGY.format(self.impl))
+        check_strategy(self.impl)
         if self.dc_type not in ("cg", "gd", "none"):
             raise NotImplementedError(f"dc_type {self.dc_type!r}")
 
 
 class AdaptedSampler:
-    """Adapted (steerable) DDS sampler over a LoRA UNet `model`, starting
-    every `sample` from the LoRA state `lora` and the model's biases as they
-    were when the sampler was made; the model's parameters are restored
-    after each `sample`."""
+    """Adapted (steerable) DDS sampler over the UNet `model`, starting every
+    `sample` from the LoRA state `lora` (empty for `full` and `decoder`)
+    and the model's other trainable leaves as they were when the sampler
+    was made; the model's parameters are restored after each `sample`."""
 
     def __init__(self, model, lora: Dict[str, torch.Tensor], sde: SDE, spec: SamplerSpec,
                  adapt: AdaptSpec, ray_trafo, observation: torch.Tensor,
@@ -142,7 +158,8 @@ class AdaptedSampler:
         self.trainable, _ = split_adapt_params(model, adapt.impl)
         if set(n for n in self.trainable if _is_lora(n)) != set(lora):
             raise ValueError("the LoRA state does not name the model's LoRA weights")
-        self.biases = {n: p.detach().clone() for n, p in self.trainable.items() if not _is_lora(n)}
+        # the start state of the trainable leaves that are not LoRA weights
+        self.start = {n: p.detach().clone() for n, p in self.trainable.items() if not _is_lora(n)}
         self._time_data = _time_arrays(sde, spec)
 
     @property
@@ -186,15 +203,15 @@ class AdaptedSampler:
     @contextlib.contextmanager
     def adapting(self):
         """Within: the trainable leaves hold the start state (the LoRA state
-        and the biases of construction) and are the only parameters that
-        require a gradient; after: every parameter is as it was."""
+        and the other leaves as at construction) and are the only parameters
+        that require a gradient; after: every parameter is as it was."""
         params = self.trainable
         saved = {n: p.detach().clone() for n, p in params.items()}
         flags = {n: p.requires_grad for n, p in self.model.named_parameters()}
         try:
             with torch.no_grad():
                 for n, p in params.items():
-                    p.copy_(self.lora[n] if _is_lora(n) else self.biases[n])
+                    p.copy_(self.lora[n] if _is_lora(n) else self.start[n])
             self.model.requires_grad_(False)
             for p in params.values():
                 p.requires_grad_(True)
@@ -271,19 +288,24 @@ def get_standard_adapted_sampler(
     early_stopping_pct: Optional[float] = None, travel_length: int = 1, travel_repeat: int = 1,
     ground_truth=None, lora_seed: int = 0, adaptation: str = "lora",
 ) -> AdaptedSampler:
-    """Factory with the JAX package's defaults and flags.  The model must be
-    built with `lora_rank` and `lora_include_blocks` in its `UNetConfig`
-    (`factory.get_standard_score(..., lora_rank=...)`); its parameters take
-    the place of the JAX `params` argument.  A fresh LoRA state is drawn
-    from `lora_seed`."""
+    """Factory with the JAX package's defaults and flags; the model's
+    parameters take the place of the JAX `params` argument.  For `lora` the
+    model must be built with `lora_rank` and `lora_include_blocks` in its
+    `UNetConfig` (`factory.get_standard_score(..., lora_rank=...)`), and a
+    fresh LoRA state is drawn from `lora_seed`; for `full` and `decoder` it
+    carries no LoRA (`lora_rank` 0) and its strategy's leaves are trained
+    (`factory.get_standard_score(..., adaptation=...)` keeps them fp32)."""
     if method.lower() != "dds":
         raise NotImplementedError(method)
-    if adaptation != "lora":
-        raise NotImplementedError(NOT_PORTED_STRATEGY.format(adaptation))
+    check_strategy(adaptation)
     cfg = model.cfg
-    if cfg.lora_rank != int(lora_rank) or tuple(cfg.lora_include_blocks) != tuple(lora_include_blocks):
+    if adaptation == "lora" and (cfg.lora_rank != int(lora_rank)
+                                 or tuple(cfg.lora_include_blocks) != tuple(lora_include_blocks)):
         raise ValueError(f"the model carries LoRA rank {cfg.lora_rank} over "
                          f"{cfg.lora_include_blocks}, not {lora_rank} over {lora_include_blocks}")
+    if adaptation != "lora" and cfg.lora_rank:
+        raise ValueError(f"adaptation={adaptation!r} expects a model without LoRA (lora_rank 0), "
+                         f"not {cfg.lora_rank}")
     if im_shape is None:
         h, w = ray_trafo.model_im_shape
         im_shape = (h, w, 1)
@@ -298,5 +320,6 @@ def get_standard_adapted_sampler(
                       lr=float(lr), tv_penalty=float(tv_penalty), gamma=float(gamma),
                       dc_type=dc_type, add_cg=bool(add_cg), cg_iter=int(cg_iter),
                       impl=adaptation)
-    return AdaptedSampler(model, init_lora(model, seed=lora_seed), sde, spec, adapt, ray_trafo,
-                          observation, ground_truth=ground_truth)
+    lora = init_lora(model, seed=lora_seed) if adaptation == "lora" else {}
+    return AdaptedSampler(model, lora, sde, spec, adapt, ray_trafo, observation,
+                          ground_truth=ground_truth)

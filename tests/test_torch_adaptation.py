@@ -1,8 +1,10 @@
-"""The port's steerable (LoRA) adaptation against the JAX package.
+"""The port's steerable adaptation against the JAX package.
 
 A tiny LoRA UNet (32², one level, the middle block's attention) gets the
 same weights and LoRA state on both sides, through `params_from_flax` and
-`lora_from_flax`.  Every leaf is drawn nonzero with numpy, the LoRA
+`lora_from_flax`; the `full` and `decoder` strategies run the same UNet
+without LoRA and train its base weights (through the conv3x3 weight
+gradient).  Every leaf is drawn nonzero with numpy, the LoRA
 up-projections included: the layers that JAX initialises at zero
 (`conv2`, `proj`, `final_conv`, every `up`) would otherwise leave gradients
 that are zero on both sides.  Both sides compute in fp32; the JAX sampler's draws are
@@ -102,6 +104,50 @@ def inner_loss_grads(gt, obs_noise, x, t, **arrays):
     return {"loss": loss.detach().numpy(), **{n: g.numpy() for n, g in zip(train, grads)}}
 
 
+def _plain_sampler(impl, arrays, gt, obs_noise):
+    """The same UNet without LoRA, for the `full` and `decoder` strategies."""
+    import torch
+
+    import diffusion_models_dev_project_tpu_torch.factory as TF
+    from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import get_config as tget
+    from diffusion_models_dev_project_tpu_torch.models.convert import params_from_flax
+
+    tc = _tiny(tget)
+    tsd = TF.get_standard_sde(tc)
+    model, _, _ = TF.get_standard_score(tc, tsd, load_model=False, device="cpu", adaptation=impl)
+    model.load_state_dict(params_from_flax(child.unflatten(arrays, "params/")), strict=True)
+    trafo = TF.get_standard_ray_trafo(tc, device="cpu")
+    _, obs, _ = TF.get_data_from_ground_truth(gt, trafo, 0.01, noise=torch.from_numpy(obs_noise))
+    kw = {k: v for k, v in KW.items() if k != "lora_rank"}
+    sampler = TF.get_standard_adapted_sampler(
+        "dds", model, tsd, trafo, obs, num_steps=N_STEPS, num_optim_step=N_OPTIM,
+        adapt_freq=ADAPT_FREQ, ground_truth=gt, adaptation=impl, **kw)
+    return sampler, model
+
+
+def full_and_decoder_sets(gt, obs_noise, **arrays):
+    """The trainable sets of `full` and `decoder` on a model without LoRA."""
+    from diffusion_models_dev_project_tpu_torch.sampling.adaptation import split_adapt_params
+
+    out = {}
+    for impl in ("full", "decoder"):
+        sampler, model = _plain_sampler(impl, arrays, gt, obs_noise)
+        train, frozen = split_adapt_params(model, impl)
+        assert set(sampler.trainable) == set(train) and sampler.lora == {}
+        out[impl] = np.array(sorted(train))
+    return out
+
+
+def plain_adapted_chain(impl, gt, obs_noise, noises, **arrays):
+    import torch
+
+    sampler, model = _plain_sampler(str(impl), arrays, gt, obs_noise)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    x, trace = sampler.sample(noises=[torch.from_numpy(a) for a in noises], return_trace=True)
+    assert all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+    return {"x": x.numpy(), "trace": trace.numpy()}
+
+
 def adapted_chain(gt, obs_noise, noises, **arrays):
     import torch
 
@@ -178,12 +224,20 @@ def lora_pair(tmp_path_factory):
         k, sub = jax.random.split(k)
         noises.append(np.asarray(jax.random.normal(sub, gt.shape, jnp.float32)))
     tmp = tmp_path_factory.mktemp("adaptation")
+    for impl in ("full", "decoder"):
+        (tmp / impl).mkdir()
+    plain = child.flatten(params, "params/")
     children = {
         "lora_unet": child.start(__file__, "lora_unet", tmp, **unet_in, **arrays),
+        "full_and_decoder_sets": child.start(__file__, "full_and_decoder_sets", tmp, gt=gt,
+                                             obs_noise=obs_noise, **plain),
         "inner_loss_grads": child.start(__file__, "inner_loss_grads", tmp, gt=gt,
                                         obs_noise=obs_noise, **grad_in, **arrays),
         "adapted_chain": child.start(__file__, "adapted_chain", tmp, gt=gt,
                                      obs_noise=obs_noise, noises=np.stack(noises), **arrays)}
+    for impl in ("full", "decoder"):
+        children[impl] = child.start(__file__, "plain_adapted_chain", tmp / impl, impl=impl, gt=gt,
+                                     obs_noise=obs_noise, noises=np.stack(noises), **plain)
     yield dict(jmodel=jmodel, jsde=jsd, params=params, lora=lora, gt=gt, obs=obs, trafo=trafo,
                unet_in=unet_in, grad_in=grad_in, chain_key=chain_key, children=children)
     for pending in children.values():      # a test that failed early leaves no child behind
@@ -263,6 +317,48 @@ def test_adapted_chain_matches_jax(lora_pair):
     lp = lora_pair
     jx, jtrace = _jax_sampler(lp).sample(lp["chain_key"], return_trace=True)
     out = lp["children"]["adapted_chain"].result()
+    ref = np.asarray(jx)
+    assert out["x"].shape == ref.shape and np.isfinite(out["x"]).all()
+    assert np.abs(out["x"] - ref).max() <= TOL_CHAIN * np.abs(ref).max()
+    np.testing.assert_allclose(out["trace"], np.asarray(jtrace), rtol=0, atol=TOL_TRACE_DB)
+
+
+def _jax_param_name(path):
+    *mods, leaf = path
+    return ".".join([*mods, "weight" if leaf in ("kernel", "scale") else "bias"])
+
+
+def _plain_jax_sampler(lp, impl):
+    jc = _tiny(jget)
+    jmodel = JU.UNetModel(JU.create_model_config(jc.model))       # no LoRA
+    kw = {k: v for k, v in KW.items() if k != "lora_rank"}
+    return ja.get_standard_adapted_sampler(
+        "dds", jmodel, lp["params"], lp["jsde"], lp["trafo"], lp["obs"], num_steps=N_STEPS,
+        num_optim_step=N_OPTIM, adapt_freq=ADAPT_FREQ, ground_truth=jnp.asarray(lp["gt"]),
+        adaptation=impl, lora_rank=0, **kw)
+
+
+def test_full_and_decoder_trainable_sets_match_jax(lora_pair):
+    """`full` trains every parameter, `decoder` the output blocks and the
+    final norm and conv but their `emb` projections: the port's sets
+    against `split_adapt_params`, through the converters' name map."""
+    out = lora_pair["children"]["full_and_decoder_sets"].result()
+    for impl in ("full", "decoder"):
+        train, frozen = ja.split_adapt_params(lora_pair["params"], impl)
+        assert out[impl].tolist() == sorted(_jax_param_name(p) for p in train), impl
+    assert len(out["decoder"]) < len(out["full"])
+    assert any(".conv1.weight" in n for n in out["decoder"])
+
+
+@pytest.mark.parametrize("impl", ["full", "decoder"])
+def test_full_and_decoder_chains_match_jax(lora_pair, impl):
+    """3 outer steps of 2 Adam steps each (`adapt_freq` 2) over the base
+    weights, against `AdaptedSampler.sample` with its draws injected; the
+    same bounds as the LoRA chain's (an Adam step moves each element by up
+    to lr = 1e-3)."""
+    lp = lora_pair
+    jx, jtrace = _plain_jax_sampler(lp, impl).sample(lp["chain_key"], return_trace=True)
+    out = lp["children"][impl].result()
     ref = np.asarray(jx)
     assert out["x"].shape == ref.shape and np.isfinite(out["x"]).all()
     assert np.abs(out["x"] - ref).max() <= TOL_CHAIN * np.abs(ref).max()

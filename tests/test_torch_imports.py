@@ -38,10 +38,12 @@ def _port_modules():
 def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
     modules = _port_modules()
     assert len(modules) >= 20
-    # among them the conditional-sampling slice's
+    # among them the conditional-sampling slice's and the training slice's
     assert {f"{PKG_NAME}.{m}" for m in (
         "run_conditional_sampling", "data.ellipses", "configs.aapm_configs",
-        "configs.walnut_configs", "sampling.predictors", "sampling.engine")} <= set(modules)
+        "configs.walnut_configs", "sampling.predictors", "sampling.engine",
+        "run_score_based_models_train", "training.losses", "training.ema", "training.trainer",
+        "utils.checkpoint")} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         f"for name in {ABSENT!r}:",
@@ -113,20 +115,31 @@ def unported_paths_raise():
     with pytest.raises(NotImplementedError):
         TF.get_standard_ray_trafo(config, device="cpu")
     config = get_config("vesde")
-    with pytest.raises(ValueError, match="format"):
+    # reference torch checkpoints wait for their converter (queue 1 item 11)
+    with pytest.raises(NotImplementedError, match="item 11"):
         TF.get_standard_score(config, TF.get_standard_sde(config), ckpt_path="model.pt",
                               device="cpu")
     # adaptation: the full and decoder strategies train base conv weights
-    # (queue 1 item 8); several images per call is item 10
+    # through the conv3x3 weight gradient (queue 1 item 8, done); an unknown
+    # strategy raises; several images per call is item 10
     from diffusion_models_dev_project_tpu_torch.sampling import adaptation as TA
 
     for impl in ("full", "decoder"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TF.get_standard_adapted_sampler("dds", None, None, None, None, adaptation=impl)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TA.AdaptSpec(impl=impl)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TA.is_adapt_param("in_1_0.conv1.weight", impl)
+        assert TA.AdaptSpec(impl=impl).impl == impl
+    assert TA.is_adapt_param("in_1_0.conv1.weight", "full")
+    assert not TA.is_adapt_param("in_1_0.conv1.weight", "decoder")
+    assert TA.is_adapt_param("out_1_0.conv1.weight", "decoder")
+    assert not TA.is_adapt_param("out_1_0.emb.weight", "decoder")
+    assert TA.is_adapt_param("final_conv.weight", "decoder")
+    with pytest.raises(NotImplementedError, match="strategy"):
+        TF.get_standard_adapted_sampler("dds", None, None, None, None, adaptation="dif-fit")
+    with pytest.raises(NotImplementedError, match="strategy"):
+        TA.AdaptSpec(impl="dif-fit")
+    # training: one device; a mesh (data parallelism) is item 10
+    from diffusion_models_dev_project_tpu_torch.training.trainer import train_score_model
+
+    with pytest.raises(NotImplementedError, match="item 10"):
+        train_score_model(None, None, None, [], epochs=1, steps_per_epoch=1, mesh=object())
     with pytest.raises(NotImplementedError, match="item 10"):
         TA.AdaptedSampler.sample_batched(None)
     # part "test" has no shipped set: the port generates the test-fold
@@ -142,14 +155,22 @@ def unported_paths_raise():
     for data_config in (aapm_configs.get_config(), walnut_configs.get_config()):
         with pytest.raises(NotImplementedError, match="item 9"):
             TF.get_standard_dataset(data_config, device="cpu")
-    # the adapted CLI: what the port does not have raises, naming its item
+    # the adapted CLI: full and decoder pass its check; what the port does
+    # not have raises, naming its item
     from diffusion_models_dev_project_tpu_torch import run_adapted_sampling as cli
 
-    for argv, item in ((["--adaptation", "full"], "item 8"), (["--adaptation", "decoder"], "item 8"),
-                       (["--shard_images", "2"], "item 10"), (["--dataset", "walnut"], "item"),
+    for impl in ("full", "decoder"):
+        cli._check_ported(cli.parser.parse_args(["--adaptation", impl, "--device", "cpu"]))
+    for argv, item in ((["--shard_images", "2"], "item 10"), (["--dataset", "walnut"], "item"),
                        (["--model_learned_on", "aapm"], "item")):
         with pytest.raises(NotImplementedError, match=item):
             cli.coordinator(cli.parser.parse_args(argv + ["--device", "cpu"]))
+    # the train CLI: the AAPM data is item 9
+    from diffusion_models_dev_project_tpu_torch import run_score_based_models_train as train_cli
+
+    with pytest.raises(NotImplementedError, match="item 9"):
+        train_cli.coordinator(train_cli.parser.parse_args(["--train_model_on", "aapm",
+                                                           "--device", "cpu"]))
 
 
 if __name__ == "__main__":
