@@ -12,8 +12,9 @@ attention backward):
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles `csrc/*.cu` with nvcc for sm_90a (ops/_build.py) and
    requires HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS,
-   and HMMA (mma.sync) in the functions of attention_mma.cu and in both
-   kernels of attention_bwd_mma.cu;
+   both also in the weight gradient's `wgrad_tc_kernel` by name, and HMMA
+   (mma.sync) in the functions of attention_mma.cu and in both kernels of
+   attention_bwd_mma.cu;
 3. kernels: runs each kernel's wrapper at every shape the UNet forward
    gives it (recorded with forward hooks), checks it against its plain
    PyTorch version, and times kernel, plain version and library yardstick;
@@ -33,12 +34,18 @@ attention backward):
    twin, cuDNN's `conv2d_input` or SDPA's backward, and its bound; `mma`
    must take at most a third of `simt`'s time per UNet backward and less
    than the plain twin's (the stem's `narrow` input gradient timed apart).
-   Last the conv3x3 weight gradient (csrc/conv3x3_wgrad.cu, `mma` and
-   `simt`) at every conv shape of a batch-3 training forward and of a
-   batch-1 forward, in both I/O types, and at added shapes (H != W, 64 and
-   192 channels, one K step per split), against its plain twin within
-   `TOL_WGRAD`, bitwise equal over two launches, timed per UNet backward
-   beside the plain twin, cuDNN's `conv2d_weight` and the bound;
+   Last the conv3x3 weight gradient (csrc/conv3x3_wgrad_tc.cu `tc`;
+   csrc/conv3x3_wgrad.cu `narrow_out`, `narrow_in`, `mma`, `simt`) at every
+   conv shape of a batch-3 training forward and of a batch-1 forward, in
+   both I/O types, and at added shapes (H != W, boxes ragged in H and W,
+   64, 192 and 384 input channels, an 8² map at batch 1, the largest split,
+   the narrow kernels with a few small channels, `mma`), against its plain
+   twin within `TOL_WGRAD`, bitwise equal over two launches, every `tc`
+   grid within one wave of the card's clusters; timed per UNet backward
+   beside the plain twin, cuDNN's `conv2d_weight` and the bound, with the
+   split-K reduction timed alone; per batch-3 backward the stem's and
+   final conv's narrow kernels together must be no slower than cuDNN on
+   those two shapes, and `tc`'s ratio to cuDNN on its shapes is printed;
 4. UNet: one full-width forward of the shipped VESDE prior at 256², batch 1,
    with the kernels against `use_kernel=False`;
 5. gradient: the same prior with LoRA rank 4 (up-projections drawn nonzero),
@@ -75,7 +82,8 @@ attention backward):
    masters under bf16 compute, batch 3: the first step's loss and gradient
    of every parameter, kernels against plain in bf16 and fp32 (the gates of
    phase 5), with its launch counts (62 conv3x3 forwards, 62 weight
-   gradients, 61 input gradients, 4 + 4 attention); then the train CLI
+   gradients: 60 `tc`, 1 `narrow_in`, 1 `narrow_out`; 61 input gradients,
+   4 + 4 attention); then the train CLI
    (`--init_ckpt`, `--lr_warmup`, `--keep_best_probe dds`) for
    `TRAIN_STEPS` steps: exact launch counts, the plain weight gradient
    never on CUDA, every step's loss at most `TRAIN_LOSS_RATIO` times the
@@ -440,14 +448,17 @@ def check_conv(shapes, gen):
 
 
 # functions whose SASS must hold HMMA (mma.sync): the attention forward and
-# both kernels of its backward
+# both kernels of its backward; and HGMMA (wgmma) and UTMALDG (TMA load): the
+# weight gradient's tensor-core kernel
 HMMA_FUNCTIONS = ("attention_mma_kernel", "attention_bwd_mma_dq_kernel",
                   "attention_bwd_mma_dkdv_kernel")
+HGMMA_FUNCTIONS = ("wgrad_tc_kernel",)
 
 
 def sass_counts(lib_path):
-    """HGMMA and UTMALDG instructions in the built library's SASS, and HMMA
-    in the functions named in `HMMA_FUNCTIONS`, by name."""
+    """HGMMA and UTMALDG instructions in the built library's SASS; HMMA in
+    the functions named in `HMMA_FUNCTIONS`, and HGMMA and UTMALDG in those
+    named in `HGMMA_FUNCTIONS`, by name."""
     import shutil
 
     cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),
@@ -464,13 +475,18 @@ def sass_counts(lib_path):
                           text=True, timeout=120).stdout
     counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
     counts["HMMA"], function = dict.fromkeys(HMMA_FUNCTIONS, 0), ""
+    counts["by_function"] = {name: {"HGMMA": 0, "UTMALDG": 0} for name in HGMMA_FUNCTIONS}
     for line in sass.splitlines():
         if "Function :" in line:
             function = line.split("Function :", 1)[1]
-        else:
-            for name in HMMA_FUNCTIONS:
-                if name in function:
-                    counts["HMMA"][name] += line.count("HMMA")
+            continue
+        for name in HMMA_FUNCTIONS:
+            if name in function:
+                counts["HMMA"][name] += line.count("HMMA")
+        for name in HGMMA_FUNCTIONS:
+            if name in function:
+                for op in ("HGMMA", "UTMALDG"):
+                    counts["by_function"][name][op] += line.count(op)
     return counts
 
 
@@ -704,35 +720,73 @@ def check_conv_backward(shapes, gen):
     return tot, max_abs, by_variant, stem
 
 
+def wgrad_reduce_ms(p, cin, cout, reps):
+    """Device ms of the weight gradient's split-K reduction alone, for plan
+    `p` (0 where no partial sums reach device memory)."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import _build
+
+    groups = p.splits // p.cluster
+    if groups < 2:
+        return 0.0
+    n = 9 * cin * cout
+    ws, dw = torch.randn(groups * n, device="cuda"), torch.empty(n, device="cuda")
+    lib = _build.library()
+
+    def call():
+        rc = lib.conv3x3_wgrad_reduce(ws.data_ptr(), dw.data_ptr(), n, groups,
+                                      torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, "conv3x3 weight grad reduction")
+    return time_ms(call, reps)
+
+
 def check_conv_wgrad(shapes, gen):
     """The conv3x3 weight gradient (`conv3x3_weight_grad`, the launch
     function) at every conv shape of a batch-3 training forward and of a
     batch-1 forward (`shapes`: the batch-1 calls), in both I/O types,
     against `conv3x3_weight_grad_reference` on the same inputs, bitwise
-    equal over two launches; at added shapes (H != W, 64 and 192 channels,
-    the largest split: one K step per split) checked only.  Timed in the
-    path's type per UNet backward beside the plain twin, cuDNN's
-    `conv2d_weight` (channels-last) and the bound.  Returns ({batch:
-    per-backward totals}, max|diff|, {batch: launches by variant per
-    backward})."""
+    equal over two launches; at added shapes (H != W, ragged boxes, 64, 192
+    and 384 input channels, an 8² map at batch 1, the largest split, the
+    narrow kernels with a few small channels, `mma`) checked only.  Timed in
+    the path's type per UNet backward beside the plain twin, cuDNN's
+    `conv2d_weight` (channels-last) and the bound, with the split-K
+    reduction's share timed alone; at batch 3 the narrow kernels must be
+    no slower than cuDNN on the same shapes (`tc`'s ratio is printed), and
+    every `tc` grid must fit one wave of the card's clusters.  Returns
+    ({batch: per-backward totals, (batch, variant): the same}, max|diff|,
+    {batch: launches by variant per backward})."""
+    import ctypes
+
     import torch
 
+    from diffusion_models_dev_project_tpu_torch.ops import _build
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
 
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms", "reduce_ms",
+            "partial_bytes")
     tots, by_batch = {}, {}
     worst = {"bfloat16": 0.0, "float32": 0.0}
     max_abs = 0.0
-    log(f"{'weight grad (B,H,W,Cin->Cout)':>30} {'dtype':>8} {'n':>3} {'variant':>7} {'splits':>6} "
-        f"{'kernel_ms':>10} {'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} {'bound_by':>10} "
-        f"{'rel_err':>9}")
+    sms = C.device_sms(torch.device("cuda"))
+    lib = _build.library()
+    max_clusters = {}
+    for c in (1, 2):
+        n = ctypes.c_int(0)
+        _build.check(lib.conv3x3_wgrad_tc_max_clusters(c, ctypes.byref(n)), "max active clusters")
+        max_clusters[c] = n.value
+    log(f"  weight grad: {sms} SMs; tc clusters of 1, 2 blocks at once: "
+        + ", ".join(str(v) for v in max_clusters.values()))
+    log(f"{'weight grad (B,H,W,Cin->Cout)':>30} {'dtype':>8} {'n':>3} {'variant':>10} {'splits':>9} "
+        f"{'kernel_ms':>10} {'reduce_ms':>9} {'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} "
+        f"{'bound_by':>10} {'rel_err':>9}")
 
     def check_once(xshape, cout, dt, splits=None):
         b, h, w, cin = xshape
         tdt = getattr(torch, dt)
         x = torch.randn(xshape, generator=gen, device="cuda").to(tdt)
         g = (0.1 * torch.randn((b, h, w, cout), generator=gen, device="cuda")).to(tdt)
-        p = C.wgrad_plan(b, h, w, cin, cout, tdt, splits=splits)
+        p = C.wgrad_plan(b, h, w, cin, cout, tdt, None, splits, sms)
         dw = C.conv3x3_weight_grad(x, g, splits=splits)
         again = C.conv3x3_weight_grad(x, g, splits=splits)
         ref = C.conv3x3_weight_grad_reference(x, g)
@@ -743,8 +797,14 @@ def check_conv_wgrad(shapes, gen):
                                  f"{p.splits} splits): rel err {r:.3e} > {TOL_WGRAD}")
         if not torch.equal(dw, again):
             raise AssertionError(f"conv3x3 weight grad {xshape}->{cout} {dt}: two launches differ")
+        if p.variant == "tc" and p.tiles * p.splits > max_clusters[p.cluster] * p.cluster:
+            raise AssertionError(f"conv3x3 weight grad {xshape}->{cout}: {p.tiles} x {p.splits} "
+                                 f"blocks in clusters of {p.cluster} exceed one wave")
         worst[dt] = max(worst[dt], r)
         return x, g, p, d, r
+
+    def split_text(p):
+        return f"{p.splits}/{p.cluster}" if p.variant == "tc" else str(p.splits)
 
     for batch in (TRAIN_BATCH, 1):
         counts = {}
@@ -758,8 +818,8 @@ def check_conv_wgrad(shapes, gen):
                 x, g, p, d, r = check_once(xshape, cout, dt)
                 label = f"{str(xshape) + '->' + str(cout):>30} {dt:>8}"
                 if dt != dtype:
-                    log(f"{label} {'-':>3} {p.variant:>7} {p.splits:>6} {'':>10} {'':>9} {'':>10} "
-                        f"{'':>9} {'':>10} {r:>9.2e}")
+                    log(f"{label} {'-':>3} {p.variant:>10} {split_text(p):>9} {'':>10} {'':>9} {'':>9} "
+                        f"{'':>10} {'':>9} {'':>10} {r:>9.2e}")
                     continue
                 max_abs = max(max_abs, d)
                 variants[p.variant] = variants.get(p.variant, 0) + n
@@ -767,30 +827,69 @@ def check_conv_wgrad(shapes, gen):
                 size = (cout, cin, 3, 3)
                 reps = 5 if b * h * w >= 65536 else 20
                 k_ms = time_ms(lambda: C.conv3x3_weight_grad(x, g), reps)
+                r_ms = wgrad_reduce_ms(p, cin, cout, reps)
                 p_ms = time_ms(lambda: C.conv3x3_weight_grad(x, g, use_kernel=False), max(reps // 4, 2))
                 l_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(xl, size, gl, padding=1), reps)
                 flops = 2.0 * b * h * w * cin * cout * 9
                 nbytes = x.numel() * x.element_size() + g.numel() * g.element_size() + 4 * 9 * cin * cout
                 b_ms, b_by, ops_ms, bytes_ms = bound(flops, nbytes, dt)
-                log(f"{label} {n:>3} {p.variant:>7} {p.splits:>6} {k_ms:>10.4f} {p_ms:>9.4f} "
-                    f"{l_ms:>10.4f} {b_ms:>9.5f} {b_by:>10} {r:>9.2e}")
+                log(f"{label} {n:>3} {p.variant:>10} {split_text(p):>9} {k_ms:>10.4f} {r_ms:>9.4f} "
+                    f"{p_ms:>9.4f} {l_ms:>10.4f} {b_ms:>9.5f} {b_by:>10} {r:>9.2e}")
                 row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, ops_ms=ops_ms,
-                           bytes_ms=bytes_ms)
+                           bytes_ms=bytes_ms, reduce_ms=r_ms, partial_bytes=p.workspace_bytes)
                 for agg in (tot, tots.setdefault((batch, p.variant), dict.fromkeys(keys, 0.0))):
                     for key in keys:
                         agg[key] += n * row[key]
         tots[batch], by_batch[batch] = tot, variants
         log(f"conv3x3 weight grad per batch-{batch} UNet backward ({sum(variants.values())} calls: "
             + ", ".join(f"{v} {k}" for v, k in variants.items())
-            + f"): kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN conv2d_weight "
-            f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms "
-            f"({tot['ms'] and tot['bound_ms'] / tot['ms']:.1%} of it)")
-    # checked only: H != W, Cin = Cout = 64, 192 channels, one K step per split
-    for xshape, cout, splits in (((2, 16, 48, 128), 128, None), ((1, 32, 32, 64), 64, None),
-                                 ((1, 12, 20, 192), 192, None), ((1, 64, 64, 128), 128, 128)):
-        _, _, p, _, r = check_once(xshape, cout, "bfloat16", splits)
-        log(f"{str(xshape) + '->' + str(cout):>30} {'bfloat16':>8} {'-':>3} {p.variant:>7} "
-            f"{p.splits:>6} {'':>10} {'':>9} {'':>10} {'':>9} {'':>10} {r:>9.2e}")
+            + f"): kernel {tot['ms']:.3f} ms (of it the split-K reduction alone {tot['reduce_ms']:.3f} "
+            f"ms; the plans' workspaces hold {tot['partial_bytes'] / 1e9:.3f} GB of partial sums), plain "
+            f"{tot['plain_ms']:.3f} ms, cuDNN conv2d_weight {tot['library_ms']:.3f} ms, bound "
+            f"{tot['bound_ms']:.4f} ms ({tot['ms'] and tot['bound_ms'] / tot['ms']:.1%} of it)")
+        for v in C.WGRAD_VARIANTS:
+            t = tots.get((batch, v))
+            if t is not None:
+                log(f"  {v} per batch-{batch} backward ({variants[v]} calls): kernel {t['ms']:.4f} ms "
+                    f"(reduction {t['reduce_ms']:.4f}), cuDNN {t['library_ms']:.4f} ms "
+                    f"({t['ms'] / t['library_ms']:.3f}x), bound {t['bound_ms']:.5f} ms")
+    # the speed comparisons, per batch-3 backward: tc, and the stem's and
+    # final conv's narrow kernels together, each against cuDNN on the same
+    # shapes; the narrow kernels are gated, tc's ratio is printed (it misses
+    # cuDNN: PERF.md §6)
+    zero = dict.fromkeys(keys, 0.0)
+    tc3 = tots.get((TRAIN_BATCH, "tc"), zero)
+    narrow = {bt: {k: tots.get((bt, "narrow_out"), zero)[k] + tots.get((bt, "narrow_in"), zero)[k]
+                   for k in keys} for bt in (TRAIN_BATCH, 1)}
+    tc1 = tots.get((1, "tc"), zero)
+    tc_ratio = tc3["ms"] / tc3["library_ms"]
+    log(f"conv3x3 weight grad against cuDNN, per batch-{TRAIN_BATCH} backward: tc {tc3['ms']:.4f} ms vs "
+        f"cuDNN {tc3['library_ms']:.4f} ms ({tc_ratio:.3f}x; not gated: "
+        f"{'no slower' if tc_ratio <= 1 else 'SLOWER'} than cuDNN); stem + final conv "
+        f"{narrow[TRAIN_BATCH]['ms']:.4f} ms vs cuDNN {narrow[TRAIN_BATCH]['library_ms']:.4f} ms (gate: no "
+        f"slower).  Batch 1 (not gated): tc {tc1['ms']:.4f} vs {tc1['library_ms']:.4f} ms "
+        f"({tc1['library_ms'] and tc1['ms'] / tc1['library_ms']:.3f}x), stem + final "
+        f"{narrow[1]['ms']:.4f} vs {narrow[1]['library_ms']:.4f} ms "
+        f"({narrow[1]['library_ms'] and narrow[1]['ms'] / narrow[1]['library_ms']:.3f}x)")
+    if not narrow[TRAIN_BATCH]["ms"] <= narrow[TRAIN_BATCH]["library_ms"]:
+        raise AssertionError("conv3x3 weight grad: per batch-3 backward the stem's and final conv's "
+                             "kernels are slower than cuDNN's conv2d_weight on those shapes")
+    # checked only: H != W, ragged boxes, 64, 192 and 384 input channels, an
+    # 8² map at batch 1, the largest split, narrow kernels with a few small
+    # channels, the mma variant
+    for xshape, cout, dt, splits in (((2, 16, 48, 128), 128, "bfloat16", None),
+                                     ((1, 12, 20, 128), 128, "bfloat16", None),
+                                     ((1, 32, 32, 64), 64, "bfloat16", None),
+                                     ((1, 12, 20, 192), 192, "bfloat16", None),
+                                     ((1, 32, 32, 384), 128, "bfloat16", None),
+                                     ((1, 8, 8, 512), 512, "bfloat16", None),
+                                     ((1, 64, 64, 128), 128, "bfloat16", 32),
+                                     ((2, 16, 16, 128), 3, "bfloat16", None),
+                                     ((2, 9, 7, 3), 20, "float32", None),
+                                     ((2, 16, 16, 48), 80, "bfloat16", None)):
+        _, _, p, _, r = check_once(xshape, cout, dt, splits)
+        log(f"{str(xshape) + '->' + str(cout):>30} {dt:>8} {'-':>3} {p.variant:>10} "
+            f"{split_text(p):>9} {'':>10} {'':>9} {'':>9} {'':>10} {'':>9} {'':>10} {r:>9.2e}")
     log(f"conv3x3 weight grad max rel err: bf16 {worst['bfloat16']:.3e}, fp32 {worst['float32']:.3e} "
         f"(tol {TOL_WGRAD}); bitwise equal over two launches")
     return tots, max_abs, by_batch
@@ -1015,9 +1114,11 @@ def check_counts(counts, n_fwd, n_bwd, what, stem_grad=False, per_backward=None)
     (Cin 128 -> Cout 1) runs on `narrow`: 62 per backward.  `per_backward`
     (from `backward_pattern`) replaces the backward's counts where base
     weights train."""
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
     n_stem = n_bwd if stem_grad else 0
     pb = per_backward or {"conv_bwd_by": {"tc": 60, "narrow": 0, "simt": 1},
-                          "conv_wgrad_by": {"mma": 0, "simt": 0}, "attn_bwd": 4}
+                          "conv_wgrad_by": dict.fromkeys(C.WGRAD_VARIANTS, 0), "attn_bwd": 4}
     bwd_by = {v: k * n_bwd for v, k in pb["conv_bwd_by"].items()}
     bwd_by["narrow"] += n_stem
     wgrad_by = {v: k * n_bwd for v, k in pb["conv_wgrad_by"].items()}
@@ -1246,10 +1347,13 @@ def main() -> None:
             log("  " + line.strip())
     sass = sass_counts(_build.build())
     log(f"  SASS of the library: {sass['HGMMA']} HGMMA, {sass['UTMALDG']} UTMALDG; HMMA: "
-        + ", ".join(f"{n} in {name}" for name, n in sass["HMMA"].items()))
-    if not (sass["HGMMA"] and sass["UTMALDG"] and all(sass["HMMA"].values())):
-        raise AssertionError("the built library holds no HGMMA, no UTMALDG, or no HMMA in one of "
-                             f"{HMMA_FUNCTIONS}")
+        + ", ".join(f"{n} in {name}" for name, n in sass["HMMA"].items()) + "; "
+        + ", ".join(f"{c['HGMMA']} HGMMA and {c['UTMALDG']} UTMALDG in {name}"
+                    for name, c in sass["by_function"].items()))
+    if not (sass["HGMMA"] and sass["UTMALDG"] and all(sass["HMMA"].values())
+            and all(c["HGMMA"] and c["UTMALDG"] for c in sass["by_function"].values())):
+        raise AssertionError("the built library holds no HGMMA, no UTMALDG, no HMMA in one of "
+                             f"{HMMA_FUNCTIONS} or no HGMMA or UTMALDG in one of {HGMMA_FUNCTIONS}")
     log(f"[phase 2 build] nvcc {nvcc_s:.1f} s, total {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernels at the UNet's shapes
@@ -1911,27 +2015,29 @@ def main() -> None:
     # the stem's input gradient (narrow), DPS's gradient in x only, per backward
     kernels[0]["backward"]["stem"] = {k: stem_bwd[k] for k in ("variant", "ms", "plain_ms",
                                                                "bound_ms", "library_ms")}
-    # the weight gradient (this slice's kernel), per batch-3 training backward
-    # (the per-batch-1 times beside); launches from the training run through
-    # the CLI, then per strategy through the adapted CLI
+    # the weight gradient, per batch-3 training backward (the per-batch-1
+    # times beside); launches from the training run through the CLI, then
+    # per strategy through the adapted CLI
     w3, w1 = wgrad_tots[TRAIN_BATCH], wgrad_tots[1]
-    wgrad_src = src + "conv3x3_wgrad.cu"
+    wgrad_src = {v: src + ("conv3x3_wgrad_tc.cu" if v == "tc" else "conv3x3_wgrad.cu")
+                 for v in C.WGRAD_VARIANTS}
     kernels[0]["backward"]["weight_grad"] = {
-        "name": "conv3x3_weight_grad", "route": "cuda", "source": wgrad_src,
+        "name": "conv3x3_weight_grad", "route": "cuda", "source": wgrad_src["tc"],
         "replaces": "diffusion_models_dev_project_tpu/ops/conv3x3.py:35",
         "launches": train_run_counts["conv_wgrad"], "max_abs_err": wgrad_err, "ms": w3["ms"],
         "plain_ms": w3["plain_ms"], "bound_ms": w3["bound_ms"],
         "bound_by": "operations" if w3["ops_ms"] >= w3["bytes_ms"] else "bytes",
         "library_ms": w3["library_ms"], "batch": TRAIN_BATCH,
+        "reduce_ms": w3["reduce_ms"],
         "batch1": {"ms": w1["ms"], "plain_ms": w1["plain_ms"], "bound_ms": w1["bound_ms"],
-                   "library_ms": w1["library_ms"]},
+                   "library_ms": w1["library_ms"], "reduce_ms": w1["reduce_ms"]},
         "launches_ddpm": ddpm_counts["conv_wgrad"],
         "launches_full": strategy_counts["full"]["conv_wgrad"],
         "launches_decoder": strategy_counts["decoder"]["conv_wgrad"],
-        "variants": {v: {"source": wgrad_src, "launches": train_run_counts["conv_wgrad_by"][v],
+        "variants": {v: {"source": wgrad_src[v], "launches": train_run_counts["conv_wgrad_by"][v],
                          "calls_per_backward": wgrad_variants[TRAIN_BATCH].get(v, 0),
                          **{k: wgrad_tots.get((TRAIN_BATCH, v), {}).get(k, 0.0)
-                            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+                            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "reduce_ms")}}
                      for v in C.WGRAD_VARIANTS}}
     # attention backward: each variant's launches in the adapted runs and its
     # time per UNet backward at the path's shapes (simt: the earlier design)

@@ -47,6 +47,8 @@
 
 #include <atomic>
 
+#include "tma_wgmma.cuh"
+
 namespace {
 
 constexpr int STAGES = 4;
@@ -66,70 +68,6 @@ struct Tile {
   static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long t0 = clock64();
-  for (uint32_t spins = 1;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((spins & 0xFFFF) == 0 && clock64() - t0 > (1LL << 32)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ULL << 62);
-}
-
 // A: K-major, rows of 128 bytes, 8-row swizzle atoms 1024 bytes apart (the
 // leading offset is unused for a K extent of one atom).  Step k16 of a stage
 // starts 32 bytes further along the row.
@@ -138,49 +76,6 @@ __device__ __forceinline__ uint64_t desc_a(uint32_t addr) { return smem_desc(add
 // Stride offset: from one 8-row K group to the next (1024 bytes); leading
 // offset: from channels 0-63 to channels 64-127 (the second TMA box).
 __device__ __forceinline__ uint64_t desc_b(uint32_t addr) { return smem_desc(addr, B_HALF, 1024); }
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma that own them.
-__device__ __forceinline__ void fence_operands(float* d) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) : : "memory");
-}
-
-// d[64] += A (64x16, K-major) * B (16x128, MN-major): scale-d 1, no negation,
-// A not transposed, B transposed.
-__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 // Grid: (pixel tiles, channel tiles, splits).  A pixel tile is a box of
 // box_h x box_w output pixels of one image.  `partial` is null when there is
@@ -259,7 +154,7 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap x_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_m64n128k16(d, desc_a(a + 32 * kk), desc_b(bw + 16 * 128 * kk));
+      wgmma_m64n128k16<0>(d, desc_a(a + 32 * kk), desc_b(bw + 16 * 128 * kk));
     wgmma_commit();
     // the previous step's wgmma are done: hand its stage back to the producer
     wgmma_wait<1>();
@@ -318,56 +213,14 @@ splitk_reduce_kernel(const float4* __restrict__ partial, const float* __restrict
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, found through the runtime's entry-point query: no -lcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
-                                                                  : nullptr;
-  }();
-  return fn;
-}
-
-// bf16 tensor map of `rank` dims (innermost first), 128-byte swizzle, zero fill.
-CUresult encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                const cuuint64_t* strides, const cuuint32_t* box) {
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int CONSUMERS>
 cudaError_t launch_tc(const CUtensorMap& xm, const CUtensorMap& wm, const float* bias,
                       __nv_bfloat16* out, float* partial, int B, int H, int W, int Cin, int Cout,
                       int box_h, int box_w, int splits, int steps_per_split, cudaStream_t stream) {
   using T = Tile<CONSUMERS>;
-  // dynamic shared memory above 48 KB, allowed once per device (not again
-  // while a CUDA graph captures the launches)
   static std::atomic<unsigned long long> allowed{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = allow_smem(conv3x3_tc_kernel<CONSUMERS>, T::SMEM, allowed);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !((allowed.load() >> dev) & 1)) {
-    err = cudaFuncSetAttribute(conv3x3_tc_kernel<CONSUMERS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) allowed.fetch_or(1ULL << dev);
-  }
   const long long M = static_cast<long long>(B) * H * W;
   const dim3 grid(static_cast<unsigned>(B * ((H + box_h - 1) / box_h) * ((W + box_w - 1) / box_w)),
                   static_cast<unsigned>((Cout + BN - 1) / BN), static_cast<unsigned>(splits));

@@ -11,39 +11,45 @@
 // channel), N = Cout columns, K = B H W pixels.  ops/conv3x3.py::wgrad_plan
 // picks the variant and the split of K.
 //
-// What bounds it on the H100: at the UNet's shapes it does the forward's
-// operations (2 K M N, 1.1 TFLOP per batch-3 training backward) over a few
-// hundred MB, so the tensor cores bound it; the shapes run from K = 196,608
-// pixels with M x N = 1152 x 128 (256², batch 3) to K = 192 with
-// 9216 x 512 (8²), so the grid has to split K where the M x N tiles are few.
+// What bounds it on the H100 depends on the shape, and so does the variant:
+// the bf16 convs with Cin and Cout multiples of 64 (60 of the flagship
+// UNet's 62) run on the tensor cores in conv3x3_wgrad_tc.cu (`tc`); this
+// file holds the others.
 //
-// - `mma` (bf16, Cin and Cout multiples of 16): a block owns 128 input
-//   channels of one tap by 128 output channels, and a range of K.  Its 8
-//   warps each hold a 64 x 32 fp32 accumulator and run `mma.sync`
-//   m16n8k16 bf16 x bf16 -> fp32: 64 operations per byte staged, twice a
-//   64 x 64 tile's.  A stage of 32 pixels of the tap-shifted x and of dy
-//   lands in shared memory by `cp.async` (16-byte copies; the halo and the
-//   ragged ends are zero-filled copies that read nothing), four stages in
-//   flight; both tiles are pixel-major, so `ldmatrix.trans` forms the A
-//   (x^T) and B (dy) fragments.  Rows padded by 16 bytes keep ldmatrix
-//   free of bank conflicts.
-// - `simt` (fp32 FMA, any dtype and channel count: fp32 convs, the Cin = 1
-//   stem, the Cout = 1 final conv): a block owns 64 (tap, channel) rows by
-//   64 output channels and a range of K; 256 threads each accumulate a
-//   4 x 4 tile, 16 pixels per stage through shared memory.  For Cout <= 16
-//   (the final conv: a product with one column, bound by reading x) a
-//   thread owns one (tap, channel) row of a 256-row block and walks the
-//   split's pixels row by row of the image, reading x coalesced across the
-//   block and dL/dy as a broadcast.
+// - `mma` (bf16, Cin and Cout multiples of 16, not taken by `tc`): a block
+//   owns 128 input channels of one tap by 128 output channels, and a range
+//   of K.  Its 8 warps each hold a 64 x 32 fp32 accumulator and run
+//   `mma.sync` m16n8k16 bf16 x bf16 -> fp32.  A stage of 32 pixels of the
+//   tap-shifted x and of dy lands in shared memory by `cp.async` (16-byte
+//   copies; the halo and the ragged ends are zero-filled copies that read
+//   nothing), four stages in flight; both tiles are pixel-major, so
+//   `ldmatrix.trans` forms the A (x^T) and B (dy) fragments.  Rows padded
+//   by 16 bytes keep ldmatrix free of bank conflicts.
+// - `narrow_out` (Cout <= 16, any dtype: the UNet's final conv, 128 -> 1) and
+//   `narrow_in` (Cin <= 16: the stem, 1 -> 128): a product with a handful of
+//   rows or columns, so reading the large operand (x for narrow_out, dL/dy
+//   for narrow_in) bounds it.  A thread owns one channel of that operand for
+//   all nine taps and reads each of its pixels once, coalesced along the
+//   channels; the small operand of the block's pixel tile, with a one-pixel
+//   halo, sits in shared memory as fp32.  With one small channel the nine
+//   taps' values come from a 3 x 3 window slid along the row in registers
+//   (three shared-memory reads a pixel), and four row workers per block
+//   share a tile's partial sum, added in worker order.
+// - `simt` (fp32 FMA, fp32 I/O at the other shapes: the fp32 gates of the
+//   kernels against their plain twins): a block owns 64 (tap, channel) rows
+//   by 64 output channels and a range of K; 256 threads each accumulate a
+//   4 x 4 tile, 16 pixels per stage through shared memory.
 // - Determinism: no atomics.  A split of K writes its fp32 partial tile to
-//   a workspace, and `wgrad_reduce_kernel` adds the splits in their order;
-//   with one split the block writes dW itself.  Two launches give the same
-//   bits.
+//   a workspace, and a second kernel adds the splits in a fixed order (see
+//   WIDE_SPLITS); with one split the block writes dW itself.  Two launches
+//   give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
+#include <type_traits>
 
 #include "mma_common.cuh"
 
@@ -279,83 +285,264 @@ wgrad_simt_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __re
   }
 }
 
-// Cout <= CO: thread = one row m = tap * Cin + ci of dW, 256 rows a block;
-// grid x = row block, y = split.  The pixels of the split are walked one
-// image row at a time, so that the tap's source row and its bounds are
-// worked out once per row.
-template <typename T, int CO>
-__global__ void __launch_bounds__(SNT)
-wgrad_rows_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ out,
-                  int B, int H, int W, int Cin, int Cout, int steps_per_split) {
-  const int M = 9 * Cin;
-  const int m = blockIdx.x * SNT + threadIdx.x;
-  const bool m_in = m < M;
-  const int tap = m_in ? m / Cin : 0;
-  const int ci = m_in ? m - tap * Cin : 0;
-  const int di = tap / 3, dj = tap % 3;
-  const int P = B * H * W;
-  const int hw = H * W;
-  const int k_begin = blockIdx.y * steps_per_split * SBK;
-  const int k_end = min(P, k_begin + steps_per_split * SBK);
-  float acc[CO];
-#pragma unroll
-  for (int o = 0; o < CO; ++o) acc[o] = 0.f;
-  for (int p = k_begin; p < k_end;) {
-    const int b = p / hw;
-    const int r = p - b * hw;
-    const int h = r / W, w0 = r - (r / W) * W;
-    const int run = min(W - w0, k_end - p);     // pixels left in this image row
-    const int hs = h + di - 1;
-    const bool row_in = m_in && hs >= 0 && hs < H;
-    const T* xrow = x + (static_cast<long long>(b) * H + (row_in ? hs : 0)) * W * Cin + ci;
-    const T* drow = dy + static_cast<long long>(p) * Cout;
-    for (int j = 0; j < run; ++j) {
-      const int ws = w0 + j + dj - 1;
-      const float v = (row_in && ws >= 0 && ws < W) ? to_f(xrow[static_cast<long long>(ws) * Cin])
-                                                     : 0.f;
-#pragma unroll
-      for (int o = 0; o < CO; ++o)
-        if (o < Cout) acc[o] = fmaf(v, to_f(drow[j * Cout + o]), acc[o]);
-    }
-    p += run;
+// ---------------------------------------------------------------- narrow
+constexpr int NNT = 128;          // channels of the large operand per block, one a thread
+
+// Row workers of 128 threads per block: one small channel (NC == 1) leaves
+// registers for four, and three such blocks on an SM (40 registers a
+// thread); 16 small channels do not.
+template <int NC>
+struct Narrow {
+  static constexpr int WORKERS = NC == 1 ? 4 : 1;
+  static constexpr int THREADS = NNT * WORKERS;
+  static constexpr int BLOCKS_PER_SM = NC == 1 ? 3 : 1;
+};
+
+// Split s of the narrow kernels: a tile of box_h rows x box_w columns of one
+// image (source pixels of x for narrow_out, output pixels for narrow_in).
+__device__ __forceinline__ void narrow_tile(int s, int H, int W, int box_h, int box_w, int& b,
+                                            int& h0, int& w0) {
+  const int tiles_w = (W + box_w - 1) / box_w;
+  const int tiles_img = ((H + box_h - 1) / box_h) * tiles_w;
+  b = s / tiles_img;
+  const int t = s - b * tiles_img;
+  h0 = (t / tiles_w) * box_h;
+  w0 = (t % tiles_w) * box_w;
+}
+
+// The small operand's pixels of rows h0 - 1 .. h0 + box_h and columns
+// w0 - 1 .. w0 + box_w into shared memory as fp32, [row][col][NC], zero off
+// the image and past C channels.
+template <typename T, int NC>
+__device__ __forceinline__ void stage_halo(float* dst, const T* src, int b, int h0, int w0, int H,
+                                           int W, int C, int box_h, int box_w) {
+  const int sw = box_w + 2;
+  const int n = (box_h + 2) * sw * NC;
+  for (int e = threadIdx.y * NNT + threadIdx.x; e < n; e += Narrow<NC>::THREADS) {
+    const int o = e % NC;
+    const int c = (e / NC) % sw;
+    const int r = e / (NC * sw);
+    const int h = h0 - 1 + r, w = w0 - 1 + c;
+    dst[e] = (o < C && h >= 0 && h < H && w >= 0 && w < W)
+                 ? to_f(src[((static_cast<long long>(b) * H + h) * W + w) * C + o])
+                 : 0.f;
   }
-  if (!m_in) return;
-  float* dst = out + static_cast<long long>(blockIdx.y) * M * Cout + static_cast<long long>(m) * Cout;
+}
+
+// The workers' partial sums acc[9][NC] added in worker order (the block's
+// partial sum); worker 0 holds it on return.
+template <int NC>
+__device__ __forceinline__ void add_workers(float (&acc)[9][NC], float* red) {
+  constexpr int WK = Narrow<NC>::WORKERS;
+  if constexpr (WK > 1) {
+    __syncthreads();                     // the halo tile is free: reuse it
+    if (threadIdx.y > 0)
 #pragma unroll
-  for (int o = 0; o < CO; ++o)
-    if (o < Cout) dst[o] = acc[o];
+      for (int k = 0; k < 9 * NC; ++k)
+        red[((threadIdx.y - 1) * 9 * NC + k) * NNT + threadIdx.x] = acc[k / NC][k % NC];
+    __syncthreads();
+    if (threadIdx.y == 0)
+      for (int y = 1; y < WK; ++y)
+#pragma unroll
+        for (int k = 0; k < 9 * NC; ++k) acc[k / NC][k % NC] += red[((y - 1) * 9 * NC + k) * NNT + threadIdx.x];
+  }
+}
+
+// Cout <= NC: grid x = block of 128 input channels, y = split; thread
+// (x, y) owns input channel ci and the tile's rows y, y + WORKERS, ...
+// Source pixel (hs, ws) of x feeds tap (di, dj) of output pixel
+// (hs + 1 - di, ws + 1 - dj): halo row r + 2 - di, column c + 2 - dj.
+template <typename T, int NC>
+__global__ void __launch_bounds__(Narrow<NC>::THREADS, Narrow<NC>::BLOCKS_PER_SM)
+wgrad_narrow_out_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ out,
+                        int B, int H, int W, int Cin, int Cout, int box_h, int box_w) {
+  extern __shared__ float halo[];
+  int b, h0, w0;
+  narrow_tile(blockIdx.y, H, W, box_h, box_w, b, h0, w0);
+  stage_halo<T, NC>(halo, dy, b, h0, w0, H, W, Cout, box_h, box_w);
+  __syncthreads();
+  const int ci = blockIdx.x * NNT + threadIdx.x;
+  const int sw = box_w + 2;
+  const int cols = min(box_w, W - w0);
+  float acc[9][NC];
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+#pragma unroll
+    for (int o = 0; o < NC; ++o) acc[k][o] = 0.f;
+  if (ci < Cin) {
+    for (int r = threadIdx.y; r < box_h && h0 + r < H; r += Narrow<NC>::WORKERS) {
+      const T* xr = x + (static_cast<long long>(b) * H + h0 + r) * W * Cin + ci;
+      const float* hr = halo + r * sw * NC;       // halo row r (tap di = 2)
+      if constexpr (NC == 1) {
+        // win[di][k]: halo rows r + 2 - di at columns c + k, slid along the row
+        float win[3][3];
+#pragma unroll
+        for (int di = 0; di < 3; ++di) {
+          win[di][0] = hr[(2 - di) * sw];
+          win[di][1] = hr[(2 - di) * sw + 1];
+        }
+#pragma unroll 4
+        for (int c = 0; c < cols; ++c) {
+          const float v = to_f(xr[static_cast<long long>(w0 + c) * Cin]);
+#pragma unroll
+          for (int di = 0; di < 3; ++di) win[di][2] = hr[(2 - di) * sw + c + 2];
+#pragma unroll
+          for (int di = 0; di < 3; ++di)
+#pragma unroll
+            for (int dj = 0; dj < 3; ++dj) acc[di * 3 + dj][0] = fmaf(v, win[di][2 - dj], acc[di * 3 + dj][0]);
+#pragma unroll
+          for (int di = 0; di < 3; ++di) {
+            win[di][0] = win[di][1];
+            win[di][1] = win[di][2];
+          }
+        }
+      } else {
+        for (int c = 0; c < cols; ++c) {
+          const float v = to_f(xr[static_cast<long long>(w0 + c) * Cin]);
+#pragma unroll
+          for (int di = 0; di < 3; ++di)
+#pragma unroll
+            for (int dj = 0; dj < 3; ++dj) {
+              const float* d = hr + ((2 - di) * sw + c + 2 - dj) * NC;
+#pragma unroll
+              for (int o = 0; o < NC; ++o) acc[di * 3 + dj][o] = fmaf(v, d[o], acc[di * 3 + dj][o]);
+            }
+        }
+      }
+    }
+  }
+  add_workers<NC>(acc, halo);
+  if (threadIdx.y != 0 || ci >= Cin) return;
+  float* dst = out + static_cast<long long>(blockIdx.y) * 9 * Cin * Cout;
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+#pragma unroll
+    for (int o = 0; o < NC; ++o)
+      if (o < Cout) dst[(static_cast<long long>(k) * Cin + ci) * Cout + o] = acc[k][o];
+}
+
+// Cin <= NC: grid x = block of 128 output channels, y = split; thread
+// (x, y) owns output channel co and the tile's rows y, y + WORKERS, ...
+// Output pixel (h, w) takes tap (di, dj) from x at (h + di - 1, w + dj - 1):
+// halo row r + di, column c + dj.
+template <typename T, int NC>
+__global__ void __launch_bounds__(Narrow<NC>::THREADS, Narrow<NC>::BLOCKS_PER_SM)
+wgrad_narrow_in_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ out,
+                       int B, int H, int W, int Cin, int Cout, int box_h, int box_w) {
+  extern __shared__ float halo[];
+  int b, h0, w0;
+  narrow_tile(blockIdx.y, H, W, box_h, box_w, b, h0, w0);
+  stage_halo<T, NC>(halo, x, b, h0, w0, H, W, Cin, box_h, box_w);
+  __syncthreads();
+  const int co = blockIdx.x * NNT + threadIdx.x;
+  const int sw = box_w + 2;
+  const int cols = min(box_w, W - w0);
+  float acc[9][NC];
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+#pragma unroll
+    for (int i = 0; i < NC; ++i) acc[k][i] = 0.f;
+  if (co < Cout) {
+    for (int r = threadIdx.y; r < box_h && h0 + r < H; r += Narrow<NC>::WORKERS) {
+      const T* gr = dy + (static_cast<long long>(b) * H + h0 + r) * W * Cout + co;
+      const float* hr = halo + r * sw * NC;       // halo row r (tap di = 0)
+      if constexpr (NC == 1) {
+        // win[di][k]: halo rows r + di at columns c + k, slid along the row
+        float win[3][3];
+#pragma unroll
+        for (int di = 0; di < 3; ++di) {
+          win[di][0] = hr[di * sw];
+          win[di][1] = hr[di * sw + 1];
+        }
+#pragma unroll 4
+        for (int c = 0; c < cols; ++c) {
+          const float g = to_f(gr[static_cast<long long>(w0 + c) * Cout]);
+#pragma unroll
+          for (int di = 0; di < 3; ++di) win[di][2] = hr[di * sw + c + 2];
+#pragma unroll
+          for (int di = 0; di < 3; ++di)
+#pragma unroll
+            for (int dj = 0; dj < 3; ++dj) acc[di * 3 + dj][0] = fmaf(win[di][dj], g, acc[di * 3 + dj][0]);
+#pragma unroll
+          for (int di = 0; di < 3; ++di) {
+            win[di][0] = win[di][1];
+            win[di][1] = win[di][2];
+          }
+        }
+      } else {
+        for (int c = 0; c < cols; ++c) {
+          const float g = to_f(gr[static_cast<long long>(w0 + c) * Cout]);
+#pragma unroll
+          for (int di = 0; di < 3; ++di)
+#pragma unroll
+            for (int dj = 0; dj < 3; ++dj) {
+              const float* xv = hr + (di * sw + c + dj) * NC;
+#pragma unroll
+              for (int i = 0; i < NC; ++i) acc[di * 3 + dj][i] = fmaf(xv[i], g, acc[di * 3 + dj][i]);
+            }
+        }
+      }
+    }
+  }
+  add_workers<NC>(acc, halo);
+  if (threadIdx.y != 0 || co >= Cout) return;
+  float* dst = out + static_cast<long long>(blockIdx.y) * 9 * Cin * Cout;
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      if (i < Cin) dst[(static_cast<long long>(k) * Cin + i) * Cout + co] = acc[k][i];
 }
 
 // ---------------------------------------------------------------- reduce
-// out[i] = ws[0][i] + ws[1][i] + ... in split order: the same bits every time
-__global__ void wgrad_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                                    long long n, int splits) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = ws[i];
-  for (int k = 1; k < splits; ++k) s += ws[k * n + i];
-  out[i] = s;
+// out[i] = the splits' partials of element i, ws[k][i], added in a fixed
+// order: the same bits every time.  Up to WIDE_SPLITS splits a thread adds
+// them in split order, V values (one float4 or one float) at a time.  More
+// (the narrow kernels' hundreds of tiles over a few thousand values): a
+// block takes 32 values, its warp q adds splits q, q + 8, q + 16, ... in
+// order, and the 8 warps' sums are added in warp order.  Each is launched
+// as a programmatic dependent of the kernel that wrote `ws`, and waits for
+// that kernel's end.
+constexpr int WIDE_SPLITS = 64;
+
+template <int V>
+__global__ void __launch_bounds__(256)
+wgrad_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out, long long n, int splits) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const long long nv = n / V;
+  const Vec* w = reinterpret_cast<const Vec*>(ws);
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < nv; i += gridDim.x * 256LL) {
+    Vec s = w[i];
+    for (int k = 1; k < splits; ++k) {
+      const Vec p = w[k * nv + i];
+      if constexpr (V == 4) {
+        s.x += p.x; s.y += p.y; s.z += p.z; s.w += p.w;
+      } else {
+        s += p;
+      }
+    }
+    reinterpret_cast<Vec*>(out)[i] = s;
+  }
 }
 
-cudaError_t reduce(const float* ws, float* out, int Cin, int Cout, int splits, cudaStream_t s) {
-  const long long n = 9LL * Cin * Cout;
-  const int threads = 256;
-  wgrad_reduce_kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0, s>>>(
-      ws, out, n, splits);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_rows(const void* x, const void* dy, float* dst, int B, int H, int W, int Cin,
-                        int Cout, int splits, int steps_per_split, cudaStream_t s) {
-  const dim3 grid((9 * Cin + SNT - 1) / SNT, splits);
-  const T* xt = static_cast<const T*>(x);
-  const T* dt = static_cast<const T*>(dy);
-  if (Cout == 1)
-    wgrad_rows_kernel<T, 1><<<grid, SNT, 0, s>>>(xt, dt, dst, B, H, W, Cin, Cout, steps_per_split);
-  else
-    wgrad_rows_kernel<T, 16><<<grid, SNT, 0, s>>>(xt, dt, dst, B, H, W, Cin, Cout, steps_per_split);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(256)
+wgrad_reduce_wide_kernel(const float* __restrict__ ws, float* __restrict__ out, long long n,
+                         int splits) {
+  __shared__ float part[8][32];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int lane = threadIdx.x % 32, q = threadIdx.x / 32;
+  const long long i = blockIdx.x * 32LL + lane;
+  float s = 0.f;
+  if (i < n)
+    for (int k = q; k < splits; k += 8) s += ws[k * n + i];
+  part[q][lane] = s;
+  __syncthreads();
+  if (q == 0 && i < n) {
+    float t = part[0][lane];
+    for (int r = 1; r < 8; ++r) t += part[r][lane];
+    out[i] = t;
+  }
 }
 
 template <typename T, int BM, int BN>
@@ -369,6 +556,27 @@ cudaError_t launch_simt(const void* x, const void* dy, float* dst, int B, int H,
   return cudaGetLastError();
 }
 
+template <typename T, int NC>
+cudaError_t launch_narrow(bool out_side, const void* x, const void* dy, float* dst, int B, int H,
+                          int W, int Cin, int Cout, int box_h, int box_w, int splits,
+                          cudaStream_t s) {
+  constexpr int WK = Narrow<NC>::WORKERS;
+  const int halo = (box_h + 2) * (box_w + 2) * NC;
+  const int red = (WK - 1) * 9 * NC * NNT;
+  const size_t smem = 4 * static_cast<size_t>(halo > red ? halo : red);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const int wide = out_side ? Cin : Cout;
+  const dim3 grid(static_cast<unsigned>((wide + NNT - 1) / NNT), static_cast<unsigned>(splits));
+  const dim3 block(NNT, WK);
+  const T* xt = static_cast<const T*>(x);
+  const T* dt = static_cast<const T*>(dy);
+  if (out_side)
+    wgrad_narrow_out_kernel<T, NC><<<grid, block, smem, s>>>(xt, dt, dst, B, H, W, Cin, Cout, box_h, box_w);
+  else
+    wgrad_narrow_in_kernel<T, NC><<<grid, block, smem, s>>>(xt, dt, dst, B, H, W, Cin, Cout, box_h, box_w);
+  return cudaGetLastError();
+}
+
 bool bad_split(int B, int H, int W, int splits, int steps_per_split, int bk) {
   const long long P = static_cast<long long>(B) * H * W;
   const long long per = static_cast<long long>(steps_per_split) * bk;
@@ -378,6 +586,33 @@ bool bad_split(int B, int H, int W, int splits, int steps_per_split, int bk) {
 }
 
 }  // namespace
+
+// dw = the sum over splits, in order, of workspace (splits, n) fp32, all on
+// the device; launches on `stream`, returns cudaGetLastError().
+extern "C" int conv3x3_wgrad_reduce(const void* workspace, void* dw, long long n, int splits,
+                                    void* stream) {
+  if (n < 1 || splits < 1 || workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const float* ws = static_cast<const float*>(workspace);
+  float* out = static_cast<float*>(dw);
+  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(workspace) | reinterpret_cast<uintptr_t>(dw)) % 16 == 0;
+  const long long items = vec ? n / 4 : n;
+  const bool wide = splits > WIDE_SPLITS;
+  const long long blocks = wide ? (n + 31) / 32 : std::min((items + 255) / 256, 4096LL);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks), 1, 1);
+  cfg.blockDim = dim3(256, 1, 1);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute at;
+  at.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &at;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      wide  ? cudaLaunchKernelEx(&cfg, wgrad_reduce_wide_kernel, ws, out, n, splits)
+      : vec ? cudaLaunchKernelEx(&cfg, wgrad_reduce_kernel<4>, ws, out, n, splits)
+            : cudaLaunchKernelEx(&cfg, wgrad_reduce_kernel<1>, ws, out, n, splits);
+  return static_cast<int>(err == cudaSuccess ? cudaGetLastError() : err);
+}
 
 // The mma variant: x (B,H,W,Cin) and dy (B,H,W,Cout) bf16, 16-byte aligned,
 // Cin and Cout multiples of 16; dw (3,3,Cin,Cout) fp32; workspace
@@ -409,33 +644,54 @@ extern "C" int conv3x3_wgrad_mma(const void* x, const void* dy, void* dw, void* 
       static_cast<const bf16*>(x), static_cast<const bf16*>(dy), dst, B, H, W, Cin, Cout,
       steps_per_split);
   err = cudaGetLastError();
-  if (err == cudaSuccess && splits > 1)
-    err = reduce(static_cast<const float*>(workspace), static_cast<float*>(dw), Cin, Cout,
-                 splits, s);
-  return static_cast<int>(err);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return conv3x3_wgrad_reduce(workspace, dw, 9LL * Cin * Cout, splits, stream);
 }
 
-// The simt variant: x and dy in fp32 or bf16 (is_bf16), any channel counts;
-// bn is 64 (64 x 64 tiles), or 16 for Cout <= 16 (a thread per row of dW,
-// 256 rows a block); other arguments as for conv3x3_wgrad_mma.
+// The simt variant: x and dy in fp32 or bf16 (is_bf16), any channel counts,
+// 64 x 64 tiles; other arguments as for conv3x3_wgrad_mma.
 extern "C" int conv3x3_wgrad_simt(const void* x, const void* dy, void* dw, void* workspace,
-                                  int B, int H, int W, int Cin, int Cout, int is_bf16, int bn,
+                                  int B, int H, int W, int Cin, int Cout, int is_bf16,
                                   int splits, int steps_per_split, void* stream) {
-  if (Cin < 1 || Cout < 1 || (bn != 64 && (bn != 16 || Cout > 16)) ||
-      bad_split(B, H, W, splits, steps_per_split, SBK) || (splits > 1 && workspace == nullptr)) {
+  if (Cin < 1 || Cout < 1 || bad_split(B, H, W, splits, steps_per_split, SBK) ||
+      (splits > 1 && workspace == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dst = static_cast<float*>(splits > 1 ? workspace : dw);
+  const cudaError_t err =
+      is_bf16 ? launch_simt<bf16, 64, 64>(x, dy, dst, B, H, W, Cin, Cout, splits, steps_per_split, s)
+              : launch_simt<float, 64, 64>(x, dy, dst, B, H, W, Cin, Cout, splits, steps_per_split, s);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return conv3x3_wgrad_reduce(workspace, dw, 9LL * Cin * Cout, splits, stream);
+}
+
+// The narrow variants: x (B,H,W,Cin) and dy (B,H,W,Cout) in fp32 or bf16
+// (is_bf16); `out_side` 1 for Cout <= 16 (narrow_out: a thread per input
+// channel), 0 for Cin <= 16 (narrow_in: a thread per output channel).  A
+// split is a tile of box_h x box_w pixels of one image, in (image, tile row,
+// tile column) order: splits = B ceil(H / box_h) ceil(W / box_w).  dw and
+// workspace (splits, 9 Cin Cout) as for conv3x3_wgrad_mma.
+extern "C" int conv3x3_wgrad_narrow(const void* x, const void* dy, void* dw, void* workspace,
+                                    int B, int H, int W, int Cin, int Cout, int is_bf16,
+                                    int out_side, int box_h, int box_w, int splits, void* stream) {
+  const int small = out_side ? Cout : Cin;
+  const long long tiles =
+      static_cast<long long>(B) * ((H + box_h - 1) / box_h) * ((W + box_w - 1) / box_w);
+  if (Cin < 1 || Cout < 1 || small > 16 || box_h < 1 || box_w < 1 || B < 1 || H < 1 || W < 1 ||
+      tiles != splits || splits > 65535 || (splits > 1 && workspace == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* dst = static_cast<float*>(splits > 1 ? workspace : dw);
+  const bool os = out_side != 0;
   cudaError_t err;
-  if (is_bf16)
-    err = bn == 64 ? launch_simt<bf16, 64, 64>(x, dy, dst, B, H, W, Cin, Cout, splits, steps_per_split, s)
-                   : launch_rows<bf16>(x, dy, dst, B, H, W, Cin, Cout, splits, steps_per_split, s);
+  if (small == 1)
+    err = is_bf16 ? launch_narrow<bf16, 1>(os, x, dy, dst, B, H, W, Cin, Cout, box_h, box_w, splits, s)
+                  : launch_narrow<float, 1>(os, x, dy, dst, B, H, W, Cin, Cout, box_h, box_w, splits, s);
   else
-    err = bn == 64 ? launch_simt<float, 64, 64>(x, dy, dst, B, H, W, Cin, Cout, splits, steps_per_split, s)
-                   : launch_rows<float>(x, dy, dst, B, H, W, Cin, Cout, splits, steps_per_split, s);
-  if (err == cudaSuccess && splits > 1)
-    err = reduce(static_cast<const float*>(workspace), static_cast<float*>(dw), Cin, Cout,
-                 splits, s);
-  return static_cast<int>(err);
+    err = is_bf16 ? launch_narrow<bf16, 16>(os, x, dy, dst, B, H, W, Cin, Cout, box_h, box_w, splits, s)
+                  : launch_narrow<float, 16>(os, x, dy, dst, B, H, W, Cin, Cout, box_h, box_w, splits, s);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return conv3x3_wgrad_reduce(workspace, dw, 9LL * Cin * Cout, splits, stream);
 }

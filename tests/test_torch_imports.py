@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, nothing of the JAX package, CUDA by default.
 
 The card's machine has torch, numpy and scipy but no jax, flax, msgpack,
-ml_collections, yaml or PIL, so the port, chip_smoke.py, adapted_spread.py
-and conditional_probe.py import none of them.  Entry points run on CUDA
-unless asked for the CPU, and raise here, where there is no CUDA device.
+ml_collections, yaml or PIL, so the port, chip_smoke.py, adapted_spread.py,
+conditional_probe.py and wgrad_probe.py import none of them.  Entry points
+run on CUDA unless asked for the CPU, and raise here, where there is no CUDA
+device.
 
 The torch half of each test runs in a child interpreter (tests/_torch_child.py):
 no pytest process runs torch code.
@@ -49,7 +50,8 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
         f"for name in {ABSENT!r}:",
         "    sys.modules[name] = None      # any import of these now fails",
         f"sys.path.insert(0, {REPO!r})",
-        f"for name in {modules!r} + ['chip_smoke', 'adapted_spread', 'conditional_probe']:",
+        f"for name in {modules!r} + ['chip_smoke', 'adapted_spread', 'conditional_probe',"
+        " 'wgrad_probe']:",
         "    importlib.import_module(name)",
         "print('ok')",
     ])
@@ -63,7 +65,8 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
                      re.M)
     files = [os.path.join(root, f) for root, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
     files += [os.path.join(REPO, name)
-              for name in ("chip_smoke.py", "adapted_spread.py", "conditional_probe.py")]
+              for name in ("chip_smoke.py", "adapted_spread.py", "conditional_probe.py",
+                           "wgrad_probe.py")]
     assert not [f for f in files if pat.search(open(f, encoding="utf-8").read())]
     # collecting the port's test files imports no torch (xdist workers
     # collect every file, and the JAX tests run in those processes)
