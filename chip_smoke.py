@@ -2,7 +2,9 @@
 """On-card smoke run of the PyTorch/CUDA port (`diffusion_models_dev_project_tpu_torch`).
 
 Drives the port's paths through its entry points on one CUDA device: the
-flagship 256² disk-ellipse DDS reconstruction, steerable LoRA adaptation
+flagship 256² disk-ellipse DDS reconstruction, the walnut cone-beam
+protocol's DDS with CG and with the exact Woodbury solve, AAPM data through
+the conditional CLI and the parallel-beam matrix operator, steerable LoRA adaptation
 inside the DDS loop, DPS and naive sampling through the conditional CLI,
 score-model training through the train CLI, and `full` and `decoder`
 adaptation through the adapted CLI, whose gradients run through the hand
@@ -54,8 +56,8 @@ attention backward):
    kernels against `use_kernel=False`, both against an fp32 plain
    gradient, and in fp32 with the kernels against it; the launch counts of
    one forward and backward;
-6. DDS: reconstructs the first images of the shipped val set (60 angles,
-   noise 0.01, gamma 0.01, eta 0.85, 5 CG iterations) and requires each to
+6. DDS: reconstructs the first images of the shipped val set (500 steps,
+   60 angles, noise 0.01, gamma 0.01, eta 0.85, 5 CG iterations) and requires each to
    beat its FBP in PSNR, with the kernel launch counts of the run checked
    (per forward 62 conv3x3, of which 60 tc, 1 narrow, 1 simt, and 4
    attention, all mma; per backward 4 attention backwards, all mma); CUDA
@@ -71,11 +73,12 @@ attention backward):
    at t = 0.5 on val image 0, in bf16 and in fp32 with the kernels against
    `use_kernel=False`, with the launch counts of one forward and backward
    (per backward also the stem's input gradient, on `narrow`) and its wall
-   and device times; then DPS and naive (penalty 10, 1000 steps) through the
-   port's conditional CLI on its default data (test-fold image 0, generated
-   at 256²), each started from the prior and from the FBP (the last 500
-   steps of the grid): every run inside the CLI's divergence guard with its
-   launch counts exact; from the FBP, DPS better than naive by
+   and device times; then DPS and naive (penalty 10) through the port's
+   conditional CLI on its default data (test-fold image 0, generated at
+   256²), each started from the prior (naive on the 1000-step grid, DPS on
+   a 250-step grid; their PSNR printed) and from the FBP (the last 500
+   steps of the 1000-step grid): each run inside the CLI's divergence
+   guard, every run with its launch counts exact; from the FBP, DPS better than naive by
    `DPS_MARGIN_DB` (on the 1000-step grid or finer); CUDA events splitting
    a DPS step into the score's forward and backward and the rest;
 9. training: the flagship warm-started from the shipped VESDE prior, fp32
@@ -100,12 +103,35 @@ attention backward):
    each strategy, kernels against plain with the gates of phase 5 and launch
    counts derived from the model's structure; a short run of each through
    the adapted CLI (finite, PSNR printed and not gated);
-11. prints one `{"kernels": [...]}` line, then, last, the device line
+12. walnut: the cone-beam walnut protocol at full scale on the synthetic
+   centred CWI orbit (501² slice, 60 angles x 128 columns): the mask probe
+   on the card, the native assembly (its rows held to the plain numpy
+   assembly on 256 random rays), the `.mat` round trip (bit-equal), the
+   dense model-grid operator formed on the card, FDK; gates: ELL forward
+   against dense, the dense adjoint, the Woodbury residual; device times of
+   apply, adjoint, CG(5), the Woodbury step and S⁻¹'s build beside their
+   bounds; then DDS with the shipped prior (1000 steps, γ 0.01, η 0.85),
+   with CG(5) and with the exact Woodbury solve, each better than FDK by
+   `WALNUT_MARGIN_DB` and the two within `WALNUT_AGREE_DB` of each other,
+   launch counts exact, each step split into UNet, data consistency and
+   rest;
+12b. walnut adapted: the LoRA adaptation loss's full-width gradient through
+   the dense operator, kernels against plain with phase 5's gates, then a
+   cut 10 x 3 adapted run (PSNR printed, not gated), launch counts exact;
+13. AAPM: synthetic slices (scripts/make_synth_aapm.py, run, not edited);
+   DDS through the conditional CLI (`--dataset aapm`, ellipse prior, 1000
+   steps, η 0.85) better than FBP; DDS through the parallel-beam matrix
+   operator (Joseph, ELL) on AAPM val image 0 better than FBP; the AAPM
+   config's UNet at full width (256 channels, random weights) against its
+   plain path with exact launch counts, and its conv3x3 shapes timed by
+   variant;
+14. prints one `{"kernels": [...]}` line, then, last, the device line
    `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Usage: python3 chip_smoke.py [--steps N] [--images N] [--adapt-steps N] [--adapt-images N]
        [--dps-steps N]
+(walnut_probe.py runs phases 12, 12b and 13 alone, at any depth and ungated)
 """
 from __future__ import annotations
 
@@ -162,6 +188,12 @@ PROBE_DDS_STEPS = 200         # the keep-best probe's DDS (run_score_based_model
 ADAPT_CLI_STEPS, ADAPT_CLI_OPTIM = 10, 3    # the short full and decoder runs through the CLI
 ADAPT_PROTOCOL_STEPS = 50     # outer steps of the adapted protocol (10 Adam steps each)
 DPS_PROTOCOL_STEPS = 1000     # steps of the conditional CLI's protocol
+# cut to keep the run inside its time limit (PERF.md §4): phase 6's DDS (the
+# walnut and AAPM phases run the 1000-step DDS loop), and the grid of phase 8's
+# DPS run from the prior (a known negative result, its PSNR printed and not
+# gated; the CLI's divergence guard is gated on this grid as on the protocol's)
+PHASE6_STEPS = 500
+DPS_PRIOR_STEPS = 250
 DPS_PENALTY = 10.0            # the best DPS penalty of the JAX package's records (BENCH.md)
 DPS_T = 0.5                   # the time at which the full-width gradient in x is checked
 # the FBP start skips this part of the 1000-step grid (the CLI's
@@ -359,11 +391,13 @@ def check_conv_once(xshape, cout, dt, gen, splits=None):
     return (x, wt, bias), p, d, r
 
 
-def check_conv(shapes, gen):
+def check_conv(shapes, gen, extras=True):
     """Kernel vs plain at every distinct conv shape in both I/O types, timed
     in the path's type beside the plain version, cuDNN and the bound; at the
     shapes `tc` takes, also the CUDA-core `simt` kernel in the same run.  Added
-    shapes are checked, not timed.  Returns per-forward totals."""
+    shapes are checked, not timed.  Returns per-forward totals.  Without
+    `extras` (another model's shapes) neither `simt` nor the added shapes
+    nor the host's time per call are measured."""
     import torch
     import torch.nn.functional as F
 
@@ -394,7 +428,7 @@ def check_conv(shapes, gen):
             reps = 20 if h >= 128 else 50
             k_ms = time_ms(lambda: C.conv3x3(x, wt, bias), reps)
             s_ms = 0.0
-            if p.variant == "tc":
+            if p.variant == "tc" and extras:
                 s_ms = time_ms(lambda: C.conv3x3(x, wt, bias, variant="simt"), max(reps // 4, 5))
             p_ms = time_ms(lambda: C.conv3x3(x, wt, bias, use_kernel=False), max(reps // 4, 5))
             l_ms = time_ms(lambda: F.conv2d(xl, wl, bl, padding=1), reps)
@@ -412,7 +446,7 @@ def check_conv(shapes, gen):
                 agg["calls"] = agg.get("calls", 0) + n
     # checked only: batch 2, H != W with ragged tiles, the largest split,
     # Cin = Cout = 64 (half of a 128-channel tile), Cout = 192
-    extra = [((2, 32, 32, 256), 256, None), ((1, 16, 48, 128), 128, None),
+    extra = [] if not extras else [((2, 32, 32, 256), 256, None), ((1, 16, 48, 128), 128, None),
              ((1, 8, 8, 1024), 512, 144), ((1, 32, 32, 64), 64, None),
              ((1, 12, 20, 128), 192, None)]
     for xshape, cout, splits in extra:
@@ -420,13 +454,15 @@ def check_conv(shapes, gen):
         worst["bfloat16"] = max(worst["bfloat16"], r)
         log(f"{str(xshape) + '->' + str(cout):>28} {'bfloat16':>8} {'-':>3} {p.variant:>7} {p.splits:>6} "
             f"{'':>10} {'':>9} {'':>9} {'':>10} {'':>9} {'':>10} {r:>9.2e}")
-    x, wt, bias = conv_inputs((1, 8, 8, 512), 512, "bfloat16", gen)
-    xl, wl = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    host = {name: host_us(fn, 200) for name, fn in (
-        ("tc", lambda: C.conv3x3(x, wt, bias)),
-        ("cuDNN", lambda: F.conv2d(xl, wl, bias.to(x.dtype), padding=1)))}
-    log(f"host time per call at (1, 8, 8, 512)->512, enqueue only: conv3x3 (tc) {host['tc']:.1f} us, "
-        f"F.conv2d {host['cuDNN']:.1f} us")
+    if extras:
+        x, wt, bias = conv_inputs((1, 8, 8, 512), 512, "bfloat16", gen)
+        xl = x.permute(0, 3, 1, 2)
+        wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        host = {name: host_us(fn, 200) for name, fn in (
+            ("tc", lambda: C.conv3x3(x, wt, bias)),
+            ("cuDNN", lambda: F.conv2d(xl, wl, bias.to(x.dtype), padding=1)))}
+        log(f"host time per call at (1, 8, 8, 512)->512, enqueue only: conv3x3 (tc) "
+            f"{host['tc']:.1f} us, F.conv2d {host['cuDNN']:.1f} us")
     log(f"conv3x3 max rel err: bf16 {worst['bfloat16']:.3e} (tol {TOL['bfloat16']}), "
         f"fp32 {worst['float32']:.3e} (tol {TOL['float32']}); tc bitwise equal over two launches")
     log(f"{'per UNet forward':>28} {'calls':>5} {'kernel_ms':>10} {'TFLOP/s':>8} {'of bound':>8} "
@@ -440,9 +476,10 @@ def check_conv(shapes, gen):
     tc = by_variant.get("tc", dict.fromkeys(keys, 0.0))
     log(f"conv3x3 per UNet forward ({len(shapes)} calls): kernel {tot['ms']:.3f} ms, plain "
         f"{tot['plain_ms']:.3f} ms, cuDNN {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms, "
-        f"{tot['gflop']:.1f} GFLOP -> {tot['gflop'] / tot['ms']:.1f} TFLOP/s; at the {tc.get('calls', 0)} "
-        f"tc shapes: tc {tc['ms']:.3f} ms against simt {tc['simt_ms']:.3f} ms")
-    if not tc["ms"] * 5 <= tc["simt_ms"]:
+        f"{tot['gflop']:.1f} GFLOP -> {tot['gflop'] / tot['ms']:.1f} TFLOP/s"
+        + (f"; at the {tc.get('calls', 0)} tc shapes: tc {tc['ms']:.3f} ms against simt "
+           f"{tc['simt_ms']:.3f} ms" if extras else ""))
+    if extras and not tc["ms"] * 5 <= tc["simt_ms"]:
         raise AssertionError("conv3x3: tc takes more than 1/5 of the simt design's time per forward")
     return tot, max_abs, by_variant
 
@@ -1297,9 +1334,491 @@ def gradient_gates(gk, gp, g32, g32k, losses, what):
                              "plain path")
 
 
+# ---- phases 12, 12b and 13: the walnut protocol, AAPM and the matrix operator
+# The walnut protocol (scripts/_walnut_common.py, copied: that module imports the
+# JAX package): the CWI scanner's magnification (source 66 mm from the centre,
+# detector 199 mm, 0.1496 mm pixels) on a synthetic circular orbit of 1200
+# angles, sub-sampled 20x in angle (60) and 6x in detector columns (128); the
+# orbit is centred, so the slice is the centre of a 9-slice slab against the 9
+# detector rows about the centre
+WALNUT_SOD, WALNUT_SDD, WALNUT_PIX = 66.0, 199.0, 0.1496
+WALNUT_ASS, WALNUT_CSS = 20, 6
+WALNUT_SLICE_CFG = dict(num_slices=9, slice_offset=0, num_proj_rows=9,
+                        first_proj_row=(972 - 9) // 2)
+WALNUT_STDDEV = 0.05          # walnut_configs: relative noise of the observation
+WALNUT_GAMMA, WALNUT_ETA = 0.01, 0.85
+WALNUT_PROTOCOL_STEPS = 1000
+# each walnut DDS (cg and woodbury) must beat FDK by this much (dB): about half
+# the smaller margin of a probe of both runs (11.55 dB, walnut_probe.py), set
+# before the full run (PERF.md §6)
+WALNUT_MARGIN_DB = 5.5
+# the Woodbury run must reconstruct what the CG(5) run does, through the
+# engine's own path (S⁻¹ and the observation in `dds_step`): the two agreed to
+# 0.01-0.02 dB in every run of PR 12 (walnut_probe.py and chip_smoke.py; PERF.md §6)
+WALNUT_AGREE_DB = 0.5
+NATIVE_CHECK_RAYS = 256       # masked rays held to the plain assembly
+TOL_NATIVE = dict(rtol=1e-5, atol=1e-6)   # as tests/test_native.py
+TOL_WALNUT_ELL = 1e-5         # |A_ell x - A_dense x| / |A_ell x| at the model grid
+TOL_WALNUT_ADJ = 1e-5         # |<Ax, y> - <x, Aᵀy>| / |<Ax, y>| of the dense operator
+TOL_WOODBURY = 1e-4           # |(I + γAᵀA)x - (x̂₀ + γAᵀy)| / |x̂₀ + γAᵀy|
+WALNUT_ADAPT_STEPS, WALNUT_ADAPT_OPTIM = 10, 3   # the adapted walnut run, cut
+AAPM_SLICES = 24              # scripts/make_synth_aapm.py --n
+AAPM_STEPS = 1000             # DDS steps of the AAPM runs (protocol)
+
+
+def walnut_phantom(n=501):
+    """Walnut-like 2D phantom: shell, interior lobes, air gaps
+    (scripts/_walnut_common.py, copied)."""
+    yy, xx = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n), indexing="ij")
+    r2 = xx ** 2 + (yy * 1.15) ** 2
+    img = np.zeros((n, n), np.float32)
+    img[r2 < 0.72 ** 2] = 0.55                           # shell
+    img[r2 < 0.62 ** 2] = 0.25                           # interior
+    th = np.arctan2(yy, xx)
+    lobes = 0.28 * (np.cos(2 * th) ** 2) * (r2 < 0.55 ** 2)
+    img += lobes.astype(np.float32)
+    img[((xx - 0.15) ** 2 + yy ** 2) < 0.08 ** 2] = 0.02  # air pocket
+    img[(xx ** 2 + (yy + 0.3) ** 2) < 0.05 ** 2] = 0.02
+    return np.clip(img, 0, 1)
+
+
+def psnr_ssim(x, gt, clamp=True):
+    """(PSNR, SSIM) of the first image of NHWC `x` against `gt`, clamped at 0
+    as the CLIs clamp a reconstruction (FBP and FDK: `clamp=False`)."""
+    from diffusion_models_dev_project_tpu_torch.utils.metrics import PSNR, SSIM
+
+    r = x[0, ..., 0].float().cpu().numpy()
+    g = gt[0, ..., 0].float().cpu().numpy()
+    if not np.isfinite(r).all():
+        raise AssertionError("reconstruction not finite")
+    if clamp:
+        r = np.clip(r, 0, None)
+    return PSNR(r, g), SSIM(r, g)
+
+
+def timed_dds(F, P, score_fn, sde, trafo, obs, steps, dc_mode, generator, what):
+    """A DDS run of `steps` steps at gamma 0.01, eta 0.85, cg_iter 5 with
+    CUDA events splitting its last steps into UNet, data consistency and
+    rest; exact launch counts.  Returns (x, counts, ms per step, medians)."""
+    import torch
+
+    name = "cg" if dc_mode == "cg" else "woodbury_dc"
+    timer = StepTimer(score_fn, getattr(P, name), first_step=max(steps - SPLIT_STEPS, 0))
+    sampler = F.get_standard_sampler("dds", timer.score, sde, trafo, obs, num_steps=steps,
+                                     im_shape=(256, 256, 1), gamma=WALNUT_GAMMA, eta=WALNUT_ETA,
+                                     cg_iter=5, dc_mode=dc_mode)
+    torch.cuda.synchronize()
+    original = getattr(P, name)
+    setattr(P, name, timer.cg)        # the sampler's data consistency, between CUDA events
+    try:
+        reset_counts()
+        ts = time.perf_counter()
+        x, _ = sampler.sample(generator=generator)
+        timer.finish()
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - ts) / steps * 1e3
+        counts = read_counts()
+    finally:
+        setattr(P, name, original)
+    check_counts(counts, steps, 0, what)
+    rows = timer.split()
+    med = {k: float(np.median([r[k] for r in rows])) for k in ("step", "unet", "cg", "rest")}
+    if x.shape != (1, 256, 256, 1) or min(min(r.values()) for r in rows) < 0:
+        raise AssertionError(f"{what}: wrong shape or a part of a step timed negative")
+    return x, counts, ms_step, med
+
+
+def walnut_phase(F, P, model_args, steps, gen, gate=True):
+    """Phases 12 and 12b: the walnut cone-beam protocol at full scale (see
+    the module's docstring).  `model_args` = (config, config32, sde,
+    score_fn); returns the numbers the summary and PERF.md read."""
+    import tempfile
+
+    import scipy.sparse as sp
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops.cg import cg
+    from diffusion_models_dev_project_tpu_torch.ops.woodbury import build_woodbury_sinv, woodbury_dc
+    from diffusion_models_dev_project_tpu_torch.physics import cone_beam as CB
+    from diffusion_models_dev_project_tpu_torch.physics import walnut as W
+    from diffusion_models_dev_project_tpu_torch.physics.ray_trafo import nearest_resize
+
+    config, config32, sde, score_fn = model_args
+    out = {}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="walnut_", dir=os.path.join(REPO, "build"))
+    try:
+        # ---- 12. operator: mask probe on the card, native assembly, .mat, densify, FDK
+        t0 = time.perf_counter()
+        vecs = CB.circular_cone_vecs(1200, WALNUT_SOD, WALNUT_SDD - WALNUT_SOD,
+                                     (WALNUT_PIX, WALNUT_PIX))
+        ts = time.perf_counter()
+        trafo3 = W.get_single_slice_ray_trafo(vecs, 1, 2, WALNUT_ASS, WALNUT_CSS,
+                                              WALNUT_SLICE_CFG, device="cuda")
+        torch.cuda.synchronize()
+        out["mask_s"] = time.perf_counter() - ts
+        geom = trafo3.geom
+        ts = time.perf_counter()
+        matrix = trafo3.assemble_matrix()
+        out["assembly_s"] = time.perf_counter() - ts
+        n_mask, nnz = matrix.shape[0], matrix.nnz
+        log(f"  walnut geometry: {geom.num_angles} angles x {geom.num_cols} columns x "
+            f"{geom.num_rows} rows, slab {geom.vol_shape}, {geom.n_steps()} samples a ray; mask "
+            f"probe on the card {out['mask_s']:.2f} s ({n_mask} rays kept of "
+            f"{int(np.prod(geom.proj_shape))}); native assembly {out['assembly_s']:.2f} s: "
+            f"{matrix.shape[0]} x {matrix.shape[1]}, nnz {nnz} ({nnz / n_mask:.0f} a row)")
+        if matrix.shape != (geom.num_angles * geom.num_cols, 501 * 501):
+            raise AssertionError(f"walnut matrix of shape {matrix.shape}")
+        # the native rows against the plain numpy assembly on random masked rays
+        rng = np.random.default_rng(0)
+        pick = np.sort(rng.choice(n_mask, NATIVE_CHECK_RAYS, replace=False))
+        sub = np.zeros_like(trafo3.proj_mask)
+        sub[tuple(np.argwhere(trafo3.proj_mask)[pick].T)] = True
+        ts = time.perf_counter()
+        plain = CB.masked_slice_matrix_plain(geom, sub).toarray()
+        native = matrix[pick].toarray()
+        bad = np.abs(native - plain) > TOL_NATIVE["atol"] + TOL_NATIVE["rtol"] * np.abs(plain)
+        log(f"  native rows vs the plain assembly on {NATIVE_CHECK_RAYS} random masked rays: "
+            f"max|diff| {np.abs(native - plain).max():.3e}, {int(bad.sum())} entries outside rtol "
+            f"{TOL_NATIVE['rtol']}, atol {TOL_NATIVE['atol']} ({time.perf_counter() - ts:.1f} s)")
+        if bad.any():
+            raise AssertionError("the native walnut rows disagree with the plain assembly")
+        del plain, native
+        # the .mat round trip, bit-equal
+        mat_file = os.path.join(work, W.matrix_filename(1, 2, WALNUT_ASS, WALNUT_CSS))
+        ts = time.perf_counter()
+        W.save_masked_ray_trafo_matrix(mat_file, trafo3, matrix, 1, 2, WALNUT_ASS, WALNUT_CSS)
+        out["mat_save_s"] = time.perf_counter() - ts
+        ts = time.perf_counter()
+        loaded = W.load_masked_ray_trafo_matrix(mat_file)
+        out["mat_load_s"] = time.perf_counter() - ts
+        same = loaded.shape == matrix.shape and (sp.csr_matrix(loaded) != matrix).nnz == 0
+        log(f"  .mat round trip: save {out['mat_save_s']:.2f} s, load {out['mat_load_s']:.2f} s, "
+            f"{os.path.getsize(mat_file) / 1e6:.0f} MB, bit-equal {same}")
+        if not same:
+            raise AssertionError("the walnut .mat round trip changed the matrix")
+        del loaded
+        # the operators through the entry point (it loads the .mat saved above)
+        kw = dict(walnut_id=1, orbit_id=2, angular_sub_sampling=WALNUT_ASS,
+                  proj_col_sub_sampling=WALNUT_CSS, new_shape=(256, 256), vecs_all=vecs,
+                  single_slice_config=WALNUT_SLICE_CFG, device="cuda")
+        rts = {}
+        for impl in ("dense", "ell"):
+            ts = time.perf_counter()
+            rts[impl] = W.get_walnut_2d_ray_trafo(work, **kw, impl=impl)
+            torch.cuda.synchronize()
+            out[f"{impl}_build"] = dict(rts[impl].build_seconds, total=time.perf_counter() - ts)
+            log(f"  get_walnut_2d_ray_trafo(impl={impl!r}): "
+                + ", ".join(f"{k} {v:.2f} s" for k, v in out[f"{impl}_build"].items())
+                + f"; fbp_scale {rts[impl].fbp_scale:.6g}")
+        rt = rts["dense"]
+        if tuple(rt.matrix.shape) != (n_mask, 256 * 256):
+            raise AssertionError(f"dense walnut operator of shape {tuple(rt.matrix.shape)}")
+        log(f"  dense operator {tuple(rt.matrix.shape)} fp32, "
+            f"{rt.matrix.numel() * 4 / 1e9:.2f} GB on the card")
+        # operator gates
+        xr = torch.rand((1, 256, 256, 1), generator=gen, device="cuda")
+        yr = torch.randn((1, 1, n_mask, 1), generator=gen, device="cuda")
+        with torch.no_grad():
+            ya, yb = rts["ell"].apply(xr), rt.apply(xr)
+            ell_rel = float(torch.linalg.vector_norm(ya - yb) / torch.linalg.vector_norm(ya))
+            lhs = float((rt.apply(xr).double() * yr.double()).sum())
+            rhs = float((xr.double() * rt.adjoint(yr).double()).sum())
+        adj_rel = abs(lhs - rhs) / abs(lhs)
+        log(f"  ELL forward vs dense forward at the model grid: rel {ell_rel:.3e} (tol "
+            f"{TOL_WALNUT_ELL}); dense <Ax, y> vs <x, Aᵀy>: rel {adj_rel:.3e} (tol {TOL_WALNUT_ADJ})")
+        if not (ell_rel <= TOL_WALNUT_ELL and adj_rel <= TOL_WALNUT_ADJ):
+            raise AssertionError("the walnut operators disagree")
+        del rts["ell"]
+        # the observation of the phantom on the model grid, and FDK
+        gt501 = torch.from_numpy(walnut_phantom(501))[None, :, :, None].cuda()
+        gt_model = nearest_resize(gt501, (256, 256))
+        g = torch.Generator(device="cuda").manual_seed(3)
+        gt, obs, fdk = F.get_data_from_ground_truth(gt_model, rt, WALNUT_STDDEV, generator=g)
+        out["fdk"] = psnr_ssim(fdk, gt, clamp=False)
+        log(f"  walnut phantom on the model grid: FDK {out['fdk'][0]:.2f} dB / {out['fdk'][1]:.4f}")
+        # Woodbury: S⁻¹ once, then the residual of the exact solve
+        sinv = build_woodbury_sinv(rt, WALNUT_GAMMA)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(3):
+            sinv = build_woodbury_sinv(rt, WALNUT_GAMMA)
+        ev[1].record()
+        ev[1].synchronize()
+        sinv_ms = ev[0].elapsed_time(ev[1]) / 3
+        xhat0 = torch.randn((1, 256, 256, 1), generator=gen, device="cuda")
+        with torch.no_grad():
+            xw = woodbury_dc(rt, sinv, xhat0, obs)
+            target = xhat0 + WALNUT_GAMMA * rt.adjoint(obs)
+            resid = float(torch.linalg.vector_norm(xw + WALNUT_GAMMA * rt.adjoint(rt.apply(xw))
+                                                   - target) / torch.linalg.vector_norm(target))
+        log(f"  Woodbury x for one x̂₀: |(I + γAᵀA)x - (x̂₀ + γAᵀy)| / |x̂₀ + γAᵀy| = {resid:.3e} "
+            f"at γ = {WALNUT_GAMMA} (tol {TOL_WOODBURY})")
+        if not resid <= TOL_WOODBURY:
+            raise AssertionError("the Woodbury solve misses the DDS proximal system")
+        # device times (graph replay; S⁻¹'s build eagerly between CUDA events)
+        rhs_dc = xhat0 + WALNUT_GAMMA * rt.adjoint(obs)
+        dc_op = P.make_dc_op(rt, WALNUT_GAMMA)
+        a_bytes = rt.matrix.numel() * 4
+        n_img, n_obs = 256 * 256 * 4, n_mask * 4
+        with torch.no_grad():
+            times = {"apply": (time_ms(lambda: rt.apply(xhat0), 20), a_bytes + n_img + n_obs, 0),
+                     "adjoint": (time_ms(lambda: rt.adjoint(obs), 20), a_bytes + n_img + n_obs, 0),
+                     "CG(5)": (time_ms(lambda: cg(dc_op, xhat0, rhs_dc, n_iter=5), 5),
+                               12 * (a_bytes + n_img + n_obs), 0),
+                     "Woodbury DC": (time_ms(lambda: woodbury_dc(rt, sinv, xhat0, obs), 20),
+                                     2 * (a_bytes + n_img + n_obs) + sinv.numel() * 4, 0),
+                     # the least work: AAᵀ's upper triangle (n²k) and an SPD
+                                   # inverse by Cholesky (n³), not inv's general 2n³
+                     "S⁻¹ build": (sinv_ms, a_bytes + 2 * sinv.numel() * 4,
+                                   1.0 * n_mask * n_mask * 65536 + 1.0 * n_mask ** 3)}
+        out["times"] = {}
+        for name, (ms, nbytes, flops) in times.items():
+            b_ms, b_by, _, _ = bound(flops, nbytes, "float32")
+            out["times"][name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+            log(f"  {name}: {ms:.3f} ms of device time "
+                f"({'eager, CUDA events' if name == 'S⁻¹ build' else 'graph replay'}), bound "
+                f"{b_ms:.3f} ms ({b_by}: {nbytes / 1e9:.3f} GB at {PEAK_BYTES / 1e12:.2f} TB/s, "
+                f"{flops / 1e12:.2f} TFLOP at {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s fp32)")
+        log(f"[phase 12 walnut operator] {time.perf_counter() - t0:.1f} s")
+
+        # ---- 12. DDS with the shipped prior: CG, then the exact Woodbury solve
+        t0 = time.perf_counter()
+        out["dds"] = {}
+        for mode in ("cg", "woodbury"):
+            g = torch.Generator(device="cuda").manual_seed(7)
+            x, counts, ms_step, med = timed_dds(F, P, score_fn, sde, rt, obs, steps, mode, g,
+                                                f"walnut DDS ({mode})")
+            q = psnr_ssim(x, gt)
+            out["dds"][mode] = dict(psnr=q[0], ssim=q[1], ms_step=ms_step, med=med, counts=counts)
+            log(f"  walnut DDS ({mode}, {steps} steps, γ {WALNUT_GAMMA}, η {WALNUT_ETA}): "
+                f"{q[0]:.2f} dB / {q[1]:.4f} SSIM | FDK {out['fdk'][0]:.2f} dB | {ms_step:.2f} ms a "
+                f"step; in the loop (CUDA events, median of the last {SPLIT_STEPS}): step "
+                f"{med['step']:.2f} ms = UNet {med['unet']:.2f} + DC {med['cg']:.2f} + rest "
+                f"{med['rest']:.2f}; launches " + json.dumps(counts))
+        margins = {m: r["psnr"] - out["fdk"][0] for m, r in out["dds"].items()}
+        agree = abs(out["dds"]["woodbury"]["psnr"] - out["dds"]["cg"]["psnr"])
+        log(f"  walnut DDS - FDK: cg {margins['cg']:+.2f} dB, woodbury {margins['woodbury']:+.2f} dB "
+            f"(gate: > {WALNUT_MARGIN_DB} dB); |woodbury - cg| {agree:.3f} dB (gate: <= "
+            f"{WALNUT_AGREE_DB} dB)")
+        if gate and min(margins.values()) <= WALNUT_MARGIN_DB:
+            raise AssertionError(f"walnut DDS does not beat FDK by {WALNUT_MARGIN_DB} dB: {margins}")
+        if gate and not agree <= WALNUT_AGREE_DB:
+            raise AssertionError(f"walnut DDS with the Woodbury solve and with CG(5) differ by "
+                                 f"{agree:.3f} dB (> {WALNUT_AGREE_DB})")
+        log(f"[phase 12 walnut dds] {time.perf_counter() - t0:.1f} s")
+
+        # ---- 12b. steerable (LoRA) adaptation through the dense operator
+        t0 = time.perf_counter()
+        m16, _, _ = F.get_standard_score(config, sde, ckpt_path=CKPT, lora_rank=LORA_RANK)
+        m32, _, _ = F.get_standard_score(config32, sde, ckpt_path=CKPT, lora_rank=LORA_RANK)
+        smp = {name: F.get_standard_adapted_sampler(
+            "dds", m, sde, rt, obs, num_steps=WALNUT_ADAPT_STEPS, eta=WALNUT_ETA,
+            gamma=WALNUT_GAMMA, tv_penalty=1e-6, lr=1e-3, num_optim_step=WALNUT_ADAPT_OPTIM,
+            lora_rank=LORA_RANK, add_cg=True, dc_type="cg", cg_iter=1, ground_truth=gt,
+            lora_seed=0) for name, m in (("bf16", m16), ("fp32", m32))}
+        lora = {n: (v if n.endswith(".down") else 0.01 * torch.randn(v.shape, generator=gen,
+                                                                     device="cuda"))
+                for n, v in smp["bf16"].lora.items()}
+        start_lora = {n: v.clone() for n, v in smp["bf16"].lora.items()}
+        for s_ in smp.values():
+            s_.lora = lora
+        tg = torch.full((1,), 0.5, device="cuda")
+        xg = gt + sde.marginal_prob_std(tg).reshape(1, 1, 1, 1) * torch.randn(
+            gt.shape, generator=gen, device="cuda")
+        reset_counts()
+        loss_k, gk = adaptation_gradients(smp["bf16"], xg, tg, True)
+        check_counts(read_counts(), 1, 1, "one forward and backward of the walnut adaptation loss")
+        loss_p, gp = adaptation_gradients(smp["bf16"], xg, tg, False)
+        loss_32, g32 = adaptation_gradients(smp["fp32"], xg, tg, False)
+        loss_32k, g32k = adaptation_gradients(smp["fp32"], xg, tg, True)
+        gradient_gates(gk, gp, g32, g32k, (loss_k, loss_p, loss_32, loss_32k),
+                       f"walnut adaptation loss gradient through the dense operator, LoRA r={LORA_RANK}")
+        del smp["fp32"], m32, gk, gp, g32, g32k
+        sampler = smp["bf16"]
+        sampler.lora = start_lora                   # the protocol's own LoRA start
+        g = torch.Generator(device="cuda").manual_seed(11)
+        reset_counts()
+        ts = time.perf_counter()
+        xa, _ = sampler.sample(generator=g)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - ts
+        counts = read_counts()
+        n = WALNUT_ADAPT_STEPS
+        check_counts(counts, n * (WALNUT_ADAPT_OPTIM + 2) + 1, n * WALNUT_ADAPT_OPTIM,
+                     "the adapted walnut run")
+        out["adapted"] = dict(zip(("psnr", "ssim"), psnr_ssim(xa, gt)), wall_s=wall_s,
+                              counts=counts)
+        # the matched-budget control: plain DDS of as many steps, same observation
+        plain = F.get_standard_sampler("dds", score_fn, sde, rt, obs, num_steps=n,
+                                       im_shape=(256, 256, 1), gamma=WALNUT_GAMMA,
+                                       eta=WALNUT_ETA, cg_iter=5)
+        out["plain_matched"] = psnr_ssim(plain.sample(generator=g)[0], gt)
+        log(f"  adapted walnut ({n} x {WALNUT_ADAPT_OPTIM}, LoRA r={LORA_RANK}, lr 1e-3, add_cg; "
+            f"a cut protocol, not gated): {out['adapted']['psnr']:.2f} dB / "
+            f"{out['adapted']['ssim']:.4f} SSIM | plain DDS {n} steps "
+            f"{out['plain_matched'][0]:.2f} dB / {out['plain_matched'][1]:.4f} | FDK "
+            f"{out['fdk'][0]:.2f} dB | {wall_s:.1f} s, {wall_s / n * 1e3:.0f} ms per outer step; "
+            f"launches " + json.dumps(counts))
+        del sampler, smp, m16
+        log(f"[phase 12b walnut adapted] {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def aapm_phase(F, P, model_args, steps, gen, cli_workdir):
+    """Phase 13: AAPM (synthetic slices of scripts/make_synth_aapm.py) through
+    the conditional CLI, DDS through the parallel-beam matrix operator, and
+    the AAPM config's full-width UNet, kernels against plain."""
+    import tempfile
+
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch import run_conditional_sampling as CLI
+    from diffusion_models_dev_project_tpu_torch.configs import aapm_configs
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    config, _, sde, score_fn = model_args
+    out = {}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="aapm_", dir=os.path.join(REPO, "build"))
+    old_env = os.environ.get("AAPM_DATA_PATH")
+    try:
+        t0 = time.perf_counter()
+        slices = os.path.join(work, "slices")
+        subprocess.run([sys.executable, os.path.join(REPO, "scripts", "make_synth_aapm.py"),
+                        "--out", slices, "--n", str(AAPM_SLICES)], check=True, timeout=300,
+                       capture_output=True)
+        os.environ["AAPM_DATA_PATH"] = slices
+        # (a) the conditional CLI, ellipse prior on the AAPM test fold
+        argv = ["--load_path", CKPT, "--num_channels", "128", "--model_learned_on", "ellipses",
+                "--dataset", "aapm", "--method", "dds", "--num_steps", str(steps), "--eta", "0.85",
+                "--num_images", "1"]
+        os.makedirs(cli_workdir, exist_ok=True)
+        cwd = os.getcwd()
+        os.chdir(cli_workdir)
+        try:
+            reset_counts()
+            ts = time.perf_counter()
+            root = CLI.coordinator(CLI.parser.parse_args(argv))
+            wall_s = time.perf_counter() - ts
+            counts = read_counts()
+            report = read_report(os.path.join(cli_workdir, root, "report.yaml"))
+            with np.load(os.path.join(cli_workdir, root, "recon_0_info.npz")) as info:
+                recon, g_np = info["recon"], info["ground_truth"]
+        finally:
+            os.chdir(cwd)
+        check_counts(counts, steps, 0, "DDS on AAPM through the CLI")
+        aconf = aapm_configs.get_config("vesde")
+        trafo = F.get_standard_ray_trafo(aconf)
+        g = torch.Generator(device="cuda").manual_seed(config.seed * 1000)
+        gtt, _, fbp = F.get_data_from_ground_truth(g_np[..., None], trafo, aconf.data.stddev,
+                                                   generator=g)
+        fb = psnr_ssim(fbp, gtt, clamp=False)
+        out["cli"] = dict(psnr=report["PSNR"], ssim=report["SSIM"], fbp=fb, wall_s=wall_s,
+                          counts=counts)
+        log(f"  DDS ({steps} steps, η 0.85) through the CLI, ellipse prior on AAPM test-fold "
+            f"slice 0: {report['PSNR']:.2f} dB / {report['SSIM']:.4f} SSIM | FBP {fb[0]:.2f} dB / "
+            f"{fb[1]:.4f} | {wall_s:.1f} s in the CLI, {wall_s / steps * 1e3:.2f} ms a step")
+        if not (recon.shape == (256, 256) and np.isfinite(recon).all()
+                and report["diverged_images"] == "[]" and report["PSNR"] > fb[0]):
+            raise AssertionError("DDS on AAPM through the CLI does not beat FBP")
+        log(f"[phase 13a aapm cli] {time.perf_counter() - t0:.1f} s")
+
+        # (b) DDS through the parallel-beam matrix operator (Joseph, ELL), val image 0
+        t0 = time.perf_counter()
+        mconf = aapm_configs.get_config("vesde")
+        mconf.data.part = "val"
+        mconf.forward_op.impl = "matrix"
+        ts = time.perf_counter()
+        mtrafo = F.get_standard_ray_trafo(mconf)
+        build_s = time.perf_counter() - ts
+        image = F.get_standard_dataset(mconf)[0]
+        g = torch.Generator(device="cuda").manual_seed(config.seed + 13)
+        gtm, obs, fbp = F.get_data_from_ground_truth(image, mtrafo, mconf.data.stddev, generator=g)
+        x, counts, ms_step, med = timed_dds(F, P, score_fn, sde, mtrafo, obs, steps, "cg", g,
+                                            "DDS through the matrix operator")
+        q, fb = psnr_ssim(x, gtm), psnr_ssim(fbp, gtm, clamp=False)
+        with torch.no_grad():
+            apply_ms = time_ms(lambda: mtrafo.apply(gtm), 20)
+            adjoint_ms = time_ms(lambda: mtrafo.adjoint(obs), 20)
+        out["matrix"] = dict(psnr=q[0], ssim=q[1], fbp=fb, ms_step=ms_step, med=med,
+                             counts=counts, build_s=build_s, apply_ms=apply_ms,
+                             adjoint_ms=adjoint_ms)
+        log(f"  matrix operator (Joseph, ELL {tuple(mtrafo.fwd_idx.shape)} and "
+            f"{tuple(mtrafo.adj_idx.shape)}, built in {build_s:.2f} s; apply {apply_ms:.3f} ms, "
+            f"adjoint {adjoint_ms:.3f} ms of device time): DDS {steps} steps on AAPM val image 0 "
+            f"{q[0]:.2f} dB / {q[1]:.4f} SSIM | FBP {fb[0]:.2f} dB / {fb[1]:.4f} | {ms_step:.2f} ms "
+            f"a step = UNet {med['unet']:.2f} + CG(5) {med['cg']:.2f} + rest {med['rest']:.2f} "
+            f"(medians)")
+        if not q[0] > fb[0]:
+            raise AssertionError("DDS through the matrix operator does not beat FBP")
+        log(f"[phase 13b matrix operator] {time.perf_counter() - t0:.1f} s")
+
+        # (c) the AAPM config's UNet at full width, random weights, kernels against plain
+        t0 = time.perf_counter()
+        cfg = aapm_configs.get_config("vesde")
+        cfg.model.dtype = "bfloat16"
+        model, _, _ = F.get_standard_score(cfg, F.get_standard_sde(cfg), load_model=False)
+        with torch.no_grad():
+            for p in model.parameters():       # the zero-initialised leaves drawn too
+                if p.dim() > 1 and not p.any():
+                    p.copy_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
+        n_params = sum(p.numel() for p in model.parameters())
+        xa = torch.randn((1, 256, 256, 1), generator=gen, device="cuda") * 10.0
+        ta = torch.full((1,), 0.5, device="cuda")
+        calls = module_calls(model, xa, ta)
+        want_conv = dict.fromkeys(C.VARIANTS, 0)
+        for kind, _, shape, cout, dt in calls:
+            if kind == "conv":
+                want_conv[C.plan(*shape, cout, dt).variant] += 1
+        n_attn = sum(kind == "attn" for kind, *_ in calls)
+        reset_counts()
+        with torch.no_grad():
+            outk = model(xa, ta)
+        counts = read_counts()
+        with torch.no_grad():
+            ref = model(xa, ta, use_kernel=False)
+            fwd_dev = time_ms(lambda: model(xa, ta), 3)
+        d, r = rel_err(outk, ref)
+        log(f"  AAPM UNet (256 channels, learn_sigma, scale-shift norm, resblock up/down; "
+            f"{n_params / 1e6:.1f}M parameters, random weights): out {tuple(outk.shape)}, "
+            f"max|kernel - plain| {d:.3e}, rel {r:.3e} (tol {TOL_UNET}); {fwd_dev:.2f} ms of device "
+            f"time; launches " + json.dumps(counts))
+        if not (torch.isfinite(outk).all() and outk.shape == (1, 256, 256, 1) and r <= TOL_UNET):
+            raise AssertionError("the AAPM UNet with kernels disagrees with the plain path")
+        if (counts["conv_fwd_by"] != want_conv or counts["attn_fwd_by"] != {"mma": n_attn, "simt": 0}
+                or counts["conv_bwd"] or counts["attn_bwd"]):
+            raise AssertionError(f"AAPM UNet launches {counts}, want conv3x3 {want_conv} and "
+                                 f"{n_attn} mma attention")
+        seen, handles = record_shapes(model)
+        with torch.no_grad():
+            model(xa, ta)
+        for hnd in handles:
+            hnd.remove()
+        conv_tot, _, conv_variants = check_conv(seen["conv"], gen, extras=False)
+        out["aapm_unet"] = dict(params=n_params, rel_err=r, fwd_dev_ms=fwd_dev, counts=counts,
+                                conv={k: conv_tot[k] for k in ("ms", "plain_ms", "library_ms",
+                                                               "bound_ms", "ops_ms", "bytes_ms")},
+                                conv_variants={v: agg.get("calls", 0)
+                                               for v, agg in conv_variants.items()})
+        del model
+        log(f"[phase 13c aapm unet] {time.perf_counter() - t0:.1f} s")
+    finally:
+        if old_env is None:
+            os.environ.pop("AAPM_DATA_PATH", None)
+        else:
+            os.environ["AAPM_DATA_PATH"] = old_env
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=1000, help="DDS steps per image (protocol: 1000)")
+    ap.add_argument("--steps", type=int, default=PHASE6_STEPS,
+                    help="DDS steps per image of phase 6 (protocol: 1000; the walnut and AAPM "
+                    "phases run the 1000-step loop)")
     ap.add_argument("--images", type=int, default=1, help="val images to reconstruct with DDS")
     ap.add_argument("--adapt-steps", type=int, default=50,
                     help="outer steps of the adapted phase (protocol: 50)")
@@ -1631,12 +2150,19 @@ def main() -> None:
     workdir = os.path.join(REPO, "build", "chip_smoke_cli")
     os.makedirs(workdir, exist_ok=True)
     n_dps = args.dps_steps
-    steps_run = {"prior": n_dps, "fbp": n_dps - math.ceil(DPS_FBP_PCT * n_dps)}
+    # the grid of each run, and the grid from which on the CLI's divergence
+    # guard is gated (a shortened --dps-steps probe's coarser steps may leave it)
+    grid = {("dps", "prior"): min(n_dps, DPS_PRIOR_STEPS), ("naive", "prior"): n_dps,
+            ("dps", "fbp"): n_dps, ("naive", "fbp"): n_dps}
+    guard_grid = {run: DPS_PROTOCOL_STEPS for run in grid}
+    guard_grid["dps", "prior"] = DPS_PRIOR_STEPS
+    steps_run = {run: n if run[1] == "prior" else n - math.ceil(DPS_FBP_PCT * n)
+                 for run, n in grid.items()}
     cli_runs = {}
     for start in ("prior", "fbp"):
         for method in ("dps", "naive"):
             argv = ["--load_path", CKPT, "--num_channels", "128", "--method", method, "--penalty",
-                    str(DPS_PENALTY), "--num_steps", str(n_dps), "--num_images", "1"]
+                    str(DPS_PENALTY), "--num_steps", str(grid[method, start]), "--num_images", "1"]
             if start == "fbp":
                 argv += ["--pct_chain_elapsed", str(DPS_FBP_PCT)]
             timer = PredictorTimer(P)
@@ -1653,7 +2179,7 @@ def main() -> None:
                 os.chdir(cwd)
                 timer.remove()
             what = f"{method} from the {start} through the CLI"
-            n = steps_run[start]
+            n = steps_run[method, start]
             check_counts(counts, n, n if method == "dps" else 0, what, stem_grad=True)
             ms_step, med_step, med_grad = timer.split(SPLIT_STEPS)
             report = read_report(os.path.join(workdir, root, "report.yaml"))
@@ -1662,10 +2188,9 @@ def main() -> None:
             cli_runs[method, start] = dict(report=report, counts=counts, ms_step=ms_step,
                                            med_step=med_step, med_grad=med_grad, wall_s=wall_s,
                                            gt=g_np)
-            # the CLI's divergence guard holds the protocol's 1000 steps (or more);
-            # a shortened probe's coarser steps may leave it, and are not gated
             if not (recon.shape == (256, 256) and np.isfinite(recon).all()
-                    and (n_dps < DPS_PROTOCOL_STEPS or report["diverged_images"] == "[]")):
+                    and (grid[method, start] < guard_grid[method, start]
+                         or report["diverged_images"] == "[]")):
                 raise AssertionError(f"{what}: reconstruction of the wrong shape, not finite or "
                                      f"diverged ({report['diverged_images']})")
     # FBP of the same observation: the CLI's per-image seed (config seed x 1000 + image)
@@ -1678,15 +2203,15 @@ def main() -> None:
     fb = (PSNR(f_np, g_np), SSIM(f_np, g_np))
     for (method, start), run in cli_runs.items():
         rep = run["report"]
-        log(f"  {method} from the {start} (penalty {DPS_PENALTY:g}, {steps_run[start]} steps of "
-            f"{n_dps}) through the CLI, "
+        log(f"  {method} from the {start} (penalty {DPS_PENALTY:g}, {steps_run[method, start]} steps "
+            f"of {grid[method, start]}) through the CLI, "
             f"test-fold image 0: {rep['PSNR']:.2f} dB / {rep['SSIM']:.4f} SSIM | FBP {fb[0]:.2f} dB / "
             f"{fb[1]:.4f} | diverged images {rep['diverged_images']} | {run['wall_s']:.1f} s in the "
             f"CLI, {run['ms_step']:.2f} ms per step")
     for start in ("prior", "fbp"):
         dps, naive = cli_runs["dps", start], cli_runs["naive", start]
         log(f"  per step from the {start} (CUDA events, median of the last "
-            f"{min(SPLIT_STEPS, steps_run[start] - 1)} steps): DPS {dps['med_step']:.2f} ms = score forward + "
+            f"{min(SPLIT_STEPS, steps_run['dps', start] - 1)} steps): DPS {dps['med_step']:.2f} ms = score forward + "
             f"backward through Tweedie and the data fit {dps['med_grad']:.2f} ms + rest "
             f"{dps['med_step'] - dps['med_grad']:.2f} ms; naive {naive['med_step']:.2f} ms, of it the "
             f"data fit's gradient {naive['med_grad']:.2f} ms")
@@ -1863,7 +2388,7 @@ def main() -> None:
         st = T.TrainState(ps, opt, ema_init(ps), 0)
         step = T.make_train_step(m, sde, opt, cfg.training.ema_decay, cfg.training.ema_warm_start_steps)
         em, _, _ = F.get_standard_score(cfg, sde, load_model=False)
-        probe = TRAIN_CLI._make_probe("dds", F, cfg, sde, em, torch.device("cuda"))
+        probe = TRAIN_CLI._make_probe("dds", F, cfg, get_config, sde, em, torch.device("cuda"))
         bf16 = cfg.model.dtype == "bfloat16"
         start = []                  # this start's own loss on each step's batch, t and z
         _, bs = F.get_standard_train_dataset(cfg)
@@ -1978,7 +2503,13 @@ def main() -> None:
     shutil.rmtree(workdir, ignore_errors=True)
     log(f"[phase 10 full, decoder] {time.perf_counter() - t0:.1f} s")
 
-    # ---- 11. kernel summary, device line
+    # ---- 12, 12b. the walnut cone-beam protocol; 13. AAPM and the matrix operator
+    model_args = (config, config32, sde, score_fn)
+    walnut = walnut_phase(F, P, model_args, WALNUT_PROTOCOL_STEPS, gen)
+    aapm = aapm_phase(F, P, model_args, AAPM_STEPS, gen, workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---- 14. kernel summary, device line
     src = "diffusion_models_dev_project_tpu_torch/csrc/"
     conv_src = {"tc": src + "conv3x3_tc.cu", "narrow": src + "conv3x3.cu", "simt": src + "conv3x3.cu"}
     kernels = []
@@ -2065,6 +2596,13 @@ def main() -> None:
             "launches": attn_by_variant[v], "ms": attn_ms[v], "bound_ms": attn_tot["bound_ms"],
             "library_ms": attn_tot["library_ms"]}
         for v in A.VARIANTS}
+    # launches of the walnut DDS runs (cg and woodbury), and the AAPM UNet's
+    # conv3x3 per forward (the 256-channel model)
+    for kern, key in zip(kernels, ("conv_fwd", "attn_fwd")):
+        kern["launches_walnut"] = sum(r["counts"][key] for r in walnut["dds"].values())
+    kernels[0]["aapm_unet"] = dict(aapm["aapm_unet"]["conv"],
+                                   launches=aapm["aapm_unet"]["counts"]["conv_fwd"],
+                                   variants=aapm["aapm_unet"]["conv_variants"])
     log(f"(kernel times are per UNet forward: the sum over its calls at their shapes; "
         f"whole run {time.perf_counter() - t_all:.1f} s)")
     log(smi.splitlines()[0])                # the card again, for readers of the output's tail

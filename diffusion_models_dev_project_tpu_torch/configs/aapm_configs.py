@@ -1,8 +1,8 @@
 """AAPM LDCT workload config.
 
 Port of `configs/aapm_configs.py` of the JAX package, with the same field
-names and values.  The AAPM data and its operator are not ported yet
-(ROADMAP.md queue 1 item 9): the factory raises for them.
+names and values.  The factory reads its slices (`data/aapm.py`) from
+`AAPM_DATA_PATH`, at the time the config is made.
 """
 from __future__ import annotations
 

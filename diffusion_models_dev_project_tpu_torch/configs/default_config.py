@@ -87,7 +87,9 @@ class DataConfig(_Section):
 class ForwardOpConfig(_Section):
     num_angles: Optional[int] = None
     trafo_name: Optional[str] = None
-    impl: str = "fft"
+    # the operator's implementation; None takes the factory's default for
+    # the operator ("fft" for simple_trafo, "dense" for walnut_trafo)
+    impl: Optional[str] = None
     # walnut
     orbit_id: Optional[int] = None
     angular_sub_sampling: Optional[int] = None

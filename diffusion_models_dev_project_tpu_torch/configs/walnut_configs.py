@@ -1,8 +1,9 @@
 """Walnut cone-beam workload config.
 
 Port of `configs/walnut_configs.py` of the JAX package, with the same field
-names and values.  The walnut data and its cone-beam operator are not
-ported yet (ROADMAP.md queue 1 item 9): the factory raises for them.
+names and values.  The factory builds its cone-beam operator
+(`physics/walnut.py`) and reads its data (`data/walnut.py`) from
+`WALNUT_DATA_PATH`.
 """
 from __future__ import annotations
 

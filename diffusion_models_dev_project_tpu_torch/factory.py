@@ -1,10 +1,9 @@
 """Experiment factory: configs -> SDE, score model, operator, data, sampler.
 
 Port of `factory.py` of the JAX package: the calls that the training, the
-conditional and the adapted sampling CLIs make, for the disk-ellipse
-workload with the FFT parallel-beam operator.  The AAPM and walnut configs
-resolve as in the JAX package; their data and operators raise, naming
-ROADMAP.md queue 1 item 9.
+conditional and the adapted sampling CLIs make, for the disk-ellipse, AAPM
+and walnut workloads, with the parallel-beam operator (`fft` or `matrix`)
+and the walnut cone-beam operator (`dense` or `ell`).
 Each entry point runs on `cuda` unless the caller passes `device="cpu"`, and
 raises when CUDA is wanted and absent.
 """
@@ -20,11 +19,12 @@ import numpy as np
 import torch
 
 from .configs import aapm_configs, disk_ellipses_configs, walnut_configs
+from .data.aapm import AAPMDataset
 from .data.ellipses import get_disk_dist_ellipses_dataset
 from .models.convert import load_flax_msgpack, params_from_flax
 from .models.unet import UNetModel, create_model_config
 from .ops.sde import SDE, get_standard_sde  # noqa: F401  (re-export)
-from .physics.fft_radon import FFTRayTransform, make_fft_parallel_trafo
+from .physics.ray_trafo import make_parallel_beam_trafo
 from .physics.simulation import simulate
 from .sampling.adaptation import (check_strategy, get_standard_adapted_sampler,  # noqa: F401
                                   is_adapt_param)
@@ -36,9 +36,6 @@ __all__ = ["get_standard_sde", "get_standard_score", "get_standard_ray_trafo",
            "get_standard_configs", "get_standard_dataset_configs", "get_standard_path",
            "get_standard_sampler", "get_standard_adapted_sampler", "load_params",
            "round_to_compute_dtype_"]
-
-NOT_PORTED_DATA = ("the AAPM and walnut data and their operators are not ported yet "
-                   "(ROADMAP.md queue 1 item 9)")
 
 NOT_PORTED_TORCH_CKPT = ("reference torch checkpoints (.pt) are not read yet: their converter, the "
                          "JAX package's models/torch_convert.py, is ROADMAP.md queue 1 item 11")
@@ -159,29 +156,46 @@ def get_standard_score(config, sde: SDE, use_ema: bool = False, load_model: bool
 
 def get_standard_train_dataset(config, device=None):
     """(dataset, endless iterator of NHWC batches of `config.training.batch_size`)
-    of the training fold (JAX `get_standard_train_dataset`): generated
-    disk-ellipse phantoms, rasterised on `device`."""
+    of the training fold (JAX `get_standard_train_dataset`) on `device`:
+    generated disk-ellipse phantoms, or the AAPM slices of the train fold
+    (every non-test slice outside the val fold)."""
     name = config.data.name.lower()
+    dev = resolve_device(device)
     if name == "diskdistributedellipsesdataset":
         ds = get_disk_dist_ellipses_dataset(
             fold="train", im_size=config.data.im_size, length=config.data.length,
             diameter=config.data.diameter, max_n_ellipse=config.data.num_n_ellipse,
-            device=device)
+            device=dev)
         return ds, ds.batches(config.training.batch_size)
     if name == "aapm":
-        raise NotImplementedError(f"dataset {config.data.name!r}: {NOT_PORTED_DATA}")
+        ds = AAPMDataset(part="train", base_path=config.data.base_path)
+        return ds, ds.batches(config.training.batch_size, device=dev)
     raise NotImplementedError(config.data.name)
 
 
-def get_standard_ray_trafo(config, device=None) -> FFTRayTransform:
-    """The parallel-beam FFT-shear operator of `config.forward_op`."""
+def get_standard_ray_trafo(config, device=None):
+    """The operator of `config.forward_op` on `device`: `simple_trafo`, the
+    parallel-beam operator (`impl` "fft", the default, or "matrix"), or
+    `walnut_trafo`, the walnut cone-beam single-slice operator (`impl`
+    "dense", the default, or "ell") read from, or assembled into,
+    `config.data.data_path`."""
     name = config.forward_op.trafo_name.lower()
-    impl = config.forward_op.get("impl", "fft")
-    if name != "simple_trafo" or impl != "fft":
-        raise NotImplementedError(f"operator {name!r} with impl {impl!r}: {NOT_PORTED_DATA}")
     dev = resolve_device(device)
-    return make_fft_parallel_trafo((config.data.im_size, config.data.im_size),
-                                   config.forward_op.num_angles, device=dev)
+    if name == "simple_trafo":
+        return make_parallel_beam_trafo((config.data.im_size, config.data.im_size),
+                                        config.forward_op.num_angles,
+                                        impl=config.forward_op.impl or "fft", device=dev)
+    if name == "walnut_trafo":
+        from .physics.walnut import get_walnut_2d_ray_trafo
+
+        return get_walnut_2d_ray_trafo(
+            data_path=config.data.data_path, matrix_path=config.data.data_path,
+            walnut_id=config.data.walnut_id, orbit_id=config.forward_op.orbit_id,
+            angular_sub_sampling=config.forward_op.angular_sub_sampling,
+            proj_col_sub_sampling=config.forward_op.proj_col_sub_sampling,
+            new_shape=tuple(config.data.new_shape), impl=config.forward_op.impl or "dense",
+            device=dev)
+    raise NotImplementedError(name)
 
 
 def get_data_from_ground_truth(ground_truth, ray_trafo, white_noise_rel_stddev: float,
@@ -201,15 +215,22 @@ def get_data_from_ground_truth(ground_truth, ray_trafo, white_noise_rel_stddev: 
 
 def get_standard_dataset(config, ray_trafo=None, device=None) -> Sequence[np.ndarray]:
     """The evaluation images of `config.data`, NHWC (H, W, 1) fp32 numpy, as
-    the JAX package's `get_standard_dataset` gives them: at 256² the shipped
-    set of `config.data.part` where one exists
-    (`data_assets/disk_ellipses_<part>_256.npz`: `val`), else the test-fold
-    disk-ellipse phantoms generated at `config.data.im_size`, rasterised on
-    the operator's device (or `device`)."""
+    the JAX package's `get_standard_dataset` gives them:
+    - disk ellipses: at 256² the shipped set of `config.data.part` where one
+      exists (`data_assets/disk_ellipses_<part>_256.npz`: `val`), else the
+      test-fold phantoms generated at `config.data.im_size`, rasterised on
+      the operator's device (or `device`);
+    - AAPM: the slices of `config.data.part` under `config.data.base_path`;
+    - walnut: one (observation, ground truth, FDK) triplet of `ray_trafo`'s
+      data, read from `config.data.data_path`."""
     name = config.data.name.lower()
+    if name == "walnut":
+        from .data.walnut import get_walnut_data
+
+        return get_walnut_data(config, ray_trafo)
+    if name == "aapm":
+        return AAPMDataset(part=config.data.part, base_path=config.data.base_path)
     if name != "diskdistributedellipsesdataset":
-        if name in ("walnut", "aapm"):
-            raise NotImplementedError(f"dataset {config.data.name!r}: {NOT_PORTED_DATA}")
         raise NotImplementedError(config.data.name)
     path = DATA_ASSETS / f"disk_ellipses_{config.data.part}_256.npz"
     if config.data.im_size == 256 and path.exists():

@@ -1,9 +1,11 @@
 """Steerable (adapted) sampling CLI of the port.
 
-Counterpart of the JAX package's `run_adapted_sampling.py` for the path the
-port has: the disk-ellipse data (the generated test-fold phantoms, which
-the JAX CLI reconstructs too), the FFT parallel-beam operator, DDS with
-`--adaptation lora`, `full` or `decoder`, one image at a time.
+Counterpart of the JAX package's `run_adapted_sampling.py`: DDS with
+`--adaptation lora`, `full` or `decoder`, one image at a time, on the JAX
+CLI's data (`--dataset ellipses`: the generated test-fold phantoms; `aapm`:
+the slices under `AAPM_DATA_PATH`; `walnut`: the measured observation under
+`WALNUT_DATA_PATH` with its cone-beam operator) and prior (`--model_learned_on
+ellipses` or `aapm`, the AAPM config's UNet, random without `--load_path`).
 Each image starts from the model's own weights (and for `lora` a fresh
 LoRA state, seed = the image's index).  It writes what the JAX CLI writes under
 `./outputs/...`: `recon_<i>_info.npz`, `recon_<i>.png`, `report.yaml`, and
@@ -15,8 +17,8 @@ prints a JSON line of the mean PSNR and SSIM last.
 
 runs on the card; `--device cpu` runs the plain PyTorch path on the CPU, at
 a small size with `--im_size 64 --num_channels 64 --num_steps 3
---num_optim_step 2` (random weights: no checkpoint has that size).  Values of the JAX CLI that the port does not
-have yet raise NotImplementedError naming their ROADMAP.md item.
+--num_optim_step 2` (random weights: no checkpoint has that size).  `--shard_images`
+of the JAX CLI raises NotImplementedError naming its ROADMAP.md item.
 """
 import argparse
 import dataclasses
@@ -66,9 +68,6 @@ parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
 
 
 def _check_ported(args):
-    if args.dataset != "ellipses" or args.model_learned_on != "ellipses":
-        raise NotImplementedError("only the disk-ellipse data and prior are ported; the AAPM and "
-                                  "walnut data are ROADMAP.md queue 1 item 9")
     if int(args.shard_images) > 0:
         raise NotImplementedError("--shard_images (several images per call, each with its own "
                                   "LoRA) is ROADMAP.md queue 1 item 10")
@@ -78,7 +77,6 @@ def coordinator(args):
     import torch
 
     import diffusion_models_dev_project_tpu_torch.factory as F
-    from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import get_config
     from diffusion_models_dev_project_tpu_torch.utils.device import resolve_device
     from diffusion_models_dev_project_tpu_torch.utils.metrics import PSNR, SSIM
     from diffusion_models_dev_project_tpu_torch.utils.reporting import (save_image_png,
@@ -87,8 +85,7 @@ def coordinator(args):
 
     _check_ported(args)
     device = resolve_device(args.device)
-    config, dataconfig = get_config(args.sde), get_config(args.sde)
-    config.ckpt_path = args.load_path
+    config, dataconfig = F.get_standard_configs(args)
     if args.im_size is not None:
         for c in (config, dataconfig):
             c.model.image_size = c.data.im_size = int(args.im_size)
@@ -118,10 +115,16 @@ def coordinator(args):
                   else dataconfig.data.validation.num_images)
     seed = config.seed or 0
     psnrs, ssims = [], []
-    for i, image in enumerate(islice(iter(dataset), num_images)):
+    for i, sample in enumerate(islice(iter(dataset), num_images)):
         gen = torch.Generator(device=device).manual_seed(seed * 1000 + i)
-        ground_truth, observation, _ = F.get_data_from_ground_truth(
-            image, ray_trafo, dataconfig.data.stddev, generator=gen)
+        if isinstance(sample, (tuple, list)) and len(sample) == 3:
+            # measured data (walnut): observation and ground truth as given
+            observation, ground_truth = (
+                torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+                for a in sample[:2])
+        else:
+            ground_truth, observation, _ = F.get_data_from_ground_truth(
+                sample, ray_trafo, dataconfig.data.stddev, generator=gen)
         sampler = F.get_standard_adapted_sampler(
             args.method, model, sde, ray_trafo, observation, num_steps=int(args.num_steps),
             eta=float(args.eta), gamma=float(args.gamma), tv_penalty=float(args.tv_penalty),

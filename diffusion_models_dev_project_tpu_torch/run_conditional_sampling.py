@@ -15,9 +15,13 @@ serves the run; each image's data is swapped into it.
 runs on the card, with the UNet in bf16 (`--params_dtype`, as in the JAX
 CLI); `--device cpu --im_size 32 --num_channels 32 --num_steps 3` runs the
 plain PyTorch path on the CPU at a small size, with random weights.  The
-data are the JAX CLI's: the generated test-fold disk-ellipse phantoms.
-Values of the JAX CLI that the port does not have yet raise
-NotImplementedError naming their ROADMAP.md item.
+data are the JAX CLI's: the generated test-fold disk-ellipse phantoms, the
+AAPM slices under `AAPM_DATA_PATH` (`--dataset aapm`), or the walnut's
+measured observation under `WALNUT_DATA_PATH` (`--dataset walnut`, whose
+dataset gives observation, ground truth and FDK itself).  `--model_learned_on
+aapm` builds the AAPM config's UNet (random weights without `--load_path`).
+`--shard_images` of the JAX CLI raises NotImplementedError naming its
+ROADMAP.md item.
 """
 import argparse
 import dataclasses
@@ -120,10 +124,16 @@ def coordinator(args):
 
     psnrs, ssims, diverged = [], [], []
     sampler = None
-    for i, image in enumerate(islice(iter(dataset), num_images)):
+    for i, sample in enumerate(islice(iter(dataset), num_images)):
         gen = torch.Generator(device=device).manual_seed(seed * 1000 + i)
-        ground_truth, observation, filtbackproj = F.get_data_from_ground_truth(
-            image, ray_trafo, dataconfig.data.stddev, generator=gen)
+        if isinstance(sample, (tuple, list)) and len(sample) == 3:
+            # measured data (walnut): observation, ground truth and FBP as given
+            observation, ground_truth, filtbackproj = (
+                torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+                for a in sample)
+        else:
+            ground_truth, observation, filtbackproj = F.get_data_from_ground_truth(
+                sample, ray_trafo, dataconfig.data.stddev, generator=gen)
         if sampler is None:
             sampler = F.get_standard_sampler(
                 args.method, score_fn, sde, ray_trafo, observation,

@@ -6,10 +6,12 @@ its flags: versioned run directories (`version_{:02d}`) or `--run_dir`
 warm starts (`--init_ckpt`, `--init_ckpt_partial`), the lr warmup, the
 gradient clip, the EMA decay, the sigma-weighted loss, the rolling tail
 average, the uncond sample grids of the EMA shadow and the keep-best probe.
-It trains on the generated disk-ellipse phantoms of the training fold, on
-one device: the card by default, the CPU with `--device cpu`; `--platform`
-of the JAX CLI is `--device` here, and `--debug_nans` fails at the first
-non-finite loss or gradient.
+It trains on the generated disk-ellipse phantoms of the training fold, or
+with `--train_model_on aapm` the AAPM config's model (learn_sigma, 256
+channels) on the AAPM slices under `AAPM_DATA_PATH`, on one device: the
+card by default, the CPU with `--device cpu`; `--platform` of the JAX CLI
+is `--device` here, and `--debug_nans` fails at the first non-finite loss
+or gradient.
 
     python -m diffusion_models_dev_project_tpu_torch.run_score_based_models_train \\
         --num_channels 128 --dtype bfloat16 --epochs 1 --steps_per_epoch 4 \\
@@ -18,9 +20,8 @@ non-finite loss or gradient.
 
 warm-starts the flagship prior on the card.  `--device cpu --im_size 64
 --num_channels 32 --batch_size 2 --epochs 1 --steps_per_epoch 2` runs in
-seconds on the CPU.  The AAPM data (`--train_model_on aapm`) is ROADMAP.md
-queue 1 item 9, several devices item 10, reference `.pt` checkpoints
-item 11.
+seconds on the CPU.  Several devices are ROADMAP.md queue 1 item 10,
+reference `.pt` checkpoints item 11.
 """
 import argparse
 import dataclasses
@@ -30,7 +31,8 @@ parser = argparse.ArgumentParser(description="training")
 parser.add_argument("--sde", default="vesde", choices=["vpsde", "vesde", "ddpm"])
 parser.add_argument("--base_path", default="./outputs/score_based_baseline")
 parser.add_argument("--train_model_on", default="ellipses", choices=["ellipses", "aapm"],
-                    help="aapm: the AAPM data is not ported yet (ROADMAP.md queue 1 item 9)")
+                    help="aapm trains the learn_sigma (out_channels=2) AAPM-config model on "
+                    "the AAPM_DATA_PATH slices")
 parser.add_argument("--epochs", default=None, help="override config epochs")
 parser.add_argument("--steps_per_epoch", default=None,
                     help="override steps per epoch (default: dataset length / batch)")
@@ -83,12 +85,12 @@ PROBE_IMAGES = 2          # val images of the keep-best probe
 PROBE_DDS_STEPS = 200
 
 
-def _make_probe(kind, F, config, sde, eval_model, device):
-    """probe(weights) -> score (lower is better) on the first val images."""
+def _make_probe(kind, F, config, get_config, sde, eval_model, device):
+    """probe(weights) -> score (lower is better) on the first val images of
+    the workload of `get_config`."""
     import numpy as np
     import torch
 
-    from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import get_config
     from diffusion_models_dev_project_tpu_torch.ops.diffusion import tweedy
     from diffusion_models_dev_project_tpu_torch.utils.metrics import PSNR
 
@@ -158,9 +160,10 @@ def coordinator(args):
     from diffusion_models_dev_project_tpu_torch.utils.reporting import save_image_png, write_report
 
     if args.train_model_on == "aapm":
-        raise NotImplementedError("--train_model_on aapm: the AAPM data is not ported yet "
-                                  "(ROADMAP.md queue 1 item 9)")
-    from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import get_config
+        from diffusion_models_dev_project_tpu_torch.configs.aapm_configs import get_config
+    else:
+        from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import (
+            get_config)
 
     device = resolve_device(args.device)
     config = get_config(args.sde)
@@ -211,7 +214,8 @@ def coordinator(args):
         log_dir = args.run_dir
         os.makedirs(log_dir, exist_ok=True)
     else:
-        log_dir = os.path.join(args.base_path, "DiskEllipses", config.sde.type)
+        ds_name = "AAPM" if args.train_model_on == "aapm" else "DiskEllipses"
+        log_dir = os.path.join(args.base_path, ds_name, config.sde.type)
         os.makedirs(log_dir, exist_ok=True)
         version_num = 1
         while os.path.isdir(os.path.join(log_dir, f"version_{version_num:02d}")):
@@ -257,7 +261,8 @@ def coordinator(args):
 
     probe_hook = None
     if args.keep_best_probe:
-        probe_hook = _make_probe(args.keep_best_probe, F, config, sde, eval_model, device)
+        probe_hook = _make_probe(args.keep_best_probe, F, config, get_config, sde, eval_model,
+                                 device)
 
     return train_score_model(
         model, None, sde, batches,

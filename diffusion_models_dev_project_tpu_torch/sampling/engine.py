@@ -1,7 +1,10 @@
 """Reverse-diffusion sampling loop: naive, DPS, DDS and unconditional.
 
 Port of `SamplerSpec`, `_time_arrays`, `DiffusionSampler` and
-`get_standard_sampler` of `sampling/engine.py` of the JAX package.  The JAX
+`get_standard_sampler` of `sampling/engine.py` of the JAX package.  DDS
+solves its data consistency by CG or, with `dc_mode="woodbury"` on a dense
+matrix operator, exactly through S⁻¹ built once per sampler
+(`ops/woodbury.py`).  The JAX
 package compiles the loop into one `lax.scan`; here it is a Python loop of
 predictor steps, each followed by the Langevin corrector when it is on.  The
 returned reconstruction is the last step's `x_mean` (for DDS and DPS the
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.sde import DDPM, SDE
+from ..ops.woodbury import build_woodbury_sinv
 from ..ops.time_grids import ddpm_time_pairs, score_time_grid
 from ..utils.device import resolve_device
 from . import predictors as P
@@ -30,6 +34,7 @@ from . import predictors as P
 __all__ = ["SamplerSpec", "DiffusionSampler", "get_standard_sampler"]
 
 _KNOWN_METHODS = ("naive", "dps", "dds", "uncond")
+_DC_MODES = ("cg", "woodbury")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,17 +60,17 @@ class SamplerSpec:
     # accepted for compatibility and ignored: on the TPU it selects bf16x3
     # matmuls for CG; the port runs CG in fp32 with TF32 off
     cg_precision: Optional[str] = "high"
-    # DDS data consistency: "cg" only; the JAX package's exact "woodbury"
-    # solve needs a matrix-backed operator
+    # DDS data consistency: "cg" (cg_iter CG iterations, the reference's) or
+    # "woodbury", the exact solve of ops/woodbury.py, for an operator with a
+    # dense `.matrix` (physics/ray_trafo.py::DenseRayTransform)
     dc_mode: str = "cg"
 
     def __post_init__(self):
         if self.method not in _KNOWN_METHODS:
             raise NotImplementedError(f"unknown sampling method {self.method!r}; expected one "
                                       f"of {_KNOWN_METHODS}")
-        if self.dc_mode != "cg":
-            raise NotImplementedError(f"dc_mode {self.dc_mode!r}: the Woodbury solve and the "
-                                      "matrix operators it needs are ROADMAP.md queue 1 item 9")
+        if self.dc_mode not in _DC_MODES:
+            raise ValueError(f"unknown dc_mode {self.dc_mode!r}; expected one of {_DC_MODES}")
 
 
 def _time_arrays(sde: SDE, spec: SamplerSpec):
@@ -114,6 +119,13 @@ class DiffusionSampler:
         self.device = observation.device if observation is not None else resolve_device(device)
         # Aᵀy, once
         self.rhs = ray_trafo.adjoint(observation) if observation is not None else None
+        # (gamma⁻¹ I + A Aᵀ)⁻¹, once per sampler, for the exact Woodbury solve
+        self.dc_sinv = None
+        if spec.method == "dds" and spec.dc_mode == "woodbury":
+            if not hasattr(ray_trafo, "matrix"):
+                raise ValueError("dc_mode='woodbury' needs a matrix-backed operator "
+                                 f"(DenseRayTransform); got {type(ray_trafo).__name__}")
+            self.dc_sinv = build_woodbury_sinv(ray_trafo, spec.gamma)
         self._time_data = _time_arrays(sde, spec)
         self._step_size = self._time_data[3]
 
@@ -138,7 +150,8 @@ class DiffusionSampler:
         if spec.method == "dds":
             return P.dds_step(self.score_fn, sde, x, t, t_prev, self.rhs, self.ray_trafo,
                               spec.gamma, spec.eta, spec.cg_iter, noise,
-                              use_simplified_eqn=spec.use_simplified_eqn)
+                              use_simplified_eqn=spec.use_simplified_eqn,
+                              observation=self.observation, dc_sinv=self.dc_sinv)
         if isinstance(sde, DDPM):
             if spec.method == "dps":
                 return P.ancestral_step(self.score_fn, sde, x, t, noise, nloglik, spec.penalty)

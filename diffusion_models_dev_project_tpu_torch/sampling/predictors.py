@@ -5,7 +5,7 @@ Port of `sampling/predictors.py` of the JAX package:
 - `euler_maruyama_step`: naive score-SDE posterior sampling, and DPS
   (`aTweedy=True`) for VE/VP models;
 - `ancestral_step`: DPS in the discrete DDPM framework;
-- `dds_step`: Decomposed Diffusion Sampling, Tweedie -> CG -> DDIM;
+- `dds_step`: Decomposed Diffusion Sampling, Tweedie -> CG or Woodbury -> DDIM;
 - `langevin_corrector`: the Langevin MCMC corrector;
 - `wrapper_ddim_step`: the unconditional DDIM step.
 
@@ -30,6 +30,7 @@ import torch
 from ..ops.cg import cg
 from ..ops.diffusion import ddim, tweedy
 from ..ops.sde import DDPM, SDE
+from ..ops.woodbury import woodbury_dc
 
 __all__ = ["make_nloglik", "make_dc_op", "euler_maruyama_step", "ancestral_step", "dds_step",
            "langevin_corrector", "wrapper_ddim_step"]
@@ -128,14 +129,20 @@ def ancestral_step(score_fn: Callable, sde: DDPM, x: torch.Tensor, t: torch.Tens
 def dds_step(score_fn: Callable, sde: SDE, x: torch.Tensor, t: torch.Tensor,
              t_prev: torch.Tensor, rhs: torch.Tensor, ray_trafo, gamma: float,
              eta: float, cg_iter: int, noise: torch.Tensor,
-             use_simplified_eqn: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decomposed Diffusion Sampling: one score forward, Tweedie, `cg_iter`
-    CG iterations on (I + gamma AᵀA) xhat = xhat0 + gamma Aᵀy (`rhs` = Aᵀy),
-    then DDIM with the standard-normal `noise`.  Returns (x_next, xhat0)."""
+             use_simplified_eqn: bool = True, observation: Optional[torch.Tensor] = None,
+             dc_sinv: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decomposed Diffusion Sampling: one score forward, Tweedie, the data
+    consistency (I + gamma AᵀA) xhat = xhat0 + gamma Aᵀy (`rhs` = Aᵀy) by
+    `cg_iter` CG iterations, or exactly by the Woodbury identity when
+    `dc_sinv` ((gamma⁻¹ I + A Aᵀ)⁻¹) and `observation` are given, then DDIM
+    with the standard-normal `noise`.  Returns (x_next, xhat0)."""
     s = score_fn(x, t)
     xhat0 = tweedy(s, x, sde, t)
-    op = make_dc_op(ray_trafo, gamma)
-    xhat = cg(op, xhat0, xhat0 + gamma * rhs, n_iter=cg_iter)
+    if dc_sinv is not None:
+        xhat = woodbury_dc(ray_trafo, dc_sinv, xhat0, observation)
+    else:
+        op = make_dc_op(ray_trafo, gamma)
+        xhat = cg(op, xhat0, xhat0 + gamma * rhs, n_iter=cg_iter)
     x_next = ddim(sde, s, xhat, t, t_prev, eta, noise, use_simplified_eqn=use_simplified_eqn)
     return x_next, xhat0
 

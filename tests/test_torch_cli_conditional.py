@@ -9,8 +9,9 @@ for the JAX CLI's own test in tests/test_cli.py), for `dds`, `dps` and
 CLI's image: its ground truth equals, within 1e-6, the first test-fold
 phantom of the JAX package's `get_standard_dataset` at that size.  What the
 port does not have yet raises, naming its ROADMAP.md item: `--shard_images`
-(item 10), the walnut data (item 9) and the Woodbury data consistency
-(`dc_mode="woodbury"`, item 9).
+(item 10).  Without the CWI data in the repository the walnut data raise
+FileNotFoundError naming them, and the Woodbury data consistency
+(`dc_mode="woodbury"`) raises for an operator without a dense matrix.
 
 The torch half runs in a child interpreter (tests/_torch_child.py): no
 pytest process runs torch code.
@@ -48,16 +49,29 @@ def run_cli(workdir):
 
 
 def unported_raise(workdir):
+    from pathlib import Path
+
+    import torch
+
     import diffusion_models_dev_project_tpu_torch.factory as TF
     from diffusion_models_dev_project_tpu_torch import run_conditional_sampling as cli
 
+    workdir = Path(str(workdir))
     os.chdir(str(workdir))
 
-    for argv, item in ((["--shard_images", "2"], "item 10"), (["--dataset", "walnut"], "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.coordinator(cli.parser.parse_args(ARGV + argv))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TF.get_standard_sampler("dds", None, None, None, None, im_shape=(8, 8, 1),
+    with pytest.raises(NotImplementedError, match="item 10"):
+        cli.coordinator(cli.parser.parse_args(ARGV + ["--shard_images", "2"]))
+    os.environ["WALNUT_DATA_PATH"] = str(workdir / "Walnuts")
+    with pytest.raises(FileNotFoundError, match="walnut"):
+        cli.coordinator(cli.parser.parse_args(ARGV + ["--dataset", "walnut"]))
+    from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import get_config
+
+    config = get_config("vesde")
+    config.data.im_size, config.forward_op.num_angles = 32, 6
+    fft = TF.get_standard_ray_trafo(config, device="cpu")
+    obs = fft.apply(fft.adjoint(fft.apply(torch.zeros(1, 32, 32, 1))))
+    with pytest.raises(ValueError, match="matrix-backed"):
+        TF.get_standard_sampler("dds", None, TF.get_standard_sde(config), fft, obs,
                                 dc_mode="woodbury")
 
 

@@ -36,10 +36,15 @@ def train_and_resume(base):
     resumed = cli.coordinator(cli.parser.parse_args(TINY + ["--epochs", "3", "--run_dir", run]))
     assert resumed.step == 6
     steps = sorted(int(s) for s in os.listdir(os.path.join(run, "ckpts")))
-    for argv, item in ((["--train_model_on", "aapm"], "item 9"),
-                       (["--init_ckpt", "model.pt"], "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.coordinator(cli.parser.parse_args(TINY + argv + ["--base_path", base]))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        cli.coordinator(cli.parser.parse_args(TINY + ["--init_ckpt", "model.pt",
+                                                      "--base_path", base]))
+    # the AAPM model trains on the slices under AAPM_DATA_PATH (absent here;
+    # tests/test_torch_imports.py trains it on written slices)
+    os.environ["AAPM_DATA_PATH"] = os.path.join(base, "no_aapm_slices")
+    with pytest.raises(FileNotFoundError, match="no_aapm_slices"):
+        cli.coordinator(cli.parser.parse_args(TINY + ["--train_model_on", "aapm",
+                                                      "--base_path", base]))
     log = [json.loads(line) for line in open(os.path.join(run, "train_log.jsonl"))]
     return {"files": np.array(files), "steps": np.array(steps),
             "samples": np.array(sorted(os.listdir(os.path.join(run, "samples")))),

@@ -2,9 +2,12 @@
 
 The card's machine has torch, numpy and scipy but no jax, flax, msgpack,
 ml_collections, yaml or PIL, so the port, chip_smoke.py, adapted_spread.py,
-conditional_probe.py and wgrad_probe.py import none of them.  Entry points
-run on CUDA unless asked for the CPU, and raise here, where there is no CUDA
-device.
+conditional_probe.py, wgrad_probe.py and walnut_probe.py import none of
+them.  Entry points run on CUDA unless asked for the CPU, and raise here,
+where there is no CUDA device.  The paths of ROADMAP.md queue 1 item 9
+(matrix and walnut operators, AAPM and walnut data) resolve; the walnut
+data, which the repository does not hold, raise FileNotFoundError naming
+them.
 
 The torch half of each test runs in a child interpreter (tests/_torch_child.py):
 no pytest process runs torch code.
@@ -51,7 +54,7 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
         "    sys.modules[name] = None      # any import of these now fails",
         f"sys.path.insert(0, {REPO!r})",
         f"for name in {modules!r} + ['chip_smoke', 'adapted_spread', 'conditional_probe',"
-        " 'wgrad_probe']:",
+        " 'wgrad_probe', 'walnut_probe']:",
         "    importlib.import_module(name)",
         "print('ok')",
     ])
@@ -66,7 +69,7 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
     files = [os.path.join(root, f) for root, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
     files += [os.path.join(REPO, name)
               for name in ("chip_smoke.py", "adapted_spread.py", "conditional_probe.py",
-                           "wgrad_probe.py")]
+                           "wgrad_probe.py", "walnut_probe.py")]
     assert not [f for f in files if pat.search(open(f, encoding="utf-8").read())]
     # collecting the port's test files imports no torch (xdist workers
     # collect every file, and the JAX tests run in those processes)
@@ -109,14 +112,29 @@ def entry_points_want_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def unported_paths_raise():
+def _write_aapm_slices(root, n=24, size=64):
+    rng = np.random.default_rng(0)
+    os.makedirs(root, exist_ok=True)
+    for k in range(n):
+        np.save(os.path.join(root, f"{100 + k}.npy"), rng.random((size, size)).astype(np.float32))
+
+
+def unported_paths_raise(workdir):
     import diffusion_models_dev_project_tpu_torch.factory as TF
+    from diffusion_models_dev_project_tpu_torch.configs import aapm_configs, walnut_configs
     from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import get_config
 
-    config = get_config("vesde")
-    config.forward_op.trafo_name = "walnut_trafo"
-    with pytest.raises(NotImplementedError):
-        TF.get_standard_ray_trafo(config, device="cpu")
+    workdir = str(workdir)
+    # the walnut operator and data resolve; without the CWI data in the
+    # repository they raise FileNotFoundError naming it
+    wconfig = walnut_configs.get_config()
+    wconfig.data.data_path = os.path.join(workdir, "Walnuts")
+    with pytest.raises(FileNotFoundError, match="walnut"):
+        TF.get_standard_ray_trafo(wconfig, device="cpu")
+    small = get_config("vesde")
+    small.data.im_size, small.forward_op.num_angles = 32, 6
+    with pytest.raises(FileNotFoundError, match="walnut"):
+        TF.get_standard_dataset(wconfig, TF.get_standard_ray_trafo(small, device="cpu"))
     config = get_config("vesde")
     # reference torch checkpoints wait for their converter (queue 1 item 11)
     with pytest.raises(NotImplementedError, match="item 11"):
@@ -147,33 +165,61 @@ def unported_paths_raise():
         TA.AdaptedSampler.sample_batched(None)
     # part "test" has no shipped set: the port generates the test-fold
     # phantoms, as the JAX package does (tests/test_torch_ellipses.py holds
-    # them to its); the AAPM and walnut data are item 9
+    # them to its)
     config.data.part = "test"
     dataset = TF.get_standard_dataset(config, device="cpu")
     image = dataset[0]
     assert len(dataset) == config.data.val_length and image.shape == (256, 256, 1)
     assert image.dtype == np.float32 and image.min() >= 0 and image.max() == 1
-    from diffusion_models_dev_project_tpu_torch.configs import aapm_configs, walnut_configs
-
-    for data_config in (aapm_configs.get_config(), walnut_configs.get_config()):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            TF.get_standard_dataset(data_config, device="cpu")
-    # the adapted CLI: full and decoder pass its check; what the port does
-    # not have raises, naming its item
+    # the AAPM data resolve: the slices of the config's part (the test fold)
+    aapm = os.path.join(workdir, "aapm")
+    _write_aapm_slices(aapm)
+    aconfig = aapm_configs.get_config()
+    aconfig.data.base_path = aapm
+    dataset = TF.get_standard_dataset(aconfig, device="cpu")
+    assert len(dataset) == 3 and dataset[0].shape == (64, 64, 1)
+    assert np.array_equal(dataset[0][..., 0], np.load(os.path.join(aapm, "100.npy")))
+    aconfig.training.batch_size = 2
+    _, batches = TF.get_standard_train_dataset(aconfig, device="cpu")
+    assert tuple(next(batches).shape) == (2, 64, 64, 1)
+    # the adapted CLI: full and decoder pass its check; several images per
+    # call raises, naming its item; the walnut data raise as above
     from diffusion_models_dev_project_tpu_torch import run_adapted_sampling as cli
 
     for impl in ("full", "decoder"):
         cli._check_ported(cli.parser.parse_args(["--adaptation", impl, "--device", "cpu"]))
-    for argv, item in ((["--shard_images", "2"], "item 10"), (["--dataset", "walnut"], "item"),
-                       (["--model_learned_on", "aapm"], "item")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.coordinator(cli.parser.parse_args(argv + ["--device", "cpu"]))
-    # the train CLI: the AAPM data is item 9
-    from diffusion_models_dev_project_tpu_torch import run_score_based_models_train as train_cli
+    with pytest.raises(NotImplementedError, match="item 10"):
+        cli.coordinator(cli.parser.parse_args(["--shard_images", "2", "--device", "cpu"]))
+    os.environ["WALNUT_DATA_PATH"] = os.path.join(workdir, "Walnuts")
+    os.chdir(workdir)
+    with pytest.raises(FileNotFoundError, match="walnut"):
+        cli.coordinator(cli.parser.parse_args(["--dataset", "walnut", "--device", "cpu"]))
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_cli.coordinator(train_cli.parser.parse_args(["--train_model_on", "aapm",
-                                                           "--device", "cpu"]))
+
+def aapm_clis(workdir):
+    """The adapted CLI on the AAPM data with the AAPM config's UNet (random
+    weights, 64², two outer steps), and one training step of the AAPM model
+    through the train CLI."""
+    from diffusion_models_dev_project_tpu_torch import run_adapted_sampling as acli
+    from diffusion_models_dev_project_tpu_torch import run_score_based_models_train as tcli
+
+    workdir = str(workdir)
+    aapm = os.path.join(workdir, "aapm")
+    _write_aapm_slices(aapm)
+    os.environ["AAPM_DATA_PATH"] = aapm
+    os.chdir(workdir)
+    small = ["--device", "cpu", "--im_size", "64", "--num_channels", "64"]
+    root = acli.coordinator(acli.parser.parse_args(
+        small + ["--dataset", "aapm", "--model_learned_on", "aapm", "--num_steps", "2",
+                 "--num_optim_step", "1", "--num_images", "1"]))
+    with np.load(root / "recon_0_info.npz") as info:
+        recon, gt = info["recon"], info["ground_truth"]
+    state = tcli.coordinator(tcli.parser.parse_args(
+        small + ["--train_model_on", "aapm", "--batch_size", "2", "--epochs", "1",
+                 "--steps_per_epoch", "1", "--base_path", os.path.join(workdir, "runs")]))
+    run = os.path.join(workdir, "runs", "AAPM", "vesde", "version_01")
+    return {"recon": recon, "gt": gt, "path": np.array(str(root)), "step": np.array(state.step),
+            "run": np.array(os.path.isdir(run))}
 
 
 if __name__ == "__main__":
@@ -186,4 +232,11 @@ def test_entry_points_want_cuda_unless_asked_for_the_cpu(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    child.run(__file__, "unported_paths_raise", tmp_path)
+    child.run(__file__, "unported_paths_raise", tmp_path, workdir=str(tmp_path))
+
+
+def test_aapm_through_the_adapted_and_train_clis(tmp_path):
+    out = child.run(__file__, "aapm_clis", tmp_path, timeout=240, workdir=str(tmp_path))
+    assert out["recon"].shape == (64, 64) and np.isfinite(out["recon"]).all()
+    assert np.array_equal(out["gt"], np.load(tmp_path / "aapm" / "100.npy"))
+    assert "aapm_aapm" in str(out["path"]) and int(out["step"]) == 1 and bool(out["run"])

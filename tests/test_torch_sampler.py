@@ -81,14 +81,15 @@ def algebra(**a):
     assert torch.isfinite(td.ddim(tsde.DDPM(), z, z, torch.tensor([0]), torch.tensor([-1]),
                                   0.5, z)).all()
     out["ddpm_pairs"] = np.asarray(ttg.ddpm_time_pairs(1000, 20, 2, 3))
-    # every method of the JAX engine but its adapted one is ported; an unknown
-    # method and the Woodbury data consistency (queue 1 item 9) raise
+    # every method of the JAX engine but its adapted one is ported, and both
+    # data consistencies; an unknown method or data consistency raises
     for method in ("naive", "dps", "dds", "uncond"):
         te.SamplerSpec(method=method)
     with pytest.raises(NotImplementedError):
         te.SamplerSpec(method="adapted_dds")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        te.SamplerSpec(method="dds", dc_mode="woodbury")
+    assert te.SamplerSpec(method="dds", dc_mode="woodbury").dc_mode == "woodbury"
+    with pytest.raises(ValueError, match="dc_mode"):
+        te.SamplerSpec(method="dds", dc_mode="lsqr")
     spd = T["spd"]
     top = lambda v: (v.reshape(v.shape[0], 16) @ spd.T).reshape(v.shape)  # noqa: E731
     for n in CG_ITERS:
