@@ -4,8 +4,10 @@
 Drives the port's paths through its entry points on one CUDA device: the
 flagship 256² disk-ellipse DDS reconstruction, the walnut cone-beam
 protocol's DDS with CG and with the exact Woodbury solve, AAPM data through
-the conditional CLI and the parallel-beam matrix operator, steerable LoRA adaptation
-inside the DDS loop, DPS and naive sampling through the conditional CLI,
+the conditional CLI and the parallel-beam matrix operator, steerable LoRA
+adaptation inside the DDS loop, four images per call through the
+conditional and the adapted CLIs (`--shard_images`), DPS and naive
+sampling through the conditional CLI,
 score-model training through the train CLI, and `full` and `decoder`
 adaptation through the adapted CLI, whose gradients run through the hand
 kernels' backward passes (conv3x3's input and weight gradients, the
@@ -56,14 +58,16 @@ attention backward):
    kernels against `use_kernel=False`, both against an fp32 plain
    gradient, and in fp32 with the kernels against it; the launch counts of
    one forward and backward;
-6. DDS: reconstructs the first images of the shipped val set (500 steps,
+6. DDS: reconstructs the first images of the shipped val set (`PHASE6_STEPS`
+   = 200 steps,
    60 angles, noise 0.01, gamma 0.01, eta 0.85, 5 CG iterations) and requires each to
    beat its FBP in PSNR, with the kernel launch counts of the run checked
    (per forward 62 conv3x3, of which 60 tc, 1 narrow, 1 simt, and 4
    attention, all mma; per backward 4 attention backwards, all mma); CUDA
    events around the score call and the CG solve
    of the loop's last steps split a step into UNet, CG and the rest;
-7. adapted: LoRA-adapted DDS (50 outer x 10 inner Adam steps, rank 4,
+7. adapted: LoRA-adapted DDS (50 outer x 10 inner Adam steps, the
+   protocol, on the OOD bars; val image 0 at `PHASE7_VAL_OPTIM` = 5; rank 4,
    lr 1e-3, TV 1e-6, eta 0.85, cg(1), add_cg) of val image 0 and of an OOD
    bars phantom; each must beat its FBP (at 50 outer steps or more; a
    shortened probe is not gated); a plain DDS of as many steps on the same
@@ -75,8 +79,8 @@ attention backward):
    (per backward also the stem's input gradient, on `narrow`) and its wall
    and device times; then DPS and naive (penalty 10) through the port's
    conditional CLI on its default data (test-fold image 0, generated at
-   256²), each started from the prior (naive on the 1000-step grid, DPS on
-   a 250-step grid; their PSNR printed) and from the FBP (the last 500
+   256²), each started from the prior (on a 250-step grid; their PSNR
+   printed) and from the FBP (the last 500
    steps of the 1000-step grid): each run inside the CLI's divergence
    guard, every run with its launch counts exact; from the FBP, DPS better than naive by
    `DPS_MARGIN_DB` (on the 1000-step grid or finer); CUDA events splitting
@@ -94,7 +98,7 @@ attention backward):
    ms of a step's forward and backward, peak memory, the exported
    `best_ema.msgpack.npz` equal to the EMA shadow in fp16, and the probe's
    200-step DDS (the shadow cast to bf16, as the JAX trainer probes it)
-   better than FBP on its images; then, printed and not gated, 8 steps each
+   better than FBP on its images; then, printed and not gated, 4 steps each
    from the CLI's masters (rounded to bf16), from masters left at the
    checkpoint's fp16 values and in fp32, their losses and probes (what the
    rounding guards against); then DDPM from the fresh init (output exactly
@@ -103,6 +107,35 @@ attention backward):
    each strategy, kernels against plain with the gates of phase 5 and launch
    counts derived from the model's structure; a short run of each through
    the adapted CLI (finite, PSNR printed and not gated);
+11. several images per call (`SHARD_IMAGES` = 4) on the one card: 11a the
+   forward kernels with a bias per image, (4, Cout), at every conv shape of
+   a batch-4 forward in both I/O types (`tc` with one split and with
+   several, `narrow`, `simt`, and `simt` at the `tc` shapes) within `TOL`
+   of `conv3x3_reference`, bitwise equal to the shared-bias launch when the
+   four rows are equal, the bias gradient per image against autograd of
+   the plain version; timed per batch-4 forward beside cuDNN (shared bias)
+   and the bound; 11b the conditional CLI with `--shard_images 4
+   --num_images 4` (DDS, η 0.85, `SHARD_DDS_STEPS` steps) and the first
+   `SHARD_SERIAL_IMAGES` = 1 of the images serially: each batched image
+   beats its FBP, each serial one's batched twin lies within
+   `SHARD_DDS_AGREE_DB` of it, launch counts exact (62 conv3x3 and 4
+   attention per batch-4 forward); seconds per image at 1 and 4, the step
+   split by CUDA events, the device's busy share (bounded by graph replay,
+   and read from `torch.profiler` traces of a few steps at 1 and 4 images:
+   the union of the device events over the wall time); 11c adapted
+   `lora`: the full-width gradient of the batched adaptation loss for 2
+   images (val images 0 and 1, each its own LoRA), each image's rows with
+   phase 5's gates (bf16 kernels against bf16 plain, batched; both against
+   the image's serial fp32 gradient; fp32 kernels, batched, against it per
+   leaf); the batched chain (`sample_batched`, fp32 with the kernels, 2
+   images, injected draws, `SHARD_CHAIN_STEPS` x `SHARD_CHAIN_OPTIM`)
+   within `TOL_SHARD_CHAIN` of each image's serial chain by tensors; then
+   the adapted CLI with `--shard_images 4` cut to 10 x 3 and the first
+   image serially, its batched PSNR within `SHARD_ADAPT_AGREE_DB` of its
+   serial run (against FBP printed, not gated: 10 x 3 does not
+   reconstruct), launch counts exact, seconds per image at 1 and 4, busy
+   share (graph replay, and profiler traces of `SHARD_TRACE_STEPS` outer
+   steps) and peak memory;
 12. walnut: the cone-beam walnut protocol at full scale on the synthetic
    centred CWI orbit (501² slice, 60 angles x 128 columns): the mask probe
    on the card, the native assembly (its rows held to the plain numpy
@@ -110,17 +143,18 @@ attention backward):
    dense model-grid operator formed on the card, FDK; gates: ELL forward
    against dense, the dense adjoint, the Woodbury residual; device times of
    apply, adjoint, CG(5), the Woodbury step and S⁻¹'s build beside their
-   bounds; then DDS with the shipped prior (1000 steps, γ 0.01, η 0.85),
+   bounds; then DDS with the shipped prior (`WALNUT_STEPS` = the
+   protocol's 1000 steps, γ 0.01, η 0.85),
    with CG(5) and with the exact Woodbury solve, each better than FDK by
    `WALNUT_MARGIN_DB` and the two within `WALNUT_AGREE_DB` of each other,
    launch counts exact, each step split into UNet, data consistency and
    rest;
 12b. walnut adapted: the LoRA adaptation loss's full-width gradient through
    the dense operator, kernels against plain with phase 5's gates, then a
-   cut 10 x 3 adapted run (PSNR printed, not gated), launch counts exact;
+   cut 5 x 3 adapted run (PSNR printed, not gated), launch counts exact;
 13. AAPM: synthetic slices (scripts/make_synth_aapm.py, run, not edited);
-   DDS through the conditional CLI (`--dataset aapm`, ellipse prior, 1000
-   steps, η 0.85) better than FBP; DDS through the parallel-beam matrix
+   DDS through the conditional CLI (`--dataset aapm`, ellipse prior,
+   `AAPM_STEPS` = 200 of the protocol's 1000 steps, η 0.85) better than FBP; DDS through the parallel-beam matrix
    operator (Joseph, ELL) on AAPM val image 0 better than FBP; the AAPM
    config's UNet at full width (256 channels, random weights) against its
    plain path with exact launch counts, and its conv3x3 shapes timed by
@@ -182,17 +216,22 @@ TRAIN_WARMUP = 100            # its --lr_warmup (a fresh Adam on a warm start)
 # every training step's loss at most this times the warm-start prior's loss on
 # the same batch, t and z: the first steps move each value by at most 1e-5
 TRAIN_LOSS_RATIO = 1.02
-TRAIN_WITNESS_STEPS = 8       # steps of the bf16-tie witness (phase 9b')
+TRAIN_WITNESS_STEPS = 4       # steps of the bf16-tie witness (phase 9b'; cut, PERF.md §4)
 DDPM_TRAIN_STEPS = 2          # steps of the DDPM run from the fresh init
 PROBE_DDS_STEPS = 200         # the keep-best probe's DDS (run_score_based_models_train.py)
-ADAPT_CLI_STEPS, ADAPT_CLI_OPTIM = 10, 3    # the short full and decoder runs through the CLI
+ADAPT_CLI_STEPS, ADAPT_CLI_OPTIM = 5, 3     # the short full and decoder runs through the CLI
 ADAPT_PROTOCOL_STEPS = 50     # outer steps of the adapted protocol (10 Adam steps each)
+ADAPT_PROTOCOL_OPTIM = 10
+# phase 7 runs the protocol on the OOD bars, where adaptation matters most,
+# and val image 0 at 5 Adam steps an outer step (it beat FBP by 3.4 dB at
+# 50 x 5), to keep the run inside its time limit (PERF.md §4)
+PHASE7_VAL_OPTIM = 5
 DPS_PROTOCOL_STEPS = 1000     # steps of the conditional CLI's protocol
-# cut to keep the run inside its time limit (PERF.md §4): phase 6's DDS (the
-# walnut and AAPM phases run the 1000-step DDS loop), and the grid of phase 8's
-# DPS run from the prior (a known negative result, its PSNR printed and not
-# gated; the CLI's divergence guard is gated on this grid as on the protocol's)
-PHASE6_STEPS = 500
+# cut to keep the run inside its time limit (PERF.md §4): phase 6's DDS (as
+# the AAPM runs'), and the grid of phase 8's runs from the prior (known
+# negative results, their PSNR printed and not gated; the CLI's divergence
+# guard is gated on this grid as on the protocol's)
+PHASE6_STEPS = 200
 DPS_PRIOR_STEPS = 250
 DPS_PENALTY = 10.0            # the best DPS penalty of the JAX package's records (BENCH.md)
 DPS_T = 0.5                   # the time at which the full-width gradient in x is checked
@@ -757,6 +796,105 @@ def check_conv_backward(shapes, gen):
     return tot, max_abs, by_variant, stem
 
 
+def check_conv_bias(shapes, gen):
+    """Phase 11a: the forward kernels with a bias per image ((B, Cout), the
+    batched adapted path's) at every conv shape of a batch-4 forward, in
+    both I/O types, against `conv3x3_reference` within `TOL`: `tc` as
+    planned and with its split of K forced to one and to several splits
+    (the one-split epilogue and the split-K reduction), `narrow` and `simt`
+    as planned, and `simt` also at the `tc` shapes; with four equal rows
+    each launch bitwise equal to the shared-bias launch; the per-image bias
+    gradient through the autograd Function against autograd of the plain
+    version.  Timed in the path's type beside the plain version, cuDNN
+    (`F.conv2d` with a shared bias: it takes no bias per image) and the
+    bound.  Returns (per-forward totals, max|diff|, launches by variant per
+    forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    counts = {}
+    for sh in shapes:
+        counts[sh] = counts.get(sh, 0) + 1
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms", "gflop")
+    tot = dict.fromkeys(keys, 0.0)
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    max_abs, by_variant, checked = 0.0, {}, 0
+    log(f"{'per-image bias (B,H,W,Cin->Cout)':>32} {'dtype':>8} {'n':>3} {'variant':>7} "
+        f"{'splits':>6} {'kernel_ms':>10} {'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} "
+        f"{'rel_err':>9} {'bias_err':>9}")
+    for (xshape, cout, dtype), n in sorted(counts.items(), key=lambda kv: (-kv[0][0][1], kv[0][0][3])):
+        b, h, w, cin = xshape
+        for dt in ("bfloat16", "float32"):
+            x, wt, _ = conv_inputs(xshape, cout, dt, gen)
+            bias = torch.randn((b, cout), generator=gen, device="cuda") * 0.1
+            p = C.plan(b, h, w, cin, cout, x.dtype)
+            runs = [(p.variant, None)]
+            if p.variant == "tc":       # both epilogues: one split and the split-K reduction
+                runs += [("tc", 1 if p.splits > 1 else 2), ("simt", None)]
+            ref = C.conv3x3_reference(x, wt, bias)
+            same = bias[:1].expand(b, cout).contiguous()     # four equal rows
+            shared = bias[0].contiguous()
+            for variant, splits in runs:
+                out = C.conv3x3(x, wt, bias, variant=variant, splits=splits)
+                eq = C.conv3x3(x, wt, same, variant=variant, splits=splits)
+                one = C.conv3x3(x, wt, shared, variant=variant, splits=splits)
+                torch.cuda.synchronize()
+                d, r = rel_err(out, ref)
+                label = (f"{str((b, h, w, cin)) + '->' + str(cout):>32} {dt:>8} {variant}"
+                         f"{'' if splits is None else f' splits={splits}'}")
+                if not (torch.isfinite(out).all() and r <= TOL[dt]):
+                    raise AssertionError(f"conv3x3 per-image bias {label}: rel err {r:.3e} > {TOL[dt]}")
+                if not torch.equal(eq, one):
+                    raise AssertionError(f"conv3x3 per-image bias {label}: four equal rows differ "
+                                         "from the shared-bias launch")
+                worst[dt] = max(worst[dt], r)
+                checked += 1
+            # the bias gradient per image, through the autograd Function
+            g = torch.randn((b, h, w, cout), generator=gen, device="cuda").to(x.dtype)
+            bk, br = bias.clone().requires_grad_(), bias.clone().requires_grad_()
+            (kb,) = torch.autograd.grad(C.conv3x3(x, wt, bk), (bk,), g)
+            (rb,) = torch.autograd.grad(C.conv3x3_reference(x, wt, br), (br,), g)
+            _, rb_err = rel_err(kb, rb)
+            if not (kb.shape == (b, cout) and rb_err <= TOL["float32"]):
+                raise AssertionError(f"conv3x3 per-image bias gradient {xshape}->{cout} {dt}: "
+                                     f"rel err {rb_err:.3e}")
+            if dt != dtype:
+                continue
+            out = C.conv3x3(x, wt, bias)
+            max_abs = max(max_abs, rel_err(out, ref)[0])
+            xl = x.permute(0, 3, 1, 2)
+            wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            bl = bias[0].to(x.dtype)
+            reps = 10 if h >= 128 else 40
+            k_ms = time_ms(lambda: C.conv3x3(x, wt, bias), reps)
+            p_ms = time_ms(lambda: C.conv3x3(x, wt, bias, use_kernel=False), max(reps // 4, 3))
+            l_ms = time_ms(lambda: F.conv2d(xl, wl, bl, padding=1), reps)
+            flops = 2.0 * b * h * w * cin * cout * 9
+            nbytes = (x.numel() * x.element_size() * (1 + cout / cin) + wt.numel() * wt.element_size()
+                      + 4 * bias.numel())
+            b_ms, b_by, ops_ms, bytes_ms = bound(flops, nbytes, dt)
+            log(f"{str((b, h, w, cin)) + '->' + str(cout):>32} {dt:>8} {n:>3} {p.variant:>7} "
+                f"{p.splits:>6} {k_ms:>10.4f} {p_ms:>9.4f} {l_ms:>10.4f} {b_ms:>9.5f} "
+                f"{rel_err(out, ref)[1]:>9.2e} {rb_err:>9.2e}")
+            by_variant[p.variant] = by_variant.get(p.variant, 0) + n
+            row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, ops_ms=ops_ms,
+                       bytes_ms=bytes_ms, gflop=flops / 1e9)
+            for key in keys:
+                tot[key] += n * row[key]
+    log(f"conv3x3 with a bias per image: {checked} launches checked, max rel err bf16 "
+        f"{worst['bfloat16']:.3e} (tol {TOL['bfloat16']}), fp32 {worst['float32']:.3e} (tol "
+        f"{TOL['float32']}); four equal rows bitwise equal to the shared-bias launch in every "
+        "variant; the bias gradient per image within the fp32 tolerance")
+    log(f"conv3x3 per batch-{shapes[0][0][0]} UNet forward with a bias per image "
+        f"({sum(by_variant.values())} calls: " + ", ".join(f"{v} {k}" for v, k in by_variant.items())
+        + f"): kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN (shared bias) "
+        f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms, {tot['gflop']:.1f} GFLOP -> "
+        f"{tot['gflop'] / tot['ms']:.1f} TFLOP/s, {tot['bound_ms'] / tot['ms']:.1%} of the bound")
+    return tot, max_abs, by_variant
+
+
 def wgrad_reduce_ms(p, cin, cout, reps):
     """Device ms of the weight gradient's split-K reduction alone, for plan
     `p` (0 where no partial sums reach device memory)."""
@@ -1066,13 +1204,15 @@ def adapted_phantoms(images):
     return [("val image 0", images[0]), ("OOD bars", ood_bars(256)[..., None])]
 
 
-def adapted_sampler(F, model, sde, trafo, obs, gt, n_steps: int, lora_seed: int):
-    """The adapted protocol's sampler: LoRA rank 4 drawn from `lora_seed`, 10
-    Adam steps at lr 1e-3 per outer step, TV 1e-6, eta 0.85, gamma 0.01,
-    cg(1), add_cg; `F` is the port's factory module."""
+def adapted_sampler(F, model, sde, trafo, obs, gt, n_steps: int, lora_seed: int,
+                    n_optim: int = ADAPT_PROTOCOL_OPTIM):
+    """The adapted protocol's sampler: LoRA rank 4 drawn from `lora_seed`,
+    `n_optim` (the protocol's 10) Adam steps at lr 1e-3 per outer step, TV
+    1e-6, eta 0.85, gamma 0.01, cg(1), add_cg; `F` is the port's factory
+    module."""
     return F.get_standard_adapted_sampler(
         "dds", model, sde, trafo, obs, num_steps=n_steps, eta=0.85, gamma=0.01,
-        tv_penalty=1e-6, lr=1e-3, num_optim_step=10, adapt_freq=1, lora_rank=LORA_RANK,
+        tv_penalty=1e-6, lr=1e-3, num_optim_step=n_optim, adapt_freq=1, lora_rank=LORA_RANK,
         add_cg=True, dc_type="cg", cg_iter=1, ground_truth=gt, lora_seed=lora_seed)
 
 
@@ -1085,18 +1225,18 @@ class AdaptTimer:
         self.steps, self.inner = [], False
         adapt, score = sampler.adapt_step, sampler.score
 
-        def timed_adapt(x, t):
+        def timed_adapt(x, t, *images):
             start = StepTimer._event()
             self.inner = True
-            adapt(x, t)
+            adapt(x, t, *images)
             self.inner = False
             self.steps.append({"start": start, "adapted": StepTimer._event(), "fwd": []})
 
-        def timed_score(x, t, lora_scale, use_kernel=True):
+        def timed_score(x, t, lora_scale, use_kernel=True, leaves=None):
             if self.inner or not self.steps:
-                return score(x, t, lora_scale, use_kernel)
+                return score(x, t, lora_scale, use_kernel, leaves)
             e0 = StepTimer._event()
-            out = score(x, t, lora_scale, use_kernel)
+            out = score(x, t, lora_scale, use_kernel, leaves)
             self.steps[-1]["fwd"].append((e0, StepTimer._event()))
             return out
 
@@ -1334,6 +1474,495 @@ def gradient_gates(gk, gp, g32, g32k, losses, what):
                              "plain path")
 
 
+# ---- phase 11: several images per call on the one card
+SHARD_IMAGES = 4              # images per call (the CLIs' --shard_images)
+# cut to fit the run's time limit (PERF.md §4): the conditional DDS of the
+# four test-fold images runs this many steps (protocol 1000), the adapted
+# runs 10 outer x 3 Adam steps (protocol 50 x 10), and the serial runs that
+# the batched ones are held to take the first of the four images (the fp32
+# chain of 11c holds two adapted images to their serial chains by tensors)
+SHARD_DDS_STEPS = 50
+SHARD_ADAPT_STEPS, SHARD_ADAPT_OPTIM = 10, 3
+SHARD_SERIAL_IMAGES = 1
+# the batched adapted chain held to the serial one by tensors: fp32 with the
+# kernels, 2 images (val images 0 and 1, each its own LoRA state and its own
+# injected draws), DDS on a 4-step grid with 3 Adam steps per outer step;
+# each row's max|batched - serial| / max|serial| (JAX's own test of its
+# batched mode holds rtol 1e-3: tests/test_adaptation.py), set before the
+# first run (PERF.md §6)
+SHARD_CHAIN_STEPS, SHARD_CHAIN_OPTIM = 4, 3
+TOL_SHARD_CHAIN = 1e-3
+# the runs whose device busy share a torch.profiler trace reads, at 1 image
+# and at SHARD_IMAGES: the last DDS steps of the 100-step grid, and the first
+# adapted outer steps (the CLI's 3 Adam steps) of the 10-step grid
+SHARD_TRACE_DDS_STEPS = 10
+SHARD_TRACE_STEPS = 1
+# each batched image's PSNR within this of its serial run (dB), set before
+# the first run (PERF.md §6): DDS draws its chunk's chain from one generator,
+# so batched and serial differ by the draw; the adapted runs draw the same
+# numbers, and differ by the batch's last bits (split-K by batch, bf16),
+# which adaptation amplifies (adapted_spread.py: about 1 dB on a val image)
+SHARD_DDS_AGREE_DB = 1.0
+SHARD_ADAPT_AGREE_DB = 2.0
+
+
+class CallTimer:
+    """Wall seconds of calls to some methods of an object, each call ended
+    by a synchronise of the card, summed by method name."""
+
+    def __init__(self, obj, names):
+        import torch
+
+        self.seconds = dict.fromkeys(names, 0.0)
+        self.calls = dict.fromkeys(names, 0)
+        for name in names:
+            fn = getattr(obj, name)
+
+            def timed(*a, _fn=fn, _name=name, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                torch.cuda.synchronize()
+                self.seconds[_name] += time.perf_counter() - t0
+                self.calls[_name] += 1
+                return out
+
+            setattr(obj, name, timed)
+
+
+def run_cli(module, argv, workdir, patch=None):
+    """`module.coordinator(argv)` in `workdir`, with `patch` = (factory
+    module, name, wrap) swapping a factory function for the call; returns
+    (output directory, wall seconds, launch counts, report)."""
+    import torch
+
+    cwd = os.getcwd()
+    os.makedirs(workdir, exist_ok=True)
+    os.chdir(workdir)
+    orig = None
+    if patch is not None:
+        mod, name, wrap = patch
+        orig = getattr(mod, name)
+        setattr(mod, name, wrap(orig))
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        ts = time.perf_counter()
+        root = module.coordinator(module.parser.parse_args(argv))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - ts
+        counts = read_counts()
+    finally:
+        if orig is not None:
+            setattr(patch[0], patch[1], orig)
+        os.chdir(cwd)
+    root = os.path.join(workdir, root)
+    return root, wall_s, counts, read_report(os.path.join(root, "report.yaml"))
+
+
+def busy_share_profiled(fn, log_dir):
+    """Device busy share of `fn` from the port's `utils/profiling.py::
+    device_trace` (a torch.profiler trace, written to `log_dir`): the union
+    of the device events' intervals (`device_busy_us`: each kernel, copy
+    and memset once) over the wall time under the profiler, whose own cost
+    on the host lowers the share (None where the trace holds no device
+    time)."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.utils.profiling import device_busy_us, device_trace
+
+    torch.cuda.synchronize()
+    with device_trace(log_dir):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = device_busy_us(os.path.join(log_dir, "trace.json"))
+    return (dev_us / 1e3 / wall_ms) if dev_us > 0 else None
+
+
+def batched_gradient_check(F, config, config32, sde, trafo, images, gen):
+    """Phase 11c's first part: the full-width gradient of the batched
+    adaptation loss for two images (val images 0 and 1 at t = 0.5, each its
+    own LoRA state with nonzero up-projections), bf16 and fp32 with the
+    kernels, and bf16 plain, each image's row under phase 5's gates against
+    the image's serial fp32 gradient: bf16 kernels against bf16 plain in
+    the same batched arithmetic, both against the serial fp32 gradient, fp32
+    kernels against it per leaf.  (bf16 rounding moves this loss's gradient
+    by about a tenth from fp32 either way, so a bf16 gradient taken in
+    another order, the serial one, differs by as much: printed, not gated.)
+    Returns (the bf16 and the fp32 LoRA model, the two observations, the
+    two images' noised states)."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.sampling.adaptation import init_lora
+
+    m16, _, _ = F.get_standard_score(config, sde, ckpt_path=CKPT, lora_rank=LORA_RANK)
+    m32, _, _ = F.get_standard_score(config32, sde, ckpt_path=CKPT, lora_rank=LORA_RANK)
+    obs2, xs, ts = [], [], torch.full((1,), 0.5, device="cuda")
+    for j in range(2):
+        g = torch.Generator(device="cuda").manual_seed(config.seed + j)
+        gt, obs, _ = F.get_data_from_ground_truth(images[j], trafo, config.data.stddev, generator=g)
+        obs2.append(obs)
+        xs.append(gt + sde.marginal_prob_std(ts).reshape(1, 1, 1, 1) * torch.randn(
+            gt.shape, generator=gen, device="cuda"))
+    x2, t2 = torch.cat(xs), torch.full((2,), 0.5, device="cuda")
+    smps = {name: F.get_standard_adapted_sampler(
+        "dds", m, sde, trafo, obs2[0], num_steps=50, lora_rank=LORA_RANK, add_cg=True, cg_iter=1,
+        dc_type="cg", tv_penalty=1e-6, lr=1e-3) for name, m in (("bf16", m16), ("fp32", m32))}
+    loras = []
+    for j in range(2):          # every up-projection nonzero, so that every branch carries gradient
+        st = init_lora(m16, seed=j)
+        loras.append({k: (v if k.endswith(".down") else
+                          0.01 * torch.randn(v.shape, generator=gen, device="cuda"))
+                      for k, v in st.items()})
+    stack = {k: torch.stack([lo[k] for lo in loras]) for k in loras[0]}
+
+    def batched_grads(smp, use_kernel):
+        flags = {nm: p.requires_grad for nm, p in smp.model.named_parameters()}
+        smp.model.requires_grad_(False)
+        try:
+            imgs = smp.batched_inputs(torch.stack(obs2), stack)
+            loss = smp.adaptation_loss(x2, t2, use_kernel=use_kernel, images=imgs)
+            grads = torch.autograd.grad(loss, list(imgs.leaves.values()))
+        finally:
+            for nm, p in smp.model.named_parameters():
+                p.requires_grad_(flags[nm])
+        return float(loss.detach()), dict(zip(imgs.leaves, grads))
+
+    def serial_grads(smp, j, use_kernel):
+        smp.observation, smp.rhs, smp.lora = obs2[j], trafo.adjoint(obs2[j]), loras[j]
+        return adaptation_gradients(smp, xs[j], ts, use_kernel)
+
+    reset_counts()
+    loss_bk, gbk = batched_grads(smps["bf16"], True)
+    counts = read_counts()
+    check_counts(counts, 1, 1, "one forward and backward of the batched adaptation loss")
+    loss_bk32, gbk32 = batched_grads(smps["fp32"], True)
+    loss_bp, gbp = batched_grads(smps["bf16"], False)
+    serial = {j: (serial_grads(smps["bf16"], j, False), serial_grads(smps["fp32"], j, False))
+              for j in range(2)}
+    for j in range(2):
+        (lp, gp), (l32, g32) = serial[j]
+        gk = {k: v[j] for k, v in gbk.items()}
+        g32k = {k: v[j] for k, v in gbk32.items()}
+        gbp_j = {k: v[j] for k, v in gbp.items()}
+        # bf16 kernels against bf16 plain in the same (batched) arithmetic, both
+        # against the image's serial fp32 gradient; fp32 batched kernels
+        # against it per leaf (1e-3): what shows that the images do not couple
+        gradient_gates(gk, gbp_j, g32, g32k, (loss_bk, loss_bp, l32, loss_bk32),
+                       f"image {j} of the batched adaptation loss (2 images, batched: bf16 "
+                       f"kernels, bf16 plain, fp32 kernels) against its serial loss (fp32 plain)")
+        log(f"  image {j}, not gated: the bf16 serial plain gradient lies "
+            f"{lora_leaf_errors(gp, g32)[1]:.3e} from the serial fp32 one and "
+            f"{lora_leaf_errors(gbp_j, gp)[1]:.3e} from the batched bf16 plain one (bf16 rounding "
+            f"of this loss's gradient, in another order; serial bf16 loss {lp:.6e})")
+    del gbk, gbk32, gbp, serial, smps
+    log("  launches of one forward and backward of the batched loss at 2 images: "
+        + json.dumps(counts))
+    return m16, m32, obs2, x2
+
+
+def batched_chain_check(F, m32, sde, trafo, obs2, gen):
+    """Phase 11c's second part: the whole batched adapted chain, held by
+    tensors to each image's serial chain.  `sample_batched` under `lora`
+    in fp32 with the kernels, for the two observations of
+    `batched_gradient_check`, each image with its own `init_lora` state
+    (seed = its index, as the CLI draws them) and its own injected draws;
+    then each image alone through `sample` with the same state and draws.
+    What couples images or mixes up their leaves, Adam states, draws or
+    observations shows here, over the chain's adaptations."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.sampling.adaptation import init_lora
+
+    smp = F.get_standard_adapted_sampler(
+        "dds", m32, sde, trafo, obs2[0], num_steps=SHARD_CHAIN_STEPS, eta=0.85, gamma=0.01,
+        tv_penalty=1e-6, lr=1e-3, num_optim_step=SHARD_CHAIN_OPTIM, adapt_freq=1,
+        lora_rank=LORA_RANK, add_cg=True, dc_type="cg", cg_iter=1)
+    loras = [init_lora(m32, seed=j) for j in range(2)]
+    stack = {k: torch.stack([lo[k] for lo in loras]) for k in loras[0]}
+    noises = [[torch.randn((1, 256, 256, 1), generator=gen, device="cuda")
+               for _ in range(smp.num_draws)] for _ in range(2)]
+    reset_counts()
+    xb = smp.sample_batched(torch.stack(obs2), noises=noises, lora_stack=stack)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_fwd = SHARD_CHAIN_STEPS * (SHARD_CHAIN_OPTIM + 2) + 1
+    n_bwd = SHARD_CHAIN_STEPS * SHARD_CHAIN_OPTIM
+    want = {"conv_fwd": 62 * n_fwd, "attn_fwd": 4 * n_fwd, "conv_bwd": 61 * n_bwd,
+            "conv_wgrad": 0, "attn_bwd": 4 * n_bwd}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"the batched fp32 chain: launch counts {counts}, want {want}")
+    errs = []
+    for j in range(2):
+        smp.observation, smp.rhs, smp.lora = obs2[j], trafo.adjoint(obs2[j]), loras[j]
+        xs, _ = smp.sample(noises=noises[j])
+        if not (xb.shape == (2, 1, 256, 256, 1) and torch.isfinite(xb[j]).all()):
+            raise AssertionError(f"the batched fp32 chain's image {j} is not finite or of the "
+                                 "wrong shape")
+        errs.append(float((xb[j] - xs).abs().max() / xs.abs().max()))
+    log(f"  batched adapted chain (lora, fp32 with the kernels, 2 images, {SHARD_CHAIN_STEPS} x "
+        f"{SHARD_CHAIN_OPTIM}, injected draws) against each image's serial chain: max|diff| / "
+        f"max|serial| " + ", ".join(f"image {j} {e:.3e}" for j, e in enumerate(errs))
+        + f" (tol {TOL_SHARD_CHAIN:g}); launches " + json.dumps(counts))
+    if not max(errs) <= TOL_SHARD_CHAIN:
+        raise AssertionError(f"the batched adapted chain differs from the serial one: {errs}")
+    return errs
+
+
+def multi_image_phase(F, P, CLI, ACLI, model, config, config32, sde, trafo, images, gen, workdir,
+                      dev_times):
+    """Phase 11: 11a the forward kernels with a bias per image; 11b the
+    conditional CLI's `--shard_images`; 11c the adapted CLI's under `lora`,
+    after the batched adaptation loss's full-width gradient for two
+    images against each image's serial gradient.  Returns what the kernel
+    summary needs."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops.cg import cg
+    from diffusion_models_dev_project_tpu_torch.utils.metrics import PSNR, SSIM
+
+    n = SHARD_IMAGES
+    out = {}
+    # ---- 11a. the per-image bias at every conv shape of a batch-n forward
+    t0 = time.perf_counter()
+    x4 = torch.randn((n, 256, 256, 1), generator=gen, device="cuda") * 10.0
+    t4 = torch.full((n,), 0.5, device="cuda")
+    seen, handles = record_shapes(model)
+    with torch.no_grad():
+        model(x4, t4)
+    for hnd in handles:
+        hnd.remove()
+    out["bias_tot"], out["bias_err"], out["bias_variants"] = check_conv_bias(seen["conv"], gen)
+    with torch.no_grad():
+        fwd4_dev = time_ms(lambda: model(x4, t4), 5)
+    log(f"  UNet forward at batch {n}: {fwd4_dev:.2f} ms of device time (graph replay), against "
+        f"{dev_times['fwd']:.2f} ms at batch 1 (phase 4): {fwd4_dev / dev_times['fwd']:.2f}x for "
+        f"{n}x the images")
+    log(f"[phase 11a per-image bias] {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11b. the conditional CLI: n images per call, then the first k serially
+    t0 = time.perf_counter()
+    k = SHARD_SERIAL_IMAGES
+    base = ["--load_path", CKPT, "--num_channels", "128", "--method", "dds", "--eta", "0.85",
+            "--num_steps", str(SHARD_DDS_STEPS)]
+    images_of = {"batched": n, "serial": k}
+    runs = {}
+    for mode, argv in (("batched", base + ["--num_images", str(n), "--shard_images", str(n)]),
+                       ("serial", base + ["--num_images", str(k)])):
+        timers = []
+
+        def wrap(make):
+            def made(*a, **k):
+                smp = make(*a, **k)
+                timer = StepTimer(smp.score_fn, cg, first_step=SHARD_DDS_STEPS // 2)
+                smp.score_fn = timer.score
+                timers.append((timer, CallTimer(smp, ["sample"])))
+                return smp
+            return made
+
+        P.cg = lambda *a, **k: timers[-1][0].cg(*a, **k) if timers else cg(*a, **k)
+        try:
+            root, wall_s, counts, report = run_cli(CLI, argv, os.path.join(workdir, mode),
+                                                   (F, "get_standard_sampler", wrap))
+        finally:
+            P.cg = cg
+        timer, calls = timers[0]
+        timer.finish()
+        rows = timer.split()
+        med = {k: float(np.median([r[k] for r in rows])) for k in ("step", "unet", "cg", "rest")}
+        recs = []
+        for i in range(images_of[mode]):
+            with np.load(os.path.join(root, f"recon_{i}_info.npz")) as info:
+                recs.append((info["recon"], info["ground_truth"]))
+        runs[mode] = dict(root=root, wall_s=wall_s, counts=counts, report=report, med=med,
+                          sample_s=calls.seconds["sample"], recs=recs)
+        n_fwd = SHARD_DDS_STEPS * (1 if mode == "batched" else k)
+        check_counts(counts, n_fwd, 0, f"DDS of {images_of[mode]} images through the CLI, {mode}")
+        if mode == "batched" and report["diverged_images"] != "[]":
+            raise AssertionError(f"batched DDS diverged: {report['diverged_images']}")
+    rows_out = []
+    for i in range(n):
+        rb, g_np = runs["batched"]["recs"][i]
+        rs, g_s = runs["serial"]["recs"][i] if i < k else (None, g_np)
+        if not (np.array_equal(g_np, g_s) and rb.shape == (256, 256) and np.isfinite(rb).all()):
+            raise AssertionError(f"conditional image {i}: batched and serial differ in their image, "
+                                 "or the batched reconstruction is not finite")
+        g = torch.Generator(device="cuda").manual_seed(config.seed * 1000 + i)
+        _, _, fbp = F.get_data_from_ground_truth(g_np[..., None], trafo, config.data.stddev,
+                                                 generator=g)
+        f_np = fbp[0, ..., 0].cpu().numpy()
+        pb, pf = PSNR(rb, g_np), PSNR(f_np, g_np)
+        ps = None if rs is None else PSNR(rs, g_np)
+        rows_out.append((pb, ps, pf))
+        log(f"  test-fold image {i}: DDS batched ({n} per call) {pb:.2f} dB / {SSIM(rb, g_np):.4f} "
+            + ("SSIM | not run serially" if rs is None else
+               f"SSIM | serial {ps:.2f} dB / {SSIM(rs, g_np):.4f}")
+            + f" | FBP {pf:.2f} dB / {SSIM(f_np, g_np):.4f}")
+    for i, (pb, ps, pf) in enumerate(rows_out):
+        if not pb > pf:
+            raise AssertionError(f"image {i}: batched DDS {pb:.2f} dB does not beat FBP {pf:.2f} dB")
+        if ps is not None and abs(pb - ps) > SHARD_DDS_AGREE_DB:
+            raise AssertionError(f"image {i}: batched DDS {pb:.2f} dB and serial {ps:.2f} dB differ "
+                                 f"by more than {SHARD_DDS_AGREE_DB} dB")
+    # busy share (at most): the device time of a step's UNet forward and CG(5)
+    # (graph replay) over the median step inside the loop
+    xh4 = torch.randn((n, 256, 256, 1), generator=gen, device="cuda")
+    dc_op = P.make_dc_op(trafo.with_gram() if hasattr(trafo, "with_gram") else trafo, 0.01)
+    rhs4 = trafo.adjoint(trafo.apply(xh4))
+    cg4_dev = time_ms(lambda: cg(dc_op, xh4, xh4 + 0.01 * rhs4, n_iter=5), 5)
+    dev = {"batched": fwd4_dev + cg4_dev, "serial": dev_times["fwd"] + dev_times["cg"]}
+    # and from profiler traces of the grid's last steps at 1 and at n images
+    prof_share = {}
+    for mode, b in (("serial", 1), ("batched", n)):
+        smp = F.get_standard_sampler("dds", lambda a, tt: model(a, tt), sde, trafo,
+                                     trafo.apply(xh4[:b]), num_steps=SHARD_DDS_STEPS,
+                                     batch_size=b, im_shape=(256, 256, 1), gamma=0.01, eta=0.85,
+                                     cg_iter=5)
+        smp._time_data = tuple(a[-SHARD_TRACE_DDS_STEPS:] if isinstance(a, np.ndarray) else a
+                               for a in smp._time_data)
+        tc0 = time.perf_counter()
+        prof_share[mode] = busy_share_profiled(lambda: smp.sample(generator=gen),
+                                               os.path.join(workdir, "trace_" + mode))
+        log(f"  (the DDS profiler trace at {b} image(s): {time.perf_counter() - tc0:.1f} s)")
+    out["dds"] = {}
+    for mode in ("serial", "batched"):
+        r = runs[mode]
+        per_image = r["sample_s"] / images_of[mode]
+        share = dev[mode] / r["med"]["step"]
+        out["dds"][mode] = dict(s_per_image=per_image, ms_step=r["med"]["step"], busy_max=share,
+                                busy_profiled=prof_share[mode])
+        log(f"  DDS {SHARD_DDS_STEPS} steps, {1 if mode == 'serial' else n} image(s) per call: "
+            f"{per_image:.3f} s per image in the sampler ({r['wall_s']:.1f} s in the CLI for "
+            f"{images_of[mode]}); per step (CUDA events, median of the last steps) "
+            f"{r['med']['step']:.2f} ms = UNet {r['med']['unet']:.2f} ms + CG(5) "
+            f"{r['med']['cg']:.2f} ms + rest {r['med']['rest']:.2f} ms; device busy: graph-replay "
+            f"UNet + CG {dev[mode]:.2f} ms is at most {share:.1%} of the step, a torch.profiler "
+            f"trace of {SHARD_TRACE_DDS_STEPS} steps (union of the device events over the wall "
+            "time) "
+            + ("holds no device time" if prof_share[mode] is None
+               else f"{prof_share[mode]:.1%} busy"))
+    log(f"  seconds per image: {out['dds']['serial']['s_per_image']:.2f} at 1 image per call, "
+        f"{out['dds']['batched']['s_per_image']:.2f} at {n}; launches batched "
+        + json.dumps(runs["batched"]["counts"]))
+    out["dds_counts"] = runs["batched"]["counts"]
+    log(f"[phase 11b conditional, {n} images] {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11c. adapted lora: the batched gradient for two images, then the CLI
+    t0 = time.perf_counter()
+    m16, m32, obs2, x2 = batched_gradient_check(F, config, config32, sde, trafo, images, gen)
+    tc0 = time.perf_counter()
+    out["chain_errs"] = batched_chain_check(F, m32, sde, trafo, obs2, gen)
+    del m32
+    log(f"  (the batched gradient and the fp32 chain: {tc0 - t0:.1f} s and "
+        f"{time.perf_counter() - tc0:.1f} s)")
+    # device time of one Adam step's forward and backward at n images (graph replay)
+    smp = F.get_standard_adapted_sampler("dds", m16, sde, trafo, obs2[0], num_steps=50,
+                                         lora_rank=LORA_RANK, add_cg=True, cg_iter=1)
+    m16.requires_grad_(False)
+    imgs4 = smp.batched_inputs(torch.cat([torch.stack(obs2)] * (n // 2)), None)
+    leaves4 = list(imgs4.leaves.values())
+    x4a = torch.cat([x2] * (n // 2))
+    both4_dev = time_ms(lambda: torch.autograd.grad(
+        smp.adaptation_loss(x4a, t4, images=imgs4), leaves4), 3)
+    del imgs4, leaves4, smp
+    base = ["--load_path", CKPT, "--num_channels", "128", "--dtype", "bfloat16", "--adaptation",
+            "lora", "--num_steps", str(SHARD_ADAPT_STEPS), "--num_optim_step",
+            str(SHARD_ADAPT_OPTIM), "--add_cg"]
+    runs = {}
+    for mode, argv in (("batched", base + ["--num_images", str(n), "--shard_images", str(n)]),
+                       ("serial", base + ["--num_images", str(k)])):
+        made = []
+
+        def wrap(make):
+            def mk(*a, **k):
+                s_ = make(*a, **k)
+                made.append((AdaptTimer(s_), CallTimer(s_, ["sample", "sample_batched"])))
+                return s_
+            return mk
+
+        resident = torch.cuda.memory_allocated()        # the models this script holds
+        torch.cuda.reset_peak_memory_stats()
+        root, wall_s, counts, report = run_cli(ACLI, argv, os.path.join(workdir, "a" + mode),
+                                               (F, "get_standard_adapted_sampler", wrap))
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        rows = [r for timer, _ in made for r in timer.split()]
+        med = {k: float(np.median([r[k] for r in rows]))
+               for k in ("step", "adapt", "fwd_adapted", "fwd_prior", "rest")}
+        sample_s = sum(sum(c.seconds.values()) for _, c in made)
+        recs = []
+        for i in range(images_of[mode]):
+            with np.load(os.path.join(root, f"recon_{i}_info.npz")) as info:
+                recs.append((info["recon"], info["ground_truth"]))
+        runs[mode] = dict(wall_s=wall_s, counts=counts, med=med, sample_s=sample_s, recs=recs,
+                          peak=peak)
+        chains = 1 if mode == "batched" else k
+        check_counts(counts, chains * (SHARD_ADAPT_STEPS * (SHARD_ADAPT_OPTIM + 2) + 1),
+                     chains * SHARD_ADAPT_STEPS * SHARD_ADAPT_OPTIM,
+                     f"adapted lora through the CLI, {mode}")
+    for i in range(k):
+        (rb, g_np), (rs, g_s) = runs["batched"]["recs"][i], runs["serial"]["recs"][i]
+        if not (np.array_equal(g_np, g_s) and rb.shape == (256, 256) and np.isfinite(rb).all()):
+            raise AssertionError(f"adapted image {i}: batched and serial differ in their image, or "
+                                 "the batched reconstruction is not finite")
+        g = torch.Generator(device="cuda").manual_seed(config.seed * 1000 + i)
+        _, _, fbp = F.get_data_from_ground_truth(g_np[..., None], trafo, config.data.stddev,
+                                                 generator=g)
+        f_np = fbp[0, ..., 0].cpu().numpy()
+        pb, ps, pf = PSNR(rb, g_np), PSNR(rs, g_np), PSNR(f_np, g_np)
+        log(f"  test-fold image {i}: adapted lora {SHARD_ADAPT_STEPS} x {SHARD_ADAPT_OPTIM} batched "
+            f"({n} per call) {pb:.2f} dB | serial {ps:.2f} dB | FBP {pf:.2f} dB (a cut run that "
+            "does not reconstruct: PSNR against FBP not gated; the fp32 chain above holds batched "
+            "to serial by tensors)")
+        if abs(pb - ps) > SHARD_ADAPT_AGREE_DB:
+            raise AssertionError(f"adapted image {i}: batched {pb:.2f} dB and serial {ps:.2f} dB "
+                                 f"differ by more than {SHARD_ADAPT_AGREE_DB} dB")
+    # the device's busy share from profiler traces of SHARD_TRACE_STEPS outer
+    # steps at 1 and at n images (the CLI's settings, the shapes warm)
+    prof_share, tc0 = {}, time.perf_counter()
+    smp = F.get_standard_adapted_sampler("dds", m16, sde, trafo, obs2[0],
+                                         num_steps=SHARD_ADAPT_STEPS, num_optim_step=SHARD_ADAPT_OPTIM,
+                                         lora_rank=LORA_RANK, add_cg=True, cg_iter=1)
+    smp._time_data = tuple(a[:SHARD_TRACE_STEPS] if isinstance(a, np.ndarray) else a
+                           for a in smp._time_data)
+    obs4 = torch.cat([torch.stack(obs2)] * (n // 2))
+    for mode, call in (("serial", lambda: smp.sample(generator=gen)),
+                       ("batched", lambda: smp.sample_batched(obs4, generator=gen))):
+        prof_share[mode] = busy_share_profiled(call, os.path.join(workdir, "trace_adapted_" + mode))
+    del smp
+    log(f"  (the adapted runs' profiler traces: {time.perf_counter() - tc0:.1f} s)")
+    out["adapted"] = {}
+    for mode in ("serial", "batched"):
+        r = runs[mode]
+        per_image = r["sample_s"] / images_of[mode]
+        dev_step = (SHARD_ADAPT_OPTIM * (dev_times["adapt_both"] if mode == "serial" else both4_dev)
+                    + 2 * (dev_times["fwd"] if mode == "serial" else fwd4_dev))
+        share = dev_step / r["med"]["step"]
+        out["adapted"][mode] = dict(s_per_image=per_image, ms_step=r["med"]["step"],
+                                    busy_max=share, busy_profiled=prof_share[mode],
+                                    peak_gib=r["peak"])
+        log(f"  adapted {SHARD_ADAPT_STEPS} x {SHARD_ADAPT_OPTIM}, {1 if mode == 'serial' else n} "
+            f"image(s) per call: {per_image:.3f} s per image in the sampler ({r['wall_s']:.1f} s in "
+            f"the CLI for {images_of[mode]}); per outer step (median) {r['med']['step']:.1f} ms = "
+            f"adaptation {r['med']['adapt']:.1f} ms + adapted forward {r['med']['fwd_adapted']:.2f} "
+            f"ms + prior forward {r['med']['fwd_prior']:.2f} ms + rest {r['med']['rest']:.2f} ms; "
+            f"device busy at most {share:.1%} (graph replay: {SHARD_ADAPT_OPTIM} x forward + "
+            f"backward + 2 forwards = {dev_step:.1f} ms), a torch.profiler trace of "
+            f"{SHARD_TRACE_STEPS} outer steps "
+            + ("holds no device time" if prof_share[mode] is None
+               else f"{prof_share[mode]:.1%} busy")
+            + f"; peak memory {r['peak']:.2f} GiB above what the script held before")
+    log(f"  seconds per image: {out['adapted']['serial']['s_per_image']:.2f} at 1 image per call, "
+        f"{out['adapted']['batched']['s_per_image']:.2f} at {n}; device forward + backward of the "
+        f"loss at {n} images {both4_dev:.2f} ms against {dev_times['adapt_both']:.2f} ms at 1; "
+        "launches batched " + json.dumps(runs["batched"]["counts"]))
+    out["adapted_counts"] = runs["batched"]["counts"]
+    del m16
+    log(f"[phase 11c adapted lora, {n} images] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # ---- phases 12, 12b and 13: the walnut protocol, AAPM and the matrix operator
 # The walnut protocol (scripts/_walnut_common.py, copied: that module imports the
 # JAX package): the CWI scanner's magnification (source 66 mm from the centre,
@@ -1347,7 +1976,7 @@ WALNUT_SLICE_CFG = dict(num_slices=9, slice_offset=0, num_proj_rows=9,
                         first_proj_row=(972 - 9) // 2)
 WALNUT_STDDEV = 0.05          # walnut_configs: relative noise of the observation
 WALNUT_GAMMA, WALNUT_ETA = 0.01, 0.85
-WALNUT_PROTOCOL_STEPS = 1000
+WALNUT_STEPS = 1000           # DDS steps of the walnut runs (the protocol's)
 # each walnut DDS (cg and woodbury) must beat FDK by this much (dB): about half
 # the smaller margin of a probe of both runs (11.55 dB, walnut_probe.py), set
 # before the full run (PERF.md §6)
@@ -1361,9 +1990,11 @@ TOL_NATIVE = dict(rtol=1e-5, atol=1e-6)   # as tests/test_native.py
 TOL_WALNUT_ELL = 1e-5         # |A_ell x - A_dense x| / |A_ell x| at the model grid
 TOL_WALNUT_ADJ = 1e-5         # |<Ax, y> - <x, Aᵀy>| / |<Ax, y>| of the dense operator
 TOL_WOODBURY = 1e-4           # |(I + γAᵀA)x - (x̂₀ + γAᵀy)| / |x̂₀ + γAᵀy|
-WALNUT_ADAPT_STEPS, WALNUT_ADAPT_OPTIM = 10, 3   # the adapted walnut run, cut
+WALNUT_ADAPT_STEPS, WALNUT_ADAPT_OPTIM = 5, 3    # the adapted walnut run, cut
 AAPM_SLICES = 24              # scripts/make_synth_aapm.py --n
-AAPM_STEPS = 1000             # DDS steps of the AAPM runs (protocol)
+# DDS steps of the AAPM runs (protocol 1000), cut to keep the whole run inside
+# its time limit (PERF.md §4)
+AAPM_STEPS = 200
 
 
 def walnut_phantom(n=501):
@@ -1817,8 +2448,7 @@ def aapm_phase(F, P, model_args, steps, gen, cli_workdir):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=PHASE6_STEPS,
-                    help="DDS steps per image of phase 6 (protocol: 1000; the walnut and AAPM "
-                    "phases run the 1000-step loop)")
+                    help="DDS steps per image of phase 6 (protocol: 1000)")
     ap.add_argument("--images", type=int, default=1, help="val images to reconstruct with DDS")
     ap.add_argument("--adapt-steps", type=int, default=50,
                     help="outer steps of the adapted phase (protocol: 50)")
@@ -1846,6 +2476,7 @@ def main() -> None:
     from diffusion_models_dev_project_tpu_torch.ops.cg import cg
     from diffusion_models_dev_project_tpu_torch.ops.diffusion import tweedy
     from diffusion_models_dev_project_tpu_torch.sampling import predictors as P
+    from diffusion_models_dev_project_tpu_torch.utils.flops import fn_flops
     from diffusion_models_dev_project_tpu_torch.utils.metrics import PSNR, SSIM
 
     # ---- 1. device
@@ -1916,6 +2547,15 @@ def main() -> None:
         f"replayed as a CUDA graph), {fwd_plain_ms:.2f} ms plain")
     if not (torch.isfinite(out).all() and out.shape == (1, 256, 256, 1) and r <= TOL_UNET):
         raise AssertionError("UNet forward with kernels disagrees with the plain path")
+    # the FLOP counter (utils/flops.py): torch's counter plus the kernels' reports
+    with torch.no_grad():
+        total_flops, parts = fn_flops(model, x, t, breakdown=True)
+    log(f"  FLOPs of one forward (utils/flops.py::fn_flops): {total_flops / 1e9:.2f} GFLOP = "
+        + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in parts.items())
+        + f"; the 62 conv3x3 launches against their shapes' sum {conv_tot['gflop']:.2f}")
+    if not (math.isclose(parts.get("conv3x3", 0.0), conv_tot["gflop"] * 1e9, rel_tol=1e-9)
+            and abs(parts["conv3x3"] / 1e9 - 369.9) < 0.05):
+        raise AssertionError("the FLOP counter's conv3x3 work is not the 62 convs' 369.9 GFLOP")
     log(f"[phase 4 unet] {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. full-width gradient of the adaptation loss, kernels against plain
@@ -2049,7 +2689,9 @@ def main() -> None:
     for i, (what, img) in enumerate(phantoms[:args.adapt_images]):
         g = torch.Generator(device="cuda").manual_seed(config.seed + 100 + i)
         gt, obs, fbp = F.get_data_from_ground_truth(img, trafo, config.data.stddev, generator=g)
-        sampler = adapted_sampler(F, model_l, sde, trafo, obs, gt, n_steps, lora_seed=i)
+        n_optim = PHASE7_VAL_OPTIM if i == 0 else ADAPT_PROTOCOL_OPTIM
+        sampler = adapted_sampler(F, model_l, sde, trafo, obs, gt, n_steps, lora_seed=i,
+                                  n_optim=n_optim)
         timer = AdaptTimer(sampler)
         torch.cuda.synchronize()
         reset_counts()
@@ -2058,11 +2700,12 @@ def main() -> None:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - ts
         counts = read_counts()
-        check_counts(counts, n_steps * 12 + 1, n_steps * 10, f"adapted {what}")
+        check_counts(counts, n_steps * (n_optim + 2) + 1, n_steps * n_optim, f"adapted {what}")
         adapt_counts = counts if adapt_counts is None else {
             k: (v + counts[k] if isinstance(v, int) else {kk: vv + counts[k][kk] for kk, vv in v.items()})
             for k, v in adapt_counts.items()}
-        adapt_rows.extend(timer.split())
+        if n_optim == ADAPT_PROTOCOL_OPTIM:
+            adapt_rows.extend(timer.split())
         dds = F.get_standard_sampler("dds", score_fn, sde, trafo, obs, num_steps=n_steps,
                                      im_shape=(256, 256, 1), gamma=0.01, eta=0.85, cg_iter=5)
         xd, _ = dds.sample(generator=g)
@@ -2076,7 +2719,8 @@ def main() -> None:
             rec[name] = (PSNR(r, g_np), SSIM(r, g_np))
         fb = (PSNR(f_np, g_np), SSIM(f_np, g_np))
         tr = trace.float().cpu().numpy()
-        log(f"  {what}: adapted {rec['adapted'][0]:.2f} dB / {rec['adapted'][1]:.4f} SSIM | "
+        log(f"  {what}: adapted ({n_steps} x {n_optim}) {rec['adapted'][0]:.2f} dB / "
+            f"{rec['adapted'][1]:.4f} SSIM | "
             f"DDS {n_steps} steps {rec['dds'][0]:.2f} dB / {rec['dds'][1]:.4f} | FBP {fb[0]:.2f} dB / "
             f"{fb[1]:.4f} | {wall_s:.1f} s, {wall_s / n_steps * 1e3:.0f} ms per outer step; Tweedie "
             f"PSNR trace {tr[0]:.2f} -> {tr[len(tr) // 2]:.2f} -> {tr[-1]:.2f} dB")
@@ -2089,8 +2733,8 @@ def main() -> None:
         med = {k: float(np.median([row[k] for row in adapt_rows]))
                for k in ("step", "adapt", "fwd_adapted", "fwd_prior", "rest")}
         log(f"  per outer step (CUDA events, median of {len(adapt_rows)} steps): step "
-            f"{med['step']:.1f} ms = adaptation {med['adapt']:.1f} ms (10 Adam steps, "
-            f"{med['adapt'] / 10:.1f} ms each) + adapted forward {med['fwd_adapted']:.2f} ms + prior "
+            f"{med['step']:.1f} ms = adaptation {med['adapt']:.1f} ms ({ADAPT_PROTOCOL_OPTIM} Adam steps, "
+            f"{med['adapt'] / ADAPT_PROTOCOL_OPTIM:.1f} ms each) + adapted forward {med['fwd_adapted']:.2f} ms + prior "
             f"forward {med['fwd_prior']:.2f} ms + rest {med['rest']:.2f} ms (Tweedie, cg(1), DDIM)")
     log("  launches in the adapted runs: " + json.dumps(adapt_counts))
     log(f"[phase 7 adapted] {time.perf_counter() - t0:.1f} s")
@@ -2152,10 +2796,11 @@ def main() -> None:
     n_dps = args.dps_steps
     # the grid of each run, and the grid from which on the CLI's divergence
     # guard is gated (a shortened --dps-steps probe's coarser steps may leave it)
-    grid = {("dps", "prior"): min(n_dps, DPS_PRIOR_STEPS), ("naive", "prior"): n_dps,
+    grid = {("dps", "prior"): min(n_dps, DPS_PRIOR_STEPS),
+            ("naive", "prior"): min(n_dps, DPS_PRIOR_STEPS),
             ("dps", "fbp"): n_dps, ("naive", "fbp"): n_dps}
-    guard_grid = {run: DPS_PROTOCOL_STEPS for run in grid}
-    guard_grid["dps", "prior"] = DPS_PRIOR_STEPS
+    guard_grid = {run: DPS_PRIOR_STEPS if run[1] == "prior" else DPS_PROTOCOL_STEPS
+                  for run in grid}
     steps_run = {run: n if run[1] == "prior" else n - math.ceil(DPS_FBP_PCT * n)
                  for run, n in grid.items()}
     cli_runs = {}
@@ -2503,9 +3148,14 @@ def main() -> None:
     shutil.rmtree(workdir, ignore_errors=True)
     log(f"[phase 10 full, decoder] {time.perf_counter() - t0:.1f} s")
 
+    # ---- 11. several images per call: the per-image bias, conditional and adapted serving
+    multi = multi_image_phase(F, P, CLI, ACLI, model, config, config32, sde, trafo, images, gen,
+                              workdir, {"fwd": fwd_dev_ms, "cg": cg_dev_ms, "adapt_both": both_dev})
+    shutil.rmtree(workdir, ignore_errors=True)
+
     # ---- 12, 12b. the walnut cone-beam protocol; 13. AAPM and the matrix operator
     model_args = (config, config32, sde, score_fn)
-    walnut = walnut_phase(F, P, model_args, WALNUT_PROTOCOL_STEPS, gen)
+    walnut = walnut_phase(F, P, model_args, WALNUT_STEPS, gen)
     aapm = aapm_phase(F, P, model_args, AAPM_STEPS, gen, workdir)
     shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2600,6 +3250,18 @@ def main() -> None:
     # conv3x3 per forward (the 256-channel model)
     for kern, key in zip(kernels, ("conv_fwd", "attn_fwd")):
         kern["launches_walnut"] = sum(r["counts"][key] for r in walnut["dds"].values())
+    # phase 11: the forward with a bias per image at batch 4, per UNet
+    # forward; launches of the batched DDS and adapted runs
+    bt = multi["bias_tot"]
+    kernels[0]["per_image_bias"] = {
+        "batch": SHARD_IMAGES, "max_abs_err": multi["bias_err"], "ms": bt["ms"],
+        "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
+        "bound_by": "operations" if bt["ops_ms"] >= bt["bytes_ms"] else "bytes",
+        "library_ms": bt["library_ms"], "calls_by_variant": multi["bias_variants"],
+        "launches_batched_dds": multi["dds_counts"]["conv_fwd"],
+        "launches_batched_adapted": multi["adapted_counts"]["conv_fwd"]}
+    kernels[1]["launches_batched_dds"] = multi["dds_counts"]["attn_fwd"]
+    kernels[1]["launches_batched_adapted"] = multi["adapted_counts"]["attn_fwd"]
     kernels[0]["aapm_unet"] = dict(aapm["aapm_unet"]["conv"],
                                    launches=aapm["aapm_unet"]["counts"]["conv_fwd"],
                                    variants=aapm["aapm_unet"]["conv_variants"])

@@ -26,7 +26,9 @@
 // channels, and each thread sums its pixel's 9*Cin products for each output
 // channel in registers.
 //
-// Both add the bias in the epilogue and round once to the output dtype.
+// Both add the bias in the epilogue and round once to the output dtype.  The
+// bias is shared (`bias_stride` 0) or a row of Cout per image (`bias_stride`
+// Cout); the epilogue reads the row of the output pixel's image.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -51,7 +53,7 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
 template <typename T>
 __global__ void __launch_bounds__(NT)
 conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               const float* __restrict__ bias, T* __restrict__ out,
+               const float* __restrict__ bias, int bias_stride, T* __restrict__ out,
                int B, int H, int W, int Cin, int Cout) {
   // rows padded by 4 floats: the gather's stores then spread over the banks,
   // and every row still starts on a 16-byte boundary for the float4 reads
@@ -143,24 +145,25 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty * TM + i;
     if (m >= M) continue;
+    const float* bias_m = bias + static_cast<long long>(m / (H * W)) * bias_stride;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx * TN + j;
       if (n < Cout)
-        store_f(out + static_cast<long long>(m) * Cout + n, acc[i][j] + bias[n]);
+        store_f(out + static_cast<long long>(m) * Cout + n, acc[i][j] + bias_m[n]);
     }
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
+cudaError_t launch(const void* x, const void* w, const void* bias, int bias_stride, void* out,
                    int B, int H, int W, int Cin, int Cout, cudaStream_t stream) {
   const long long M = static_cast<long long>(B) * H * W;
   const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM),
                   static_cast<unsigned>((Cout + BN - 1) / BN));
   conv3x3_kernel<T><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<T*>(out), B, H, W, Cin, Cout);
+      static_cast<const float*>(bias), bias_stride, static_cast<T*>(out), B, H, W, Cin, Cout);
   return cudaGetLastError();
 }
 
@@ -174,7 +177,7 @@ constexpr int NT_XS = NT_C + 4;             // float4-aligned row; spreads a qua
 template <typename T, int CO>
 __global__ void __launch_bounds__(NT_TILE * NT_TILE)
 conv3x3_narrow_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                      const float* __restrict__ bias, T* __restrict__ out,
+                      const float* __restrict__ bias, int bias_stride, T* __restrict__ out,
                       int H, int W, int Cin, int Cout) {
   __shared__ __align__(16) float xs[NT_HALO * NT_HALO][NT_XS];
   __shared__ __align__(16) float ws[9][CO][NT_C];
@@ -223,51 +226,57 @@ conv3x3_narrow_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int hh = h0 + ty, ww = w0 + tx;
   if (hh < H && ww < W) {
     T* o_ptr = out + ((static_cast<long long>(b) * H + hh) * W + ww) * Cout;
+    const float* bias_b = bias + static_cast<long long>(b) * bias_stride;
 #pragma unroll
     for (int o = 0; o < CO; ++o)
-      if (o < Cout) store_f(o_ptr + o, acc[o] + bias[o]);
+      if (o < Cout) store_f(o_ptr + o, acc[o] + bias_b[o]);
   }
 }
 
 template <typename T>
-cudaError_t launch_narrow(const void* x, const void* w, const void* bias, void* out,
-                          int B, int H, int W, int Cin, int Cout, cudaStream_t stream) {
+cudaError_t launch_narrow(const void* x, const void* w, const void* bias, int bias_stride,
+                          void* out, int B, int H, int W, int Cin, int Cout, cudaStream_t stream) {
   const dim3 grid((W + NT_TILE - 1) / NT_TILE, (H + NT_TILE - 1) / NT_TILE, B);
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const float* bt = static_cast<const float*>(bias);
   T* ot = static_cast<T*>(out);
   if (Cout == 1)
-    conv3x3_narrow_kernel<T, 1><<<grid, NT_TILE * NT_TILE, 0, stream>>>(xt, wt, bt, ot, H, W, Cin, Cout);
+    conv3x3_narrow_kernel<T, 1><<<grid, NT_TILE * NT_TILE, 0, stream>>>(
+        xt, wt, bt, bias_stride, ot, H, W, Cin, Cout);
   else
-    conv3x3_narrow_kernel<T, 16><<<grid, NT_TILE * NT_TILE, 0, stream>>>(xt, wt, bt, ot, H, W, Cin, Cout);
+    conv3x3_narrow_kernel<T, 16><<<grid, NT_TILE * NT_TILE, 0, stream>>>(
+        xt, wt, bt, bias_stride, ot, H, W, Cin, Cout);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // The simt variant.  x (B,H,W,Cin) and w (3,3,Cin,Cout) in fp32 or bf16
-// (is_bf16), bias (Cout) fp32, out (B,H,W,Cout) in the input dtype; all
-// contiguous on the device.  Launches on `stream`, allocates nothing,
+// (is_bf16), bias fp32, (Cout) with bias_stride 0 or (B,Cout) with
+// bias_stride Cout, out (B,H,W,Cout) in the input dtype; all contiguous on
+// the device.  Launches on `stream`, allocates nothing,
 // returns cudaGetLastError().
 extern "C" int conv3x3_forward(const void* x, const void* w, const void* bias,
                                void* out, int B, int H, int W, int Cin,
-                               int Cout, int is_bf16, void* stream) {
+                               int Cout, int bias_stride, int is_bf16, void* stream) {
+  if (bias_stride != 0 && bias_stride != Cout) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(x, w, bias, out, B, H, W, Cin, Cout, s)
-              : launch<float>(x, w, bias, out, B, H, W, Cin, Cout, s);
+      is_bf16 ? launch<__nv_bfloat16>(x, w, bias, bias_stride, out, B, H, W, Cin, Cout, s)
+              : launch<float>(x, w, bias, bias_stride, out, B, H, W, Cin, Cout, s);
   return static_cast<int>(err);
 }
 
 // The narrow variant, Cout < 16; arguments as for conv3x3_forward.
 extern "C" int conv3x3_narrow_forward(const void* x, const void* w, const void* bias,
                                       void* out, int B, int H, int W, int Cin,
-                                      int Cout, int is_bf16, void* stream) {
-  if (Cout < 1 || Cout > 16) return static_cast<int>(cudaErrorInvalidValue);
+                                      int Cout, int bias_stride, int is_bf16, void* stream) {
+  if (Cout < 1 || Cout > 16 || (bias_stride != 0 && bias_stride != Cout))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_narrow<__nv_bfloat16>(x, w, bias, out, B, H, W, Cin, Cout, s)
-              : launch_narrow<float>(x, w, bias, out, B, H, W, Cin, Cout, s);
+      is_bf16 ? launch_narrow<__nv_bfloat16>(x, w, bias, bias_stride, out, B, H, W, Cin, Cout, s)
+              : launch_narrow<float>(x, w, bias, bias_stride, out, B, H, W, Cin, Cout, s);
   return static_cast<int>(err);
 }

@@ -33,6 +33,10 @@
 //   partials in order, adds the bias and rounds, so the result is the same
 //   bits run to run (no atomics).  With one split the epilogue adds the bias
 //   and rounds in place.
+// - The bias is shared (`bias_stride` 0) or one row of Cout per image
+//   (`bias_stride` Cout, a batch of images each with its own adapted biases):
+//   either epilogue reads the row of the image that owns the output pixel,
+//   still in fp32 before the one rounding.
 // - A wait on a barrier that does not complete within about two seconds
 //   traps, so a pipeline fault ends the launch with an error instead of
 //   hanging the card.
@@ -84,7 +88,8 @@ template <int CONSUMERS>
 __global__ void __launch_bounds__(Tile<CONSUMERS>::THREADS, 3 - CONSUMERS)
 conv3x3_tc_kernel(const __grid_constant__ CUtensorMap x_map,
                   const __grid_constant__ CUtensorMap w_map, const float* __restrict__ bias,
-                  __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int H, int W,
+                  int bias_stride, __nv_bfloat16* __restrict__ out, float* __restrict__ partial,
+                  int H, int W,
                   int Cin, int Cout, int box_h, int box_w, int steps_per_split, int k_steps,
                   long long M) {
   using T = Tile<CONSUMERS>;
@@ -172,6 +177,7 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   // ---- epilogue.  Accumulator layout of m64nNk16: register 4j + 2i + e
   // holds row 16*warp + lane/4 + 8i, column 8j + 2*(lane%4) + e.
   const int col = n0 + 2 * (lane % 4);
+  const float* bias_b = bias + static_cast<long long>(b) * bias_stride;   // the tile's image
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = 64 * g + 16 * warp + lane / 4 + 8 * i;
@@ -188,7 +194,7 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap x_map,
         *reinterpret_cast<float2*>(partial + (blockIdx.z * M + m) * Cout + n) =
             make_float2(v0, v1);
       } else {
-        const float2 bb = *reinterpret_cast<const float2*>(bias + n);
+        const float2 bb = *reinterpret_cast<const float2*>(bias_b + n);
         *reinterpret_cast<__nv_bfloat162*>(out + m * Cout + n) =
             __floats2bfloat162_rn(v0 + bb.x, v1 + bb.y);
       }
@@ -196,18 +202,22 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// out[m][n] = bf16(sum over splits, in order, of partial[s][m][n] + bias[n]);
-// four channels per thread (Cout is a multiple of 64).
+// out[m][n] = bf16(sum over splits, in order, of partial[s][m][n] + the bias
+// of m's image [n]); four channels per thread (Cout is a multiple of 64).
+// `image_elems` = H*W*Cout, the output values of one image.
 __global__ void __launch_bounds__(256)
 splitk_reduce_kernel(const float4* __restrict__ partial, const float* __restrict__ bias,
-                     __nv_bfloat162* __restrict__ out, long long n4, int Cout, int splits) {
+                     int bias_stride, __nv_bfloat162* __restrict__ out, long long n4, int Cout,
+                     long long image_elems, int splits) {
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4; i += gridDim.x * 256LL) {
     float4 acc = partial[i];
     for (int s = 1; s < splits; ++s) {
       const float4 p = partial[s * n4 + i];
       acc.x += p.x; acc.y += p.y; acc.z += p.z; acc.w += p.w;
     }
-    const float4 bb = *reinterpret_cast<const float4*>(bias + (4 * i) % Cout);
+    const long long e = 4 * i;
+    const float4 bb = *reinterpret_cast<const float4*>(bias + (e / image_elems) * bias_stride +
+                                                        e % Cout);
     out[2 * i] = __floats2bfloat162_rn(acc.x + bb.x, acc.y + bb.y);
     out[2 * i + 1] = __floats2bfloat162_rn(acc.z + bb.z, acc.w + bb.w);
   }
@@ -215,8 +225,9 @@ splitk_reduce_kernel(const float4* __restrict__ partial, const float* __restrict
 
 template <int CONSUMERS>
 cudaError_t launch_tc(const CUtensorMap& xm, const CUtensorMap& wm, const float* bias,
-                      __nv_bfloat16* out, float* partial, int B, int H, int W, int Cin, int Cout,
-                      int box_h, int box_w, int splits, int steps_per_split, cudaStream_t stream) {
+                      int bias_stride, __nv_bfloat16* out, float* partial, int B, int H, int W,
+                      int Cin, int Cout, int box_h, int box_w, int splits, int steps_per_split,
+                      cudaStream_t stream) {
   using T = Tile<CONSUMERS>;
   static std::atomic<unsigned long long> allowed{0};
   cudaError_t err = allow_smem(conv3x3_tc_kernel<CONSUMERS>, T::SMEM, allowed);
@@ -225,29 +236,33 @@ cudaError_t launch_tc(const CUtensorMap& xm, const CUtensorMap& wm, const float*
   const dim3 grid(static_cast<unsigned>(B * ((H + box_h - 1) / box_h) * ((W + box_w - 1) / box_w)),
                   static_cast<unsigned>((Cout + BN - 1) / BN), static_cast<unsigned>(splits));
   conv3x3_tc_kernel<CONSUMERS><<<grid, T::THREADS, T::SMEM, stream>>>(
-      xm, wm, bias, out, splits > 1 ? partial : nullptr, H, W, Cin, Cout, box_h, box_w,
-      steps_per_split, 9 * Cin / BK, M);
+      xm, wm, bias, bias_stride, out, splits > 1 ? partial : nullptr, H, W, Cin, Cout, box_h,
+      box_w, steps_per_split, 9 * Cin / BK, M);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x (B,H,W,Cin) and w (3,3,Cin,Cout) bf16, bias (Cout) fp32, out (B,H,W,Cout)
-// bf16, all contiguous on the device; workspace of splits*B*H*W*Cout fp32
+// x (B,H,W,Cin) and w (3,3,Cin,Cout) bf16, bias fp32 (Cout) with bias_stride 0
+// or (B,Cout) with bias_stride Cout, out (B,H,W,Cout) bf16, all contiguous on
+// the device; workspace of splits*B*H*W*Cout fp32
 // when splits > 1 (else unused).  Tiling and split from ops/conv3x3.py::plan.
 // Launches on `stream`, allocates nothing.  Returns a cudaError_t, or minus
 // the CUresult when a tensor map cannot be encoded.
 extern "C" int conv3x3_tc_forward(const void* x, const void* w, const void* bias, void* out,
                                   void* workspace, int B, int H, int W, int Cin, int Cout,
-                                  int box_h, int box_w, int bm, int splits, int steps_per_split,
-                                  void* stream) {
+                                  int bias_stride, int box_h, int box_w, int bm, int splits,
+                                  int steps_per_split, void* stream) {
   const int k_steps = 9 * Cin / BK;
   const bool ok = Cin % BK == 0 && Cout % 64 == 0 && Cin > 0 && Cout > 0 && B > 0 && H > 0 &&
-                  W > 0 && (bm == 64 || bm == 128) && box_h * box_w == bm && box_w <= 256 &&
+                  W > 0 && (bias_stride == 0 || bias_stride == Cout) &&
+                  (bm == 64 || bm == 128) && box_h * box_w == bm && box_w <= 256 &&
                   box_h <= 256 && splits >= 1 && steps_per_split >= 1 &&
                   (splits - 1) * steps_per_split < k_steps && splits * steps_per_split >= k_steps &&
                   (splits == 1 || workspace != nullptr) &&
                   reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                  // a per-image bias row starts 4*Cout bytes after the last, so
+                  // every row is 16-byte aligned too (Cout is a multiple of 64)
                   reinterpret_cast<uintptr_t>(bias) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -270,15 +285,15 @@ extern "C" int conv3x3_tc_forward(const void* x, const void* w, const void* bias
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   float* ws = static_cast<float*>(workspace);
   cudaError_t err =
-      bm == 128 ? launch_tc<2>(xm, wm, b32, o, ws, B, H, W, Cin, Cout, box_h, box_w, splits,
-                               steps_per_split, s)
-                : launch_tc<1>(xm, wm, b32, o, ws, B, H, W, Cin, Cout, box_h, box_w, splits,
-                               steps_per_split, s);
+      bm == 128 ? launch_tc<2>(xm, wm, b32, bias_stride, o, ws, B, H, W, Cin, Cout, box_h, box_w,
+                               splits, steps_per_split, s)
+                : launch_tc<1>(xm, wm, b32, bias_stride, o, ws, B, H, W, Cin, Cout, box_h, box_w,
+                               splits, steps_per_split, s);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long n4 = static_cast<long long>(B) * H * W * Cout / 4;
   const long long blocks = (n4 + 255) / 256;
   splitk_reduce_kernel<<<static_cast<unsigned>(blocks < 2048 ? blocks : 2048), 256, 0, s>>>(
-      reinterpret_cast<const float4*>(ws), b32, reinterpret_cast<__nv_bfloat162*>(o), n4, Cout,
-      splits);
+      reinterpret_cast<const float4*>(ws), b32, bias_stride, reinterpret_cast<__nv_bfloat162*>(o),
+      n4, Cout, static_cast<long long>(H) * W * Cout, splits);
   return static_cast<int>(cudaGetLastError());
 }

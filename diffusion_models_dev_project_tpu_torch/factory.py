@@ -37,21 +37,25 @@ __all__ = ["get_standard_sde", "get_standard_score", "get_standard_ray_trafo",
            "get_standard_sampler", "get_standard_adapted_sampler", "load_params",
            "round_to_compute_dtype_"]
 
-NOT_PORTED_TORCH_CKPT = ("reference torch checkpoints (.pt) are not read yet: their converter, the "
-                         "JAX package's models/torch_convert.py, is ROADMAP.md queue 1 item 11")
-
 DATA_ASSETS = Path(__file__).resolve().parent.parent / "data_assets"
 
 
-def load_params(path: str, use_ema: bool = False):
+def load_params(path: str, use_ema: bool = False, cfg=None):
     """The port's state_dict (fp32 tensors on the CPU) stored at `path`, as
-    the JAX package's `_load_params` reads it: a flax msgpack tree (`*.npz`,
-    fp16 storage widened to fp32 masters) or the port's own checkpoint
-    directory (`utils.checkpoint.Checkpointer`: its latest save, the EMA
-    shadow with `use_ema`, else the parameters)."""
+    the JAX package's `_load_params` reads it: a reference PyTorch
+    checkpoint (`*.pt`, a raw state_dict or, by structure or with
+    `use_ema`, an EMA state; mapped through `cfg`'s block structure by
+    `models/torch_convert.py`), a flax msgpack tree (`*.npz`, fp16 storage
+    widened to fp32 masters) or the port's own checkpoint directory
+    (`utils.checkpoint.Checkpointer`: its latest save, the EMA shadow with
+    `use_ema`, else the parameters)."""
     path = str(path)
     if path.endswith(".pt"):
-        raise NotImplementedError(f"{path}: {NOT_PORTED_TORCH_CKPT}")
+        if cfg is None:
+            raise ValueError(f"{path}: a .pt checkpoint is mapped through the UNetConfig (cfg)")
+        from .models.torch_convert import load_torch_checkpoint
+
+        return load_torch_checkpoint(path, cfg, use_ema=use_ema or None)
     if os.path.isdir(path):
         from .utils.checkpoint import Checkpointer
 
@@ -98,9 +102,10 @@ def get_standard_score(config, sde: SDE, use_ema: bool = False, load_model: bool
     with `params` the model's state_dict and `score_fn(x, t)` its forward.
 
     Checkpoints are the JAX package's flax msgpack trees (`*.msgpack.npz`,
-    fp16 storage loaded as fp32 masters) or the port's own checkpoint
-    directories (`load_params`; `use_ema` picks the EMA shadow there; the
-    shipped trees are EMA weights).  Without one the weights are random,
+    fp16 storage loaded as fp32 masters), reference PyTorch checkpoints
+    (`*.pt`) or the port's own checkpoint directories (`load_params`;
+    `use_ema` picks the EMA shadow there; the shipped trees are EMA
+    weights).  Without one the weights are random,
     drawn from `config.seed` by the JAX package's rule (`models/unet.py`).
 
     Parameters are stored in the compute dtype (`config.model.dtype`, bf16
@@ -127,8 +132,8 @@ def get_standard_score(config, sde: SDE, use_ema: bool = False, load_model: bool
         adaptation = "lora"
     if adaptation is not None:
         check_strategy(adaptation)
-    state = load_params(ckpt_path, use_ema) if ckpt_path else None
     cfg = create_model_config(config.model)
+    state = load_params(ckpt_path, use_ema, cfg) if ckpt_path else None
     if lora_rank:
         cfg = dataclasses.replace(cfg, lora_rank=int(lora_rank))
         if lora_include_blocks is not None:

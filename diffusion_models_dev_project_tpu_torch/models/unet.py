@@ -36,6 +36,17 @@ The branches compute in fp32, as JAX casts x to the LoRA weights' dtype; the
 port adds a branch to its base layer's output in the compute dtype, so that
 a bf16 model keeps its bf16 kernels (JAX promotes the sum to fp32 there).
 At `lora_scale` 0 the branches are skipped: their output would be 0.
+
+Images with leaves of their own: under `torch.func.functional_call` the
+adapted sampler's `sample_batched` swaps each trainable leaf for a stack
+with a leading image axis, one row per image of the batch (JAX vmaps the
+single-image program instead).  Each layer then computes image n with row n:
+a conv3x3 bias (N, Cout) goes to the kernel's epilogue, a dense bias
+(N, Cout) into a batched GEMM (`baddbmm`), GroupNorm takes (N, C)
+weight and bias, and a LoRA branch with `down` (N, 3, 3, Cin, r) runs as one
+grouped `F.conv2d` (a group per image, as JAX's vmap folds it), its 1x1
+and dense projections as batched `einsum`s.  Shared leaves compute as
+before.
 """
 from __future__ import annotations
 
@@ -229,7 +240,8 @@ def group_norm32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                  num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm over NHWC with fp32 statistics: per-channel spatial means of
     x and x² combined over each group, variance E[x²] - E[x]² clamped at 0,
-    then one multiply-add pass; the result in x's dtype."""
+    then one multiply-add pass; the result in x's dtype.  `weight` and
+    `bias` are (C,), or (B, C) for a row per image."""
     b, _, _, c = x.shape
     g, cg = num_groups, c // num_groups
     xf = x.float()
@@ -240,9 +252,15 @@ def group_norm32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     var_g = torch.clamp(m2_g - m_g.square(), min=0.0)
     inv_c = torch.rsqrt(var_g + eps).repeat_interleave(cg, dim=-1)
     mean_c = m_g.repeat_interleave(cg, dim=-1)
-    a = inv_c * weight.float()[None]
-    bb = bias.float()[None] - mean_c * a
+    a = inv_c * _rows(weight)
+    bb = _rows(bias) - mean_c * a
     return (xf * a[:, None, None, :] + bb[:, None, None, :]).to(x.dtype)
+
+
+def _rows(p: torch.Tensor) -> torch.Tensor:
+    """An fp32 (C,) leaf as one row (1, C), or a stacked (B, C) one as is."""
+    p = p.float()
+    return p if p.ndim == 2 else p[None]
 
 
 class GroupNorm32(nn.Module):
@@ -307,8 +325,15 @@ class Dense(nn.Linear):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        x, weight, bias = x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype)
+        if bias.ndim == 1:
+            return F.linear(x, weight, bias)
+        # a bias per image (N, Cout), row n added to image n's outputs inside
+        # one batched GEMM (before its one rounding, as F.linear adds a bias)
+        n, cout = bias.shape
+        y = torch.baddbmm(bias[:, None, :], x.reshape(n, -1, x.shape[-1]),
+                          weight.t().expand(n, -1, -1))
+        return y.reshape(*x.shape[:-1], cout)
 
 
 class LoRAConv(nn.Module):
@@ -316,7 +341,9 @@ class LoRAConv(nn.Module):
     the base conv's geometry, 3x3 zero-pad 1 (`down` HWIO (3, 3, Cin, r)) or
     1x1 (`down` (r, Cin)), then a 1x1 up-projection (`up` (Cout, r)), times
     `scale`, in fp32 whatever x's dtype.  Both start at 0 here; the
-    adaptation's `init_lora` draws `down` ~ N(0, 1/r²) and keeps `up` at 0."""
+    adaptation's `init_lora` draws `down` ~ N(0, 1/r²) and keeps `up` at 0.
+    Stacked leaves ((N, 3, 3, Cin, r) or (N, r, Cin), and (N, Cout, r)) give
+    image n of x its own branch."""
 
     def __init__(self, cin: int, cout: int, rank: int, kernel: int = 3):
         super().__init__()
@@ -325,18 +352,34 @@ class LoRAConv(nn.Module):
         self.up = nn.Parameter(torch.zeros(cout, rank))
 
     def forward(self, x, scale: float):
-        x = x.float()
+        x, down, up = x.float(), self.down.float(), self.up.float()
+        if up.ndim == 3:
+            return _scaled(self._per_image(x, down, up), scale)
         if self.kernel == 3:
-            h = F.conv2d(x.permute(0, 3, 1, 2), self.down.float().permute(3, 2, 0, 1),
+            h = F.conv2d(x.permute(0, 3, 1, 2), down.permute(3, 2, 0, 1),
                          padding=1).permute(0, 2, 3, 1)
         else:
-            h = F.linear(x, self.down.float())
-        return _scaled(F.linear(h, self.up.float()), scale)
+            h = F.linear(x, down)
+        return _scaled(F.linear(h, up), scale)
+
+    def _per_image(self, x, down, up):
+        n, hgt, wid, cin = x.shape
+        if self.kernel == 3:
+            # the N images as one of N·Cin channels, one group of r outputs each
+            r = down.shape[-1]
+            h = F.conv2d(x.permute(0, 3, 1, 2).reshape(1, n * cin, hgt, wid),
+                         down.permute(0, 4, 3, 1, 2).reshape(n * r, cin, 3, 3), padding=1,
+                         groups=n)
+            h = h.reshape(n, r, hgt, wid).permute(0, 2, 3, 1)
+        else:
+            h = torch.einsum("nhwc,nrc->nhwr", x, down)
+        return torch.einsum("nhwr,ncr->nhwc", h, up)
 
 
 class LoRADense(nn.Module):
     """Low-rank dense branch (JAX `LoRADense`): x @ downᵀ @ upᵀ times
-    `scale`, in fp32; `down` (r, Cin), `up` (Cout, r)."""
+    `scale`, in fp32; `down` (r, Cin), `up` (Cout, r), or stacked per image
+    ((N, r, Cin), (N, Cout, r)) for x of N images."""
 
     def __init__(self, cin: int, cout: int, rank: int):
         super().__init__()
@@ -344,7 +387,11 @@ class LoRADense(nn.Module):
         self.up = nn.Parameter(torch.zeros(cout, rank))
 
     def forward(self, x, scale: float):
-        return _scaled(F.linear(F.linear(x.float(), self.down.float()), self.up.float()), scale)
+        x, down, up = x.float(), self.down.float(), self.up.float()
+        if up.ndim == 3:
+            h = torch.einsum("n...c,nrc->n...r", x, down)
+            return _scaled(torch.einsum("n...r,ncr->n...c", h, up), scale)
+        return _scaled(F.linear(F.linear(x, down), up), scale)
 
 
 def _with_lora(base_out, branch, x, scale):
@@ -454,9 +501,14 @@ class Sample(nn.Module):
         if s.use_conv:
             # stride-2 conv with symmetric padding 1 (no kernel of its own)
             w = self.conv.weight.to(self.dtype).permute(3, 2, 0, 1)
-            y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w,
-                         self.conv.bias.to(self.dtype), stride=2, padding=1)
-            return y.permute(0, 2, 3, 1)
+            bias = self.conv.bias.to(self.dtype)
+            x = x.to(self.dtype).permute(0, 3, 1, 2)
+            if bias.ndim == 1:
+                return F.conv2d(x, w, bias, stride=2, padding=1).permute(0, 2, 3, 1)
+            # a bias per image (N, Cout): the conv's fp32 sums plus image n's
+            # bias, rounded once to the compute dtype, as the shared bias is
+            y = F.conv2d(x.float(), w.float(), None, stride=2, padding=1).permute(0, 2, 3, 1)
+            return (y + bias.float()[:, None, None, :]).to(self.dtype)
         return _avg_pool2(x)
 
 

@@ -32,12 +32,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported symbol -> argument types; every function returns a cudaError_t (or
 # minus a CUresult, see csrc/errors.cu)
 _SIGNATURES = {
-    # x, w, bias, out, B, H, W, Cin, Cout, is_bf16, stream
-    "conv3x3_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "conv3x3_narrow_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, w, bias, out, workspace, B, H, W, Cin, Cout, box_h, box_w, bm, splits,
-    # steps_per_split, stream
-    "conv3x3_tc_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, bias, out, B, H, W, Cin, Cout, bias_stride (0: one bias; Cout: one
+    # per image), is_bf16, stream
+    "conv3x3_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "conv3x3_narrow_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, bias, out, workspace, B, H, W, Cin, Cout, bias_stride, box_h, box_w,
+    # bm, splits, steps_per_split, stream
+    "conv3x3_tc_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, dy, dw, workspace, B, H, W, Cin, Cout, box_h, box_w, splits, cluster, stream
     "conv3x3_wgrad_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # cluster size, out: the most clusters of the tc weight-gradient kernel at once

@@ -45,6 +45,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import flops as _flops
 from . import _build
 
 __all__ = ["BackwardPlan", "MAX_HEAD_DIM", "Plan", "VARIANTS", "attention",
@@ -402,6 +403,7 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: t
     _build.check(rc, f"attention backward ({bp.variant}, grid {bp.grid})")
     backward_launches += 1
     backward_launches_by_variant[bp.variant] += 1
+    _flops.report(8.0 * bh * t * t * d, "attention_backward")
     return dq, dk, dv
 
 
@@ -431,6 +433,7 @@ def _forward(q, k, v, kernel, variant, with_lse=False):
     _build.check(rc, f"attention ({p.variant})")
     launches += 1
     launches_by_variant[p.variant] += 1
+    _flops.report(4.0 * bh * t * t * d, "attention")
     return out, lse
 
 

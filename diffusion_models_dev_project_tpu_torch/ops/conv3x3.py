@@ -13,7 +13,10 @@ kernels, chosen by `plan` from the dtype and the shape alone:
   other channel counts), fp32 FMA on the CUDA cores.
 
 All three accumulate in fp32, add the fp32 bias and round once to the input
-dtype.  On a CPU tensor, or when the caller passes `use_kernel=False`,
+dtype.  The bias is one row (Cout,) or one row per image (B, Cout): a batch
+of images that each carry their own adapted biases (the adapted sampler's
+`sample_batched`); each kernel's epilogue reads the row of the image it
+writes.  On a CPU tensor, or when the caller passes `use_kernel=False`,
 `conv3x3` runs `conv3x3_reference`, the same nine shifted-tap matmuls
 written in PyTorch.
 
@@ -24,7 +27,8 @@ when an input needs one, `conv3x3` runs as a `torch.autograd.Function`.
   (`swapped_weight`, made once per frozen weight).  `conv3x3_input_grad`
   runs it through the same three kernels, chosen by `plan` for the swapped
   channel counts (on a CPU tensor through `conv3x3_reference`).
-- The bias gradient is an fp32 sum of the output gradient over (B, H, W).
+- The bias gradient is an fp32 sum of the output gradient over (B, H, W),
+  or over (H, W) for a bias per image.
 - The weight gradient, dW[di, dj] = x(shifted by the tap)^T dL/dy, is a
   GEMM of M = 9 Cin, N = Cout, K = B H W pixels: `conv3x3_weight_grad`
   launches `tc` (`csrc/conv3x3_wgrad_tc.cu`: bf16 tensor cores, `wgmma`
@@ -48,6 +52,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import flops as _flops
 from . import _build
 
 __all__ = ["Plan", "VARIANTS", "WGRAD_VARIANTS", "WgradPlan", "backward_launches",
@@ -170,10 +175,17 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
     raise ValueError(f"conv3x3: unknown variant {variant!r}")
 
 
+def _bias_nhwc(bias: torch.Tensor) -> torch.Tensor:
+    """The fp32 bias, (Cout,) or (B, Cout), broadcastable over NHWC."""
+    bias = bias.float()
+    return bias[:, None, None, :] if bias.ndim == 2 else bias
+
+
 def conv3x3_reference(x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor) -> torch.Tensor:
     """Sum over the nine taps of x[h+di-1, w+dj-1, :] @ K[di, dj], in fp32,
-    plus bias; the result in x's dtype (the TPU kernel's arithmetic)."""
+    plus bias (shared, or a row per image); the result in x's dtype (the TPU
+    kernel's arithmetic)."""
     b, h, w, cin = x.shape
     cout = weight.shape[-1]
     xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
@@ -183,7 +195,7 @@ def conv3x3_reference(x: torch.Tensor, weight: torch.Tensor,
         for dj in range(3):
             tap = xp[:, di:di + h, dj:dj + w, :].reshape(-1, cin) @ wf[di, dj]
             acc = tap if acc is None else acc + tap
-    return (acc.reshape(b, h, w, cout) + bias.float()).to(x.dtype)
+    return (acc.reshape(b, h, w, cout) + _bias_nhwc(bias)).to(x.dtype)
 
 
 def conv3x3_tiled_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -229,7 +241,7 @@ def conv3x3_tiled_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.T
                     for part in parts[1:]:
                         total = total + part
                     y[bi, h0:h0 + ht, w0:w0 + wt, n0:n0 + p.bn] = total.reshape(ht, wt, p.bn)
-    return (y[:, :h, :w, :cout] + bias.float()).to(x.dtype)
+    return (y[:, :h, :w, :cout] + _bias_nhwc(bias)).to(x.dtype)
 
 
 def conv3x3_weight_grad_reference(x: torch.Tensor, grad_out: torch.Tensor) -> torch.Tensor:
@@ -493,6 +505,7 @@ def _launch(x, weight, bias, variant, splits) -> Tuple[torch.Tensor, str]:
     cout = weight.shape[-1]
     p = plan(bsz, h, w, cin, cout, x.dtype, variant, splits, device_sms(x.device))
     bias32 = bias.detach().float().contiguous()
+    bias_stride = cout if bias.ndim == 2 else 0     # a row per image, or one row
     out = torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out, None
@@ -505,12 +518,13 @@ def _launch(x, weight, bias, variant, splits) -> Tuple[torch.Tensor, str]:
             ws = (torch.empty(p.workspace_bytes // 4, dtype=torch.float32, device=x.device)
                   if p.splits > 1 else None)
             rc = lib.conv3x3_tc_forward(*args, ws.data_ptr() if ws is not None else None,
-                                        bsz, h, w, cin, cout, p.box[0], p.box[1], p.bm,
-                                        p.splits, p.steps_per_split, stream)
+                                        bsz, h, w, cin, cout, bias_stride, p.box[0], p.box[1],
+                                        p.bm, p.splits, p.steps_per_split, stream)
         elif p.variant == "narrow":
-            rc = lib.conv3x3_narrow_forward(*args, bsz, h, w, cin, cout, is_bf16, stream)
+            rc = lib.conv3x3_narrow_forward(*args, bsz, h, w, cin, cout, bias_stride, is_bf16,
+                                            stream)
         else:
-            rc = lib.conv3x3_forward(*args, bsz, h, w, cin, cout, is_bf16, stream)
+            rc = lib.conv3x3_forward(*args, bsz, h, w, cin, cout, bias_stride, is_bf16, stream)
     _build.check(rc, f"conv3x3 ({p.variant})")
     return out, p.variant
 
@@ -523,7 +537,15 @@ def _forward(x, weight, bias, kernel, variant, splits):
     if used is not None:
         launches += 1
         launches_by_variant[used] += 1
+        _flops.report(_conv_flops(x.shape, weight.shape[-1]), "conv3x3")
     return out
+
+
+def _conv_flops(xshape, cout: int) -> float:
+    """2·B·H·W·9·Cin·Cout: the multiply-adds of one conv3x3 (or of one of
+    its gradients) as 2 FLOPs each."""
+    b, h, w, cin = xshape
+    return 2.0 * b * h * w * 9 * cin * cout
 
 
 def conv3x3_input_grad(grad_out: torch.Tensor, weight: torch.Tensor,
@@ -542,6 +564,7 @@ def conv3x3_input_grad(grad_out: torch.Tensor, weight: torch.Tensor,
     if used is not None:
         backward_launches += 1
         backward_launches_by_variant[used] += 1
+        _flops.report(_conv_flops(grad_out.shape, ws.shape[-1]), "conv3x3_input_grad")
     return out
 
 
@@ -601,6 +624,7 @@ def conv3x3_weight_grad(x: torch.Tensor, grad_out: torch.Tensor,
     _build.check(rc, f"conv3x3 weight grad ({p.variant})")
     wgrad_launches += 1
     wgrad_launches_by_variant[p.variant] += 1
+    _flops.report(_conv_flops(x.shape, cout), "conv3x3_weight_grad")
     return dw
 
 
@@ -608,7 +632,7 @@ class _Conv3x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, kernel, variant, splits):
         ctx.kernel = kernel
-        ctx.x_dtype, ctx.bias_dtype = x.dtype, bias.dtype
+        ctx.x_dtype, ctx.bias_dtype, ctx.bias_per_image = x.dtype, bias.dtype, bias.ndim == 2
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, weight)
         return _forward(x, weight, bias, kernel, variant, splits)
 
@@ -621,22 +645,25 @@ class _Conv3x3(torch.autograd.Function):
         if ctx.needs_input_grad[1]:     # fp32, rounded to the weight's dtype (bf16 as JAX's conv)
             gw = conv3x3_weight_grad(x.to(weight.dtype), grad_out.to(weight.dtype),
                                      ctx.kernel).to(weight.dtype)
-        if ctx.needs_input_grad[2]:
-            gb = grad_out.float().sum(dim=(0, 1, 2)).to(ctx.bias_dtype)
+        if ctx.needs_input_grad[2]:       # per image: each row's own (H, W) sum
+            gb = grad_out.float().sum(dim=(1, 2) if ctx.bias_per_image else (0, 1, 2))
+            gb = gb.to(ctx.bias_dtype)
         return gx, gw, gb, None, None, None
 
 
 def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             use_kernel: bool = True, *, variant: Optional[str] = None,
             splits: Optional[int] = None) -> torch.Tensor:
-    """x (B, H, W, Cin), weight (3, 3, Cin, Cout), bias (Cout,) -> (B, H, W, Cout).
+    """x (B, H, W, Cin), weight (3, 3, Cin, Cout), bias (Cout,) or, one row
+    per image, (B, Cout) -> (B, H, W, Cout).
 
     Differentiable in x, weight and bias.  The weight's gradient comes
     back in the weight's dtype: for a bf16 weight the kernel's fp32 sum
     rounded to bf16, as the JAX package's bf16 conv gives it, before
     autograd casts it to an fp32 master's dtype.  `variant` and `splits` (measurements only) force what `plan` would
     choose from dtype and shape."""
-    if x.ndim != 4 or weight.shape[:3] != (3, 3, x.shape[-1]) or bias.shape != weight.shape[3:]:
+    if (x.ndim != 4 or weight.shape[:3] != (3, 3, x.shape[-1])
+            or bias.shape not in (weight.shape[3:], (x.shape[0], *weight.shape[3:]))):
         raise ValueError(f"conv3x3: bad shapes x {tuple(x.shape)} weight "
                          f"{tuple(weight.shape)} bias {tuple(bias.shape)}")
     kernel = use_kernel and x.device.type != "cpu"

@@ -17,8 +17,10 @@ prints a JSON line of the mean PSNR and SSIM last.
 
 runs on the card; `--device cpu` runs the plain PyTorch path on the CPU, at
 a small size with `--im_size 64 --num_channels 64 --num_steps 3
---num_optim_step 2` (random weights: no checkpoint has that size).  `--shard_images`
-of the JAX CLI raises NotImplementedError naming its ROADMAP.md item.
+--num_optim_step 2` (random weights: no checkpoint has that size).  `--shard_images
+N` adapts and samples N images per call (`AdaptedSampler.sample_batched`):
+under `lora` as one chain on the batch axis, each image with its own leaves;
+under `full` and `decoder` one image after another.
 """
 import argparse
 import dataclasses
@@ -60,17 +62,12 @@ parser.add_argument("--num_channels", default=None, help="override model channel
 parser.add_argument("--sigma_max", default=None,
                     help="override sde.sigma_max: must match the checkpoint's (extension)")
 parser.add_argument("--shard_images", default=0,
-                    help="several images per call, each with its own LoRA (not ported yet)")
+                    help="N > 0: N images per call (AdaptedSampler.sample_batched), each with "
+                         "its own LoRA, biases and Adam state")
 # the port's own
 parser.add_argument("--device", default=None, help="cuda (default) or cpu")
 parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                     help="UNet compute dtype (default: the config's, float32)")
-
-
-def _check_ported(args):
-    if int(args.shard_images) > 0:
-        raise NotImplementedError("--shard_images (several images per call, each with its own "
-                                  "LoRA) is ROADMAP.md queue 1 item 10")
 
 
 def coordinator(args):
@@ -83,7 +80,6 @@ def coordinator(args):
                                                                         save_recon_info,
                                                                         write_report)
 
-    _check_ported(args)
     device = resolve_device(args.device)
     config, dataconfig = F.get_standard_configs(args)
     if args.im_size is not None:
@@ -115,7 +111,10 @@ def coordinator(args):
                   else dataconfig.data.validation.num_images)
     seed = config.seed or 0
     psnrs, ssims = [], []
-    for i, sample in enumerate(islice(iter(dataset), num_images)):
+
+    def prepare(i, sample):
+        """Image i's data, from its own generator (seed·1000 + i), which
+        its chain then goes on drawing from."""
         gen = torch.Generator(device=device).manual_seed(seed * 1000 + i)
         if isinstance(sample, (tuple, list)) and len(sample) == 3:
             # measured data (walnut): observation and ground truth as given
@@ -125,17 +124,10 @@ def coordinator(args):
         else:
             ground_truth, observation, _ = F.get_data_from_ground_truth(
                 sample, ray_trafo, dataconfig.data.stddev, generator=gen)
-        sampler = F.get_standard_adapted_sampler(
-            args.method, model, sde, ray_trafo, observation, num_steps=int(args.num_steps),
-            eta=float(args.eta), gamma=float(args.gamma), tv_penalty=float(args.tv_penalty),
-            lr=float(args.lr), num_optim_step=int(args.num_optim_step),
-            adapt_freq=int(args.adapt_freq), lora_rank=int(args.lora_rank),
-            lora_include_blocks=tuple(args.lora_include_blocks), add_cg=bool(args.add_cg),
-            dc_type=args.dc_type, cg_iter=int(args.cg_iter),
-            early_stopping_pct=float(args.early_stopping_pct), ground_truth=ground_truth,
-            lora_seed=i, adaptation=args.adaptation)
-        recon, _ = sampler.sample(generator=gen)
-        r = recon[0].clamp(min=0)[..., 0].float().cpu().numpy()
+        return gen, observation, ground_truth
+
+    def finish(i, recon_row, ground_truth):
+        r = recon_row.clamp(min=0)[..., 0].float().cpu().numpy()
         g = ground_truth[0, ..., 0].cpu().numpy()
         save_recon_info(save_root / f"recon_{i}_info.npz", r, g)
         save_image_png(save_root / f"recon_{i}.png", r)
@@ -144,13 +136,65 @@ def coordinator(args):
         psnrs.append(psnr)
         ssims.append(ssim)
 
+    def make_sampler(observation, ground_truth, lora_seed):
+        return F.get_standard_adapted_sampler(
+            args.method, model, sde, ray_trafo, observation, num_steps=int(args.num_steps),
+            eta=float(args.eta), gamma=float(args.gamma), tv_penalty=float(args.tv_penalty),
+            lr=float(args.lr), num_optim_step=int(args.num_optim_step),
+            adapt_freq=int(args.adapt_freq), lora_rank=int(args.lora_rank),
+            lora_include_blocks=tuple(args.lora_include_blocks), add_cg=bool(args.add_cg),
+            dc_type=args.dc_type, cg_iter=int(args.cg_iter),
+            early_stopping_pct=float(args.early_stopping_pct), ground_truth=ground_truth,
+            lora_seed=lora_seed, adaptation=args.adaptation)
+
+    images = islice(iter(dataset), num_images)
+    shard_n = int(args.shard_images)
+    if shard_n > 0:
+        _sample_sharded(model, images, shard_n, use_lora, device, prepare, finish, make_sampler)
+    else:
+        for i, sample in enumerate(images):
+            gen, observation, ground_truth = prepare(i, sample)
+            recon, _ = make_sampler(observation, ground_truth, lora_seed=i).sample(generator=gen)
+            finish(i, recon[0], ground_truth)
+
     report = dataclasses.asdict(dataconfig)
     report.update({k: str(v) for k, v in vars(args).items()})
     report["PSNR"] = float(np.mean(psnrs))
     report["SSIM"] = float(np.mean(ssims))
+    report["sampling_mode"] = f"sharded({shard_n})" if shard_n > 0 else "serial"
     write_report(save_root / "report.yaml", report)
     print(json.dumps({"PSNR": report["PSNR"], "SSIM": report["SSIM"]}))
     return save_root
+
+
+def _sample_sharded(model, images, shard_n, use_lora, device, prepare, finish, make_sampler):
+    """Several images per call (the JAX CLI's batched mode): chunks of
+    `shard_n` images (the last padded with its last image, whose extra rows
+    are dropped) through `AdaptedSampler.sample_batched`, each image with
+    its own LoRA state (`init_lora`, seed = its index, as on the serial
+    path), biases and Adam state, its chain drawn from its own generator as
+    on the serial path.  The chunk runs on the one card, whatever the
+    number of visible devices, where the JAX CLI shards it over a mesh."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.sampling.adaptation import init_lora
+
+    items = [prepare(i, sample) for i, sample in enumerate(images)]
+    sampler = make_sampler(items[0][1], None, lora_seed=0)
+    for c0 in range(0, len(items), shard_n):
+        chunk = items[c0:c0 + shard_n]
+        padded = chunk + [chunk[-1]] * (shard_n - len(chunk))
+        gens = [g for g, _, _ in chunk]
+        for _ in range(len(padded) - len(chunk)):        # a padded row's own copy
+            gens.append(torch.Generator(device=device).set_state(chunk[-1][0].get_state()))
+        obs = torch.stack([o for _, o, _ in padded])
+        lora_stack = None
+        if use_lora:
+            states = [init_lora(model, seed=c0 + j) for j in range(len(padded))]
+            lora_stack = {k: torch.stack([st[k] for st in states]) for k in states[0]}
+        recon = sampler.sample_batched(obs, generator=gens, lora_stack=lora_stack)
+        for j, (_, _, ground_truth) in enumerate(chunk):
+            finish(c0 + j, recon[j, 0], ground_truth)
 
 
 if __name__ == "__main__":

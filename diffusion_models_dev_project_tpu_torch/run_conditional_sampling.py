@@ -20,8 +20,8 @@ AAPM slices under `AAPM_DATA_PATH` (`--dataset aapm`), or the walnut's
 measured observation under `WALNUT_DATA_PATH` (`--dataset walnut`, whose
 dataset gives observation, ground truth and FDK itself).  `--model_learned_on
 aapm` builds the AAPM config's UNet (random weights without `--load_path`).
-`--shard_images` of the JAX CLI raises NotImplementedError naming its
-ROADMAP.md item.
+`--shard_images N` reconstructs N images per call on the batch axis, as the
+JAX CLI does; `sampling_mode` in `report.yaml` says `sharded(N)`.
 """
 import argparse
 import dataclasses
@@ -67,7 +67,7 @@ parser.add_argument("--pallas_conv_min", default=0, type=int,
 parser.add_argument("--params_dtype", default="bfloat16", choices=["float32", "bfloat16"],
                     help="UNet dtype, of its weights and its compute")
 parser.add_argument("--shard_images", default=0,
-                    help="several images per call on the batch axis (not ported yet)")
+                    help="N > 0: N images per call, stacked on the sampler's batch axis")
 parser.add_argument("--debug_nans", action="store_true",
                     help="accepted and ignored: a JAX debugging switch")
 # the port's own
@@ -76,12 +76,6 @@ parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                     help="UNet dtype; overrides --params_dtype")
 
 DIVERGED_ABS = 1e3      # a reconstruction with |x| above this has diverged
-
-
-def _check_ported(args):
-    if int(args.shard_images) > 0:
-        raise NotImplementedError("--shard_images (several images per call on the batch axis) "
-                                  "is ROADMAP.md queue 1 item 10")
 
 
 def coordinator(args):
@@ -94,7 +88,6 @@ def coordinator(args):
                                                                         save_recon_info,
                                                                         write_report)
 
-    _check_ported(args)
     device = resolve_device(args.device)
     config, dataconfig = F.get_standard_configs(args)
     if args.im_size is not None:
@@ -122,9 +115,9 @@ def coordinator(args):
                   else dataconfig.data.validation.num_images)
     seed = config.seed or 0
 
-    psnrs, ssims, diverged = [], [], []
-    sampler = None
-    for i, sample in enumerate(islice(iter(dataset), num_images)):
+    def prepare(i, sample):
+        """Image i's data, from its own generator (seed·1000 + i), which
+        the serial chain then goes on drawing from."""
         gen = torch.Generator(device=device).manual_seed(seed * 1000 + i)
         if isinstance(sample, (tuple, list)) and len(sample) == 3:
             # measured data (walnut): observation, ground truth and FBP as given
@@ -134,25 +127,12 @@ def coordinator(args):
         else:
             ground_truth, observation, filtbackproj = F.get_data_from_ground_truth(
                 sample, ray_trafo, dataconfig.data.stddev, generator=gen)
-        if sampler is None:
-            sampler = F.get_standard_sampler(
-                args.method, score_fn, sde, ray_trafo, observation,
-                num_steps=int(args.num_steps), im_shape=(*ray_trafo.model_im_shape, 1),
-                penalty=float(args.penalty), gamma=float(args.gamma), eta=float(args.eta),
-                cg_iter=int(args.cg_iter), cg_precision=args.cg_precision,
-                pct_chain_elapsed=float(args.pct_chain_elapsed),
-                early_stopping_pct=(None if float(args.early_stopping_pct) == 1.0
-                                    else float(args.early_stopping_pct)),
-                ground_truth=ground_truth, filtbackproj=filtbackproj,
-                add_corrector_step=bool(args.add_corrector_step))
-        else:
-            # the same shapes: swap the image's data into the sampler
-            sampler.observation = observation
-            sampler.rhs = ray_trafo.adjoint(observation)
-            sampler.filtbackproj = filtbackproj
-            sampler.ground_truth = ground_truth
-        recon, _ = sampler.sample(generator=gen)
-        raw = recon[0, ..., 0].float().cpu().numpy()
+        return gen, observation, ground_truth, filtbackproj
+
+    psnrs, ssims, diverged = [], [], []
+
+    def finish(i, recon_row, ground_truth):
+        raw = recon_row[..., 0].float().cpu().numpy()
         # divergence guard: a failed run is named in the report, not hidden in a low mean
         if not np.isfinite(raw).all() or np.abs(raw).max() > DIVERGED_ABS:
             diverged.append(i)
@@ -167,15 +147,78 @@ def coordinator(args):
         psnrs.append(psnr)
         ssims.append(ssim)
 
+    def make_sampler(observation, ground_truth, filtbackproj, batch_size=1):
+        return F.get_standard_sampler(
+            args.method, score_fn, sde, ray_trafo, observation,
+            num_steps=int(args.num_steps), batch_size=batch_size,
+            im_shape=(*ray_trafo.model_im_shape, 1), penalty=float(args.penalty),
+            gamma=float(args.gamma), eta=float(args.eta), cg_iter=int(args.cg_iter),
+            cg_precision=args.cg_precision, pct_chain_elapsed=float(args.pct_chain_elapsed),
+            early_stopping_pct=(None if float(args.early_stopping_pct) == 1.0
+                                else float(args.early_stopping_pct)),
+            ground_truth=ground_truth, filtbackproj=filtbackproj,
+            add_corrector_step=bool(args.add_corrector_step))
+
+    images = islice(iter(dataset), num_images)
+    shard_n = int(args.shard_images)
+    if shard_n > 0:
+        _sample_sharded(ray_trafo, images, shard_n, prepare, finish, make_sampler)
+    else:
+        sampler = None
+        for i, sample in enumerate(images):
+            gen, observation, ground_truth, filtbackproj = prepare(i, sample)
+            if sampler is None:
+                sampler = make_sampler(observation, ground_truth, filtbackproj)
+            else:
+                # the same shapes: swap the image's data into the sampler
+                sampler.observation = observation
+                sampler.rhs = ray_trafo.adjoint(observation)
+                sampler.filtbackproj = filtbackproj
+                sampler.ground_truth = ground_truth
+            recon, _ = sampler.sample(generator=gen)
+            finish(i, recon[0], ground_truth)
+
     report = dataclasses.asdict(dataconfig)
     report.update({k: str(v) for k, v in vars(args).items()})
     report["PSNR"] = float(np.mean(psnrs))
     report["SSIM"] = float(np.mean(ssims))
-    report["sampling_mode"] = "serial"
+    # a sharded run draws each chunk's chain from one generator: the same
+    # distribution as the serial protocol, not the same bits
+    report["sampling_mode"] = f"sharded({shard_n})" if shard_n > 0 else "serial"
     report["diverged_images"] = diverged
     write_report(save_root / "report.yaml", report)
     print(json.dumps({"PSNR": report["PSNR"], "SSIM": report["SSIM"]}))
     return save_root
+
+
+def _sample_sharded(ray_trafo, images, shard_n, prepare, finish, make_sampler):
+    """Several images per call (the JAX CLI's `_sample_sharded`): chunks of
+    `shard_n` images stacked on the sampler's batch axis (the last chunk
+    padded with its last image, whose extra rows are dropped), each image's
+    observation drawn as on the serial path, each chunk's chain from one
+    generator: the chunk's first image's, continued after its observation,
+    as the serial path continues each image's (JAX draws the chunk's chain
+    from a key of its own, `fold_in(key, 1)`).  The chunk runs on the one
+    card, whatever the number of visible devices, where the JAX CLI shards
+    it over a mesh."""
+    import torch
+
+    items = [prepare(i, sample) for i, sample in enumerate(images)]
+    sampler = None
+    for c0 in range(0, len(items), shard_n):
+        chunk = items[c0:c0 + shard_n]
+        padded = chunk + [chunk[-1]] * (shard_n - len(chunk))
+        obs = torch.cat([o for _, o, _, _ in padded])
+        fbp = torch.cat([f for _, _, _, f in padded])
+        if sampler is None:
+            sampler = make_sampler(obs, None, fbp, batch_size=shard_n)
+        else:
+            sampler.observation = obs
+            sampler.rhs = ray_trafo.adjoint(obs)
+            sampler.filtbackproj = fbp
+        recon, _ = sampler.sample(generator=chunk[0][0])
+        for j, (_, _, ground_truth, _) in enumerate(chunk):
+            finish(c0 + j, recon[j], ground_truth)
 
 
 if __name__ == "__main__":

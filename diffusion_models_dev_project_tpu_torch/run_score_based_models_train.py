@@ -20,8 +20,12 @@ or gradient.
 
 warm-starts the flagship prior on the card.  `--device cpu --im_size 64
 --num_channels 32 --batch_size 2 --epochs 1 --steps_per_epoch 2` runs in
-seconds on the CPU.  Several devices are ROADMAP.md queue 1 item 10,
-reference `.pt` checkpoints item 11.
+seconds on the CPU.  `--init_ckpt` reads the JAX package's flax msgpack
+trees, the port's own checkpoint directories and reference PyTorch `.pt`
+checkpoints (`models/torch_convert.py`).  The port trains on one card,
+whatever the number of visible devices: where the JAX CLI shards the batch
+over a mesh, the port stays on its one device (`parallel/mesh.py` raises
+for a mesh over more than one card).
 """
 import argparse
 import dataclasses
@@ -189,7 +193,7 @@ def coordinator(args):
     if args.init_ckpt:
         # warm start: the stored weights replace the random init; Adam and the
         # step start fresh, and the EMA warm start seeds the shadow from them
-        loaded = F.load_params(str(args.init_ckpt), use_ema=False)
+        loaded = F.load_params(str(args.init_ckpt), use_ema=False, cfg=model.cfg)
         with torch.no_grad():
             if args.init_ckpt_partial:
                 copied = skipped = 0

@@ -27,17 +27,25 @@ the conv3x3 input and weight gradients and the attention backward
 `torch.Generator` or is injected as `noises`: the prior draw, then one draw
 per step.
 
-Not ported yet: `sample_batched`, the vmapped multi-image mode (ROADMAP.md
-queue 1 item 10).
+Several images per call (`sample_batched`, JAX's vmapped multi-image mode):
+under `lora` the images share the chain's batch axis, and each trainable
+leaf becomes a stack with one row per image, swapped into the model by
+`torch.func.functional_call` (models/unet.py), so that each image keeps its
+own LoRA, its own biases and its own Adam state.  The inner loss is the sum
+of the images' own losses, so each row's gradient is its image's alone.
+`full` and `decoder` train every base weight they touch per image, which
+leaves no shared weight to batch: their images run one after another
+through the single-image program.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from ..models.unet import LoRAConv, LoRADense
 from ..ops.cg import cg
@@ -47,7 +55,8 @@ from .engine import SamplerSpec, _time_arrays
 from .predictors import make_dc_op
 
 __all__ = ["STRATEGIES", "check_strategy", "tv_loss", "is_adapt_param", "split_adapt_params",
-           "init_lora", "AdaptSpec", "AdaptedSampler", "get_standard_adapted_sampler"]
+           "init_lora", "AdaptSpec", "AdaptedSampler", "BatchedImages",
+           "get_standard_adapted_sampler"]
 
 STRATEGIES = ("lora", "full", "decoder")
 
@@ -113,6 +122,15 @@ def init_lora(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:
     return out
 
 
+class BatchedImages(NamedTuple):
+    """N images of a `lora` chain (`AdaptedSampler.batched_inputs`): the
+    stacked trainable leaves (name -> (N, ...)), the observations as one
+    batch and their Aᵀy."""
+    leaves: Dict[str, torch.Tensor]
+    observation: torch.Tensor
+    rhs: torch.Tensor
+
+
 @dataclasses.dataclass(frozen=True)
 class AdaptSpec:
     """Adaptation hyper-parameters (JAX `AdaptSpec`)."""
@@ -167,37 +185,53 @@ class AdaptedSampler:
         """Standard-normal draws per chain: the prior, then one per step."""
         return 1 + len(self._time_data[0])
 
-    def score(self, x, t, lora_scale: float, use_kernel: bool = True):
-        return self.model(x, t, use_kernel=use_kernel, lora_scale=lora_scale)
+    def score(self, x, t, lora_scale: float, use_kernel: bool = True, leaves=None):
+        """The model's output; with `leaves` (stacked per image, see
+        `batched_inputs`) in place of the trainable parameters."""
+        kw = {"use_kernel": use_kernel, "lora_scale": lora_scale}
+        if leaves is None:
+            return self.model(x, t, **kw)
+        return functional_call(self.model, leaves, (x, t), kw)
 
-    def data_consistency(self, xhat0: torch.Tensor, dc_type: str, n_iter: int) -> torch.Tensor:
-        """x̂0 -> data-consistent x̂ (JAX `_data_consistency`)."""
+    def data_consistency(self, xhat0: torch.Tensor, dc_type: str, n_iter: int,
+                         rhs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x̂0 -> data-consistent x̂ (JAX `_data_consistency`), for the
+        sampler's Aᵀy or the given `rhs`."""
         gamma, trafo = self.adapt.gamma, self.ray_trafo
+        rhs = self.rhs if rhs is None else rhs
         if dc_type == "cg":
-            return cg(make_dc_op(trafo, gamma), xhat0, xhat0 + gamma * self.rhs, n_iter=n_iter)
+            return cg(make_dc_op(trafo, gamma), xhat0, xhat0 + gamma * rhs, n_iter=n_iter)
         if dc_type == "gd":
-            return xhat0 - gamma * trafo.adjoint(trafo.apply(xhat0)) + gamma * self.rhs
+            return xhat0 - gamma * trafo.adjoint(trafo.apply(xhat0)) + gamma * rhs
         return xhat0
 
-    def adaptation_loss(self, x: torch.Tensor, t: torch.Tensor,
-                        use_kernel: bool = True) -> torch.Tensor:
+    def adaptation_loss(self, x: torch.Tensor, t: torch.Tensor, use_kernel: bool = True,
+                        images: Optional[BatchedImages] = None) -> torch.Tensor:
         """The inner loss: score -> Tweedie -> data consistency ->
-        mean((A x̂ - y)²) + tv_penalty · TV(x̂)."""
+        mean((A x̂ - y)²) + tv_penalty · TV(x̂).  With `images`
+        (`batched_inputs`), x holds one row per image, the score runs with
+        their stacked leaves, and the loss is the sum of the images' own."""
         ad = self.adapt
-        xhat0 = tweedy(self.score(x, t, 1.0, use_kernel), x, self.sde, t)
-        xhat = self.data_consistency(xhat0, ad.dc_type, ad.cg_iter)
-        resid = self.ray_trafo.apply(xhat) - self.observation
-        return resid.square().mean() + ad.tv_penalty * tv_loss(xhat)
+        leaves, obs, rhs = (None, self.observation, None) if images is None else images
+        xhat0 = tweedy(self.score(x, t, 1.0, use_kernel, leaves), x, self.sde, t)
+        xhat = self.data_consistency(xhat0, ad.dc_type, ad.cg_iter, rhs)
+        sq = (self.ray_trafo.apply(xhat) - obs).square()
+        data = sq.mean() if images is None else sq.reshape(sq.shape[0], -1).mean(dim=1).sum()
+        return data + ad.tv_penalty * tv_loss(xhat)
 
-    def adapt_step(self, x: torch.Tensor, t: torch.Tensor) -> None:
-        """One adaptation: a fresh Adam, `num_optim_step` steps on the loss."""
+    def adapt_step(self, x: torch.Tensor, t: torch.Tensor,
+                   images: Optional[BatchedImages] = None) -> None:
+        """One adaptation: a fresh Adam, `num_optim_step` steps on the loss,
+        over the model's trainable leaves or the images' stacked ones (one
+        Adam over the stacks is one Adam per image: its update is
+        elementwise)."""
         ad = self.adapt
-        opt = torch.optim.Adam(list(self.trainable.values()), lr=ad.lr, betas=(0.9, 0.999),
-                               eps=1e-8)
+        params = list((self.trainable if images is None else images.leaves).values())
+        opt = torch.optim.Adam(params, lr=ad.lr, betas=(0.9, 0.999), eps=1e-8)
         with torch.enable_grad():
             for _ in range(ad.num_optim_step):
                 opt.zero_grad(set_to_none=True)
-                self.adaptation_loss(x, t).backward()
+                self.adaptation_loss(x, t, images=images).backward()
                 opt.step()
 
     @contextlib.contextmanager
@@ -236,46 +270,148 @@ class AdaptedSampler:
         return (x_mean, trace) if return_trace else (x_mean, None)
 
     def _run(self, generator, noises):
-        spec, ad, sde = self.spec, self.adapt, self.sde
-        ts, tps, _, _ = self._time_data
-        b = spec.batch_size
-        shape = (b, *spec.im_shape)
+        shape = (self.spec.batch_size, *self.spec.im_shape)
         device = self.rhs.device
-        t_dtype = torch.int64 if isinstance(sde, DDPM) else torch.float32
 
         def draw(i):
             if noises is not None:
                 return torch.as_tensor(noises[i], dtype=torch.float32, device=device)
             return torch.randn(shape, generator=generator, device=device)
 
+        return self._chain(shape[0], draw)
+
+    def _chain(self, b, draw, images=None):
+        """The two-level loop over a chain of `b` rows, draw i from
+        `draw(i)`, with the model's trainable leaves or the `images`'
+        stacked ones; (x_mean, PSNR trace)."""
+        spec, ad, sde = self.spec, self.adapt, self.sde
+        ts, tps, _, _ = self._time_data
+        device = self.rhs.device
+        t_dtype = torch.int64 if isinstance(sde, DDPM) else torch.float32
+        leaves = None if images is None else images.leaves
+        extra = () if images is None else (images,)
+
         def tvec(t):
             return torch.full((b,), t, dtype=t_dtype, device=device)
 
-        gt = self.ground_truth
-        x = sde.prior_sampling(shape, noise=draw(0))
+        gt = self.ground_truth if images is None else None
+        x = sde.prior_sampling((b, *spec.im_shape), noise=draw(0))
         trace = []
         for i, (t, t_prev) in enumerate(zip(ts.tolist(), tps.tolist())):
             tv, tpv = tvec(t), tvec(t_prev)
             if i % ad.adapt_freq == 0:
-                self.adapt_step(x, tv)
+                self.adapt_step(x, tv, *extra)
             # the adapted score drives the denoised estimate ...
-            xhat0 = tweedy(self.score(x, tv, 1.0), x, sde, tv)
-            xhat = (self.data_consistency(xhat0, ad.dc_type, ad.cg_iter)
+            xhat0 = tweedy(self.score(x, tv, 1.0, leaves=leaves), x, sde, tv)
+            xhat = (self.data_consistency(xhat0, ad.dc_type, ad.cg_iter,
+                                          None if images is None else images.rhs)
                     if ad.add_cg else xhat0)
             # ... the prior score (LoRA off) drives the DDIM direction
-            x = ddim(sde, self.score(x, tv, 0.0), xhat, tv, tpv, spec.eta, draw(i + 1),
-                     use_simplified_eqn=spec.use_simplified_eqn)
+            x = ddim(sde, self.score(x, tv, 0.0, leaves=leaves), xhat, tv, tpv, spec.eta,
+                     draw(i + 1), use_simplified_eqn=spec.use_simplified_eqn)
             if gt is not None:
                 mse = (xhat0[0, ..., 0] - gt[0, ..., 0]).square().mean()
                 trace.append(20 * torch.log10(gt.max() - gt.min()) - 10 * torch.log10(mse))
         t_last = tvec(ts[-1].item())
-        x_mean = tweedy(self.score(x, t_last, 1.0), x, sde, t_last)
+        x_mean = tweedy(self.score(x, t_last, 1.0, leaves=leaves), x, sde, t_last)
         trace = torch.stack(trace) if trace else torch.zeros(len(ts), device=device)
         return x_mean, trace
 
-    def sample_batched(self, *args, **kwargs):
-        raise NotImplementedError("AdaptedSampler.sample_batched (several images, each with its "
-                                  "own LoRA) is not ported yet: ROADMAP.md queue 1 item 10")
+    def batched_inputs(self, observations: torch.Tensor,
+                       lora_stack: Optional[Dict[str, torch.Tensor]] = None) -> BatchedImages:
+        """The `lora` chain's inputs for N images: `observations` (N,
+        *observation shape) as one batch of N rows with its Aᵀy, and every
+        trainable leaf stacked (N, ...) as a fresh fp32 leaf that requires a
+        gradient: the LoRA weights from `lora_stack` (N stacked
+        `init_lora` states) or the sampler's one LoRA state, the other leaves
+        (biases) from their start state."""
+        device = self.rhs.device
+        obs = torch.as_tensor(observations, dtype=torch.float32, device=device)
+        n = obs.shape[0]
+        if obs.shape[1:] != self.observation.shape or self.spec.batch_size != 1:
+            raise ValueError(f"sample_batched takes (N, *{tuple(self.observation.shape)}) "
+                             f"observations of a batch-1 sampler, not {tuple(obs.shape)}")
+        obs = obs.reshape(n, *obs.shape[2:])
+        leaves = {}
+        for name in self.trainable:
+            if _is_lora(name) and lora_stack is not None:
+                rows = torch.as_tensor(lora_stack[name], dtype=torch.float32, device=device)
+                if rows.shape[0] != n:
+                    raise ValueError(f"lora_stack[{name!r}] holds {rows.shape[0]} rows, not {n}")
+            else:
+                row = self.lora[name] if _is_lora(name) else self.start[name]
+                rows = row.float().expand(n, *row.shape)
+            leaves[name] = rows.clone().requires_grad_(True)
+        return BatchedImages(leaves, obs, self.ray_trafo.adjoint(obs))
+
+    @torch.no_grad()
+    def sample_batched(self, observations: torch.Tensor, noises=None, generator=None,
+                       lora_stack: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Adapt and sample N images in one call (JAX `sample_batched`); the
+        result is (N, 1, H, W, 1), image n in row n, with no PSNR trace (no
+        ground truth, as in JAX).
+
+        `observations` is (N, *observation shape), each row an observation
+        of the sampler's own shape.  Under `lora` the N images run as one
+        chain on the batch axis, each with its own leaves (`batched_inputs`:
+        `lora_stack` holds N stacked LoRA states, one `init_lora` per
+        image; without it every image starts from the sampler's LoRA state)
+        and the model's parameters are left as they were.  Under `full` and
+        `decoder` every trained weight belongs to its image, so the images
+        run one after another through `sample`, each from the start state:
+        what JAX's vmap of the single-image program computes.
+
+        `noises` is stacked per image, (N, draws, 1, H, W, 1) or N sequences,
+        row n being image n's draws in `sample`'s order; `generator` is one
+        `torch.Generator` for the whole batch or a sequence of N, one per
+        image, each drawing what `sample(generator=...)` would draw."""
+        n = len(observations)
+        if noises is not None and (len(noises) != n
+                                   or any(len(nz) != self.num_draws for nz in noises)):
+            raise ValueError(f"noises: {n} images x {self.num_draws} draws wanted")
+        gens = generator if isinstance(generator, (list, tuple)) else None
+        if gens is not None and len(gens) != n:
+            raise ValueError(f"{len(gens)} generators for {n} images")
+        if self.adapt.impl != "lora":
+            return self._sample_one_by_one(observations, noises, generator)
+        images = self.batched_inputs(observations, lora_stack)
+        device = images.observation.device
+        shape = (1, *self.spec.im_shape)
+
+        def draw(i):
+            if noises is not None:
+                return torch.cat([torch.as_tensor(nz[i], dtype=torch.float32, device=device)
+                                  for nz in noises])
+            if gens is not None:
+                return torch.cat([torch.randn(shape, generator=g, device=device) for g in gens])
+            return torch.randn((n, *shape[1:]), generator=generator, device=device)
+
+        flags = {name: p.requires_grad for name, p in self.model.named_parameters()}
+        try:
+            self.model.requires_grad_(False)        # the base weights stay frozen
+            x_mean, _ = self._chain(n, draw, images)
+        finally:
+            for name, p in self.model.named_parameters():
+                p.requires_grad_(flags[name])
+        return x_mean.reshape(n, 1, *self.spec.im_shape)
+
+    def _sample_one_by_one(self, observations, noises, generator):
+        """`full` and `decoder`: each image through `sample`, its data
+        swapped into the sampler."""
+        saved = self.observation, self.rhs, self.ground_truth
+        device = self.rhs.device
+        outs = []
+        try:
+            self.ground_truth = None
+            for j, obs in enumerate(observations):
+                self.observation = torch.as_tensor(obs, dtype=torch.float32, device=device)
+                self.rhs = self.ray_trafo.adjoint(self.observation)
+                gen = generator[j] if isinstance(generator, (list, tuple)) else generator
+                outs.append(self.sample(generator=gen,
+                                        noises=None if noises is None else noises[j])[0])
+        finally:
+            self.observation, self.rhs, self.ground_truth = saved
+        return torch.stack(outs)
 
 
 def get_standard_adapted_sampler(

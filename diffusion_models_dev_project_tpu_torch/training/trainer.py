@@ -21,8 +21,9 @@ attention forward and backward).  What it keeps of the JAX step:
 
 Randomness: the JAX step splits a key per step; here step `s` draws its t
 and z from a generator seeded with (seed, s), so a resumed run draws what
-the uninterrupted run drew.  One device; data parallelism over a mesh is
-ROADMAP.md queue 1 item 10.
+the uninterrupted run drew.  One device: `mesh` is None or the one-device
+mesh of `parallel/mesh.py`; data parallelism over several cards is not
+ported.
 """
 from __future__ import annotations
 
@@ -43,8 +44,6 @@ from .losses import epsilon_matching_loss, score_matching_loss
 
 __all__ = ["Optimizer", "TrainLog", "TrainState", "make_train_step", "step_generator",
            "train_score_model"]
-
-NOT_PORTED_MESH = "data parallelism over a mesh is not ported yet (ROADMAP.md queue 1 item 10)"
 
 
 class Optimizer:
@@ -243,7 +242,7 @@ def train_score_model(
     masters; `init_params`, a state_dict, is copied into the model first);
     returns the final `TrainState`.  The arguments are the JAX
     `train_score_model`'s, with `model` (its forward `model(x, t)`) for
-    its `model_apply` and `mesh` only None; `debug_nans` fails at the
+    its `model_apply` and `mesh` None or one device; `debug_nans` fails at the
     first non-finite loss or gradient.
 
     `train_iter` yields NHWC numpy or torch batches.  `checkpointer` is a
@@ -256,9 +255,12 @@ def train_score_model(
     the JAX trainer casts them (`weights`: name -> bf16 tensor on the
     model's device); the best so far goes to `{log_dir}/best_ema.msgpack.npz`
     (fp16) with `best_ema.json`, whose score a resumed run starts from."""
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
+    if mesh is not None and len(getattr(mesh, "devices", ())) != 1:
+        raise NotImplementedError("train_score_model: a mesh over more than one card is not "
+                                  "ported; pass None or a one-device mesh (parallel/mesh.py)")
     device = next(model.parameters()).device
+    if mesh is not None and mesh.devices[0] != device:
+        raise ValueError(f"the mesh's device {mesh.devices[0]} is not the model's {device}")
     if init_params is not None:
         with torch.no_grad():
             for name, p in model.named_parameters():

@@ -7,9 +7,9 @@ for the JAX CLI's own test in tests/test_cli.py), for `dds`, `dps` and
 `naive`: each run writes `report.yaml`, `recon_0.png` and
 `recon_0_info.npz` into the JAX CLI's output path, and reconstructs the JAX
 CLI's image: its ground truth equals, within 1e-6, the first test-fold
-phantom of the JAX package's `get_standard_dataset` at that size.  What the
-port does not have yet raises, naming its ROADMAP.md item: `--shard_images`
-(item 10).  Without the CWI data in the repository the walnut data raise
+phantom of the JAX package's `get_standard_dataset` at that size
+(`--shard_images`: tests/test_torch_cli_shard.py).  Without the CWI data in
+the repository the walnut data raise
 FileNotFoundError naming them, and the Woodbury data consistency
 (`dc_mode="woodbury"`) raises for an operator without a dense matrix.
 
@@ -59,8 +59,6 @@ def unported_raise(workdir):
     workdir = Path(str(workdir))
     os.chdir(str(workdir))
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.coordinator(cli.parser.parse_args(ARGV + ["--shard_images", "2"]))
     os.environ["WALNUT_DATA_PATH"] = str(workdir / "Walnuts")
     with pytest.raises(FileNotFoundError, match="walnut"):
         cli.coordinator(cli.parser.parse_args(ARGV + ["--dataset", "walnut"]))

@@ -3,8 +3,9 @@
 `run_score_based_models_train` with the JAX CLI's flags writes a versioned
 run directory (`report.yaml`, `train_log.jsonl`, checkpoints, the tail
 average, the keep-best export with `best_ema.json`, the sample grids), and
-`--run_dir` resumes that directory from its latest checkpoint.  What the
-port does not have raises, naming its ROADMAP.md item.
+`--run_dir` resumes that directory from its latest checkpoint.  A warm
+start from a reference `.pt` file that is not there raises
+FileNotFoundError naming it, and so do missing AAPM slices.
 
 The torch half runs in a child interpreter (tests/_torch_child.py): no
 pytest process runs torch code.
@@ -36,7 +37,7 @@ def train_and_resume(base):
     resumed = cli.coordinator(cli.parser.parse_args(TINY + ["--epochs", "3", "--run_dir", run]))
     assert resumed.step == 6
     steps = sorted(int(s) for s in os.listdir(os.path.join(run, "ckpts")))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(FileNotFoundError, match="model.pt"):
         cli.coordinator(cli.parser.parse_args(TINY + ["--init_ckpt", "model.pt",
                                                       "--base_path", base]))
     # the AAPM model trains on the slices under AAPM_DATA_PATH (absent here;

@@ -7,7 +7,8 @@ them.  Entry points run on CUDA unless asked for the CPU, and raise here,
 where there is no CUDA device.  The paths of ROADMAP.md queue 1 item 9
 (matrix and walnut operators, AAPM and walnut data) resolve; the walnut
 data, which the repository does not hold, raise FileNotFoundError naming
-them.
+them.  Reference `.pt` checkpoints are read (a missing one raises
+FileNotFoundError), and a mesh over more than one card raises.
 
 The torch half of each test runs in a child interpreter (tests/_torch_child.py):
 no pytest process runs torch code.
@@ -47,7 +48,8 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
         "run_conditional_sampling", "data.ellipses", "configs.aapm_configs",
         "configs.walnut_configs", "sampling.predictors", "sampling.engine",
         "run_score_based_models_train", "training.losses", "training.ema", "training.trainer",
-        "utils.checkpoint")} <= set(modules)
+        "utils.checkpoint", "parallel.mesh", "utils.kvlogger", "utils.profiling", "utils.flops",
+        "models.torch_convert")} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         f"for name in {ABSENT!r}:",
@@ -136,13 +138,13 @@ def unported_paths_raise(workdir):
     with pytest.raises(FileNotFoundError, match="walnut"):
         TF.get_standard_dataset(wconfig, TF.get_standard_ray_trafo(small, device="cpu"))
     config = get_config("vesde")
-    # reference torch checkpoints wait for their converter (queue 1 item 11)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # reference torch checkpoints are read through models/torch_convert.py
+    with pytest.raises(FileNotFoundError, match="model.pt"):
         TF.get_standard_score(config, TF.get_standard_sde(config), ckpt_path="model.pt",
                               device="cpu")
     # adaptation: the full and decoder strategies train base conv weights
     # through the conv3x3 weight gradient (queue 1 item 8, done); an unknown
-    # strategy raises; several images per call is item 10
+    # strategy raises
     from diffusion_models_dev_project_tpu_torch.sampling import adaptation as TA
 
     for impl in ("full", "decoder"):
@@ -156,13 +158,11 @@ def unported_paths_raise(workdir):
         TF.get_standard_adapted_sampler("dds", None, None, None, None, adaptation="dif-fit")
     with pytest.raises(NotImplementedError, match="strategy"):
         TA.AdaptSpec(impl="dif-fit")
-    # training: one device; a mesh (data parallelism) is item 10
+    # training: one device; a mesh over more than one card raises
     from diffusion_models_dev_project_tpu_torch.training.trainer import train_score_model
 
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="more than one card"):
         train_score_model(None, None, None, [], epochs=1, steps_per_epoch=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TA.AdaptedSampler.sample_batched(None)
     # part "test" has no shipped set: the port generates the test-fold
     # phantoms, as the JAX package does (tests/test_torch_ellipses.py holds
     # them to its)
@@ -182,14 +182,9 @@ def unported_paths_raise(workdir):
     aconfig.training.batch_size = 2
     _, batches = TF.get_standard_train_dataset(aconfig, device="cpu")
     assert tuple(next(batches).shape) == (2, 64, 64, 1)
-    # the adapted CLI: full and decoder pass its check; several images per
-    # call raises, naming its item; the walnut data raise as above
+    # the adapted CLI: the walnut data raise as above
     from diffusion_models_dev_project_tpu_torch import run_adapted_sampling as cli
 
-    for impl in ("full", "decoder"):
-        cli._check_ported(cli.parser.parse_args(["--adaptation", impl, "--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.coordinator(cli.parser.parse_args(["--shard_images", "2", "--device", "cpu"]))
     os.environ["WALNUT_DATA_PATH"] = os.path.join(workdir, "Walnuts")
     os.chdir(workdir)
     with pytest.raises(FileNotFoundError, match="walnut"):
