@@ -79,7 +79,7 @@ attention backward):
    (per backward also the stem's input gradient, on `narrow`) and its wall
    and device times; then DPS and naive (penalty 10) through the port's
    conditional CLI on its default data (test-fold image 0, generated at
-   256²), each started from the prior (on a 250-step grid; their PSNR
+   256²), each started from the prior (on a 100-step grid; their PSNR
    printed) and from the FBP (the last 500
    steps of the 1000-step grid): each run inside the CLI's divergence
    guard, every run with its launch counts exact; from the FBP, DPS better than naive by
@@ -99,9 +99,10 @@ attention backward):
    `best_ema.msgpack.npz` equal to the EMA shadow in fp16, and the probe's
    200-step DDS (the shadow cast to bf16, as the JAX trainer probes it)
    better than FBP on its images; then, printed and not gated, 4 steps each
-   from the CLI's masters (rounded to bf16), from masters left at the
-   checkpoint's fp16 values and in fp32, their losses and probes (what the
-   rounding guards against); then DDPM from the fresh init (output exactly
+   from the CLI's masters (rounded to bf16) and from masters left at the
+   checkpoint's fp16 values, their losses and probes (`WITNESS_PROBE_STEPS`
+   = 100 DDS steps; what the rounding guards against); then DDPM from the
+   fresh init (output exactly
    0, the epsilon loss finite, counts exact);
 10. full and decoder: the full-width gradient of the adaptation loss under
    each strategy, kernels against plain with the gates of phase 5 and launch
@@ -159,12 +160,31 @@ attention backward):
    config's UNet at full width (256 channels, random weights) against its
    plain path with exact launch counts, and its conv3x3 shapes timed by
    variant;
-14. prints one `{"kernels": [...]}` line, then, last, the device line
+14. multi-card (`parallel/launch.py`): one rank per card over NCCL where
+   the machine has several cards, else two ranks sharing the one card over
+   gloo (printed); every rank runs the hand kernels.  14a the train CLI
+   warm-started, `MC_TRAIN_BATCH` = 6 over 2 ranks (3 rows a rank),
+   `MC_TRAIN_STEPS` = 4 steps: after every step the replicas bitwise equal,
+   and each step's loss (the mean over the ranks) within `MC_LOSS_RTOL` and
+   its all-reduced gradient over all leaves within `TOL_GRAD_ALL` of the
+   one-process step at batch 6 on the same parameters, t and z; launch
+   counts exact per rank; 14b the conditional CLI at `--shard_images 4`
+   (phase 11b's run, sharded): each image above its FBP and within
+   `MC_DDS_AGREE_DB` of phase 11b's one-card batch-4 run, launch counts
+   exact per rank, and an fp32 DDS chain of 2 images x 4 steps, sharded,
+   within `TOL_SHARD_CHAIN` of one process by tensors; 14c the adapted CLI
+   at `--shard_images 4` (10 x 3, phase 11c's run, sharded), counts exact,
+   and phase 11c's fp32 `sample_batched` (2 images, 4 x 3) sharded within
+   `TOL_SHARD_CHAIN` of one process.  Printed: the layout, seconds per
+   image at 1 rank (phase 11) and at 2, the busy share per rank from
+   profiler traces, the launches per rank summed.  `--phase14` runs it
+   alone after phases 1 and 2, against one-card runs of its own;
+15. prints one `{"kernels": [...]}` line, then, last, the device line
    `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Usage: python3 chip_smoke.py [--steps N] [--images N] [--adapt-steps N] [--adapt-images N]
-       [--dps-steps N]
+       [--dps-steps N] [--phase14]
 (walnut_probe.py runs phases 12, 12b and 13 alone, at any depth and ungated)
 """
 from __future__ import annotations
@@ -219,7 +239,8 @@ TRAIN_LOSS_RATIO = 1.02
 TRAIN_WITNESS_STEPS = 4       # steps of the bf16-tie witness (phase 9b'; cut, PERF.md §4)
 DDPM_TRAIN_STEPS = 2          # steps of the DDPM run from the fresh init
 PROBE_DDS_STEPS = 200         # the keep-best probe's DDS (run_score_based_models_train.py)
-ADAPT_CLI_STEPS, ADAPT_CLI_OPTIM = 5, 3     # the short full and decoder runs through the CLI
+WITNESS_PROBE_STEPS = 100     # the witnesses' probe DDS (phase 9b'; cut, PERF.md §4)
+ADAPT_CLI_STEPS, ADAPT_CLI_OPTIM = 3, 3     # the short full and decoder runs through the CLI
 ADAPT_PROTOCOL_STEPS = 50     # outer steps of the adapted protocol (10 Adam steps each)
 ADAPT_PROTOCOL_OPTIM = 10
 # phase 7 runs the protocol on the OOD bars, where adaptation matters most,
@@ -232,7 +253,7 @@ DPS_PROTOCOL_STEPS = 1000     # steps of the conditional CLI's protocol
 # negative results, their PSNR printed and not gated; the CLI's divergence
 # guard is gated on this grid as on the protocol's)
 PHASE6_STEPS = 200
-DPS_PRIOR_STEPS = 250
+DPS_PRIOR_STEPS = 100
 DPS_PENALTY = 10.0            # the best DPS penalty of the JAX package's records (BENCH.md)
 DPS_T = 0.5                   # the time at which the full-width gradient in x is checked
 # the FBP start skips this part of the 1000-step grid (the CLI's
@@ -1847,6 +1868,9 @@ def multi_image_phase(F, P, CLI, ACLI, model, config, config32, sde, trafo, imag
         f"{out['dds']['batched']['s_per_image']:.2f} at {n}; launches batched "
         + json.dumps(runs["batched"]["counts"]))
     out["dds_counts"] = runs["batched"]["counts"]
+    # phase 14 holds its sharded run to these
+    out["one_card"] = {"dds_psnr": [r[0] for r in rows_out], "dds_fbp": [r[2] for r in rows_out],
+                       "dds_s_per_image": out["dds"]["batched"]["s_per_image"]}
     log(f"[phase 11b conditional, {n} images] {time.perf_counter() - t0:.1f} s")
 
     # ---- 11c. adapted lora: the batched gradient for two images, then the CLI
@@ -1958,8 +1982,501 @@ def multi_image_phase(F, P, CLI, ACLI, model, config, config32, sde, trafo, imag
         f"loss at {n} images {both4_dev:.2f} ms against {dev_times['adapt_both']:.2f} ms at 1; "
         "launches batched " + json.dumps(runs["batched"]["counts"]))
     out["adapted_counts"] = runs["batched"]["counts"]
+    out["one_card"].update(
+        adapted_psnr=[float(PSNR(rb, g_np)) for rb, g_np in runs["batched"]["recs"]],
+        adapted_s_per_image=out["adapted"]["batched"]["s_per_image"])
     del m16
     log(f"[phase 11c adapted lora, {n} images] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---- phase 14: the multi-card paths, one process per rank (parallel/launch.py)
+MC_RANKS = 2                  # ranks of the phase: one per card, or two on the one card
+MC_TRAIN_BATCH = 6            # the train CLI's global batch (3 rows a rank)
+MC_TRAIN_STEPS = 4
+# each sharded step's loss (the mean over the ranks) against the one-process
+# loss at batch 6 on the same parameters, t and z: both bf16 compute, whose
+# conv plans change with the batch (split-K), so that last bf16 bits differ;
+# the gradient over all leaves is held to phase 9's TOL_GRAD_ALL.  Set before
+# the first run (PERF.md §6)
+MC_LOSS_RTOL = 5e-3
+MC_DDS_AGREE_DB = 1.0         # each sharded DDS image against phase 11b's one-card batch-4 run
+MC_CHAIN_IMAGES = 2           # the fp32 chains held to the one-process chain by tensors
+MC_DDS_CHAIN_STEPS = 4
+MC_TRACE_DDS_STEPS = 10       # the profiled DDS steps per rank (busy share)
+# phase 14 alone (`--phase14`): the one-card batch-4 runs it is held to
+# otherwise come from phase 11
+
+
+def mc_layout():
+    """(devices, backend, what): one rank per card over NCCL where there are
+    several cards, else two ranks on the one card over gloo (NCCL refuses
+    two ranks on one card)."""
+    import torch
+
+    if torch.cuda.device_count() > 1:
+        return ([f"cuda:{i}" for i in range(MC_RANKS)], "nccl",
+                f"{MC_RANKS} ranks, one per card, over NCCL")
+    return (["cuda:0"] * MC_RANKS, "gloo",
+            f"{MC_RANKS} ranks sharing the one card (cuda:0) over gloo: NCCL is not run")
+
+
+def _gather_objects(obj):
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def _counts_of(fn):
+    """fn() with the launch counters left as they were (a comparison run)."""
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    saved = {m: {k: (dict(v) if isinstance(v, dict) else v) for k, v in vars(m).items()
+                 if k.startswith(("launches", "backward_launches", "wgrad_launches"))}
+             for m in (A, C)}
+    try:
+        return fn()
+    finally:
+        for m, kv in saved.items():
+            for k, v in kv.items():
+                setattr(m, k, v)
+
+
+def _replicas_equal(params, mesh):
+    """Whether every rank's parameters equal rank 0's, bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    bits = torch.cat([p.detach().reshape(-1) for p in params]).view(torch.int32)
+    ref = bits.clone()
+    dist.broadcast(ref, src=0, group=mesh.group)
+    flag = torch.tensor([int(torch.equal(bits, ref))], device=bits.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.group)
+    return bool(flag.item())
+
+
+def _mc_train(plan, mesh):
+    """14a in a rank: the train CLI, data-parallel; per step the replicas
+    compared bitwise, and (rank 0) the step's loss and all-reduced
+    gradient against the one-process step at the global batch."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch import run_score_based_models_train as TRAIN_CLI
+    from diffusion_models_dev_project_tpu_torch.parallel.mesh import gather_batch
+    from diffusion_models_dev_project_tpu_torch.training import losses as L
+    from diffusion_models_dev_project_tpu_torch.training import trainer as T
+
+    rows, make_step, reduce_ = [], T.make_train_step, T.all_reduce_mean_
+    reduced = []
+
+    def capturing_reduce(m, tensors):
+        reduce_(m, tensors)
+        if mesh.rank == 0:                       # the step's all-reduced gradients
+            reduced.append([g.detach().clone() for g in tensors[:-1]])
+
+    def checked_make_train_step(model_apply, sde, optimizer, *a, **k):
+        step = make_step(model_apply, sde, optimizer, *a, **k)
+        names = list(optimizer.params)
+
+        def checked(state, batch, generator=None, t=None, z=None):
+            row = {}
+            if mesh.rank == 0:
+                gb, gt_, gz = (gather_batch(mesh, v) for v in (batch, t, z))
+
+                def reference():
+                    with torch.enable_grad():
+                        loss = L.score_matching_loss(gb, model_apply, sde, t=gt_, z=gz)
+                        g = torch.autograd.grad(loss, [optimizer.params[n] for n in names])
+                    return float(loss.detach()), g
+                row["loss_ref"], g_ref = _counts_of(reference)
+            else:
+                for v in (batch, t, z):
+                    gather_batch(mesh, v)
+            e0 = StepTimer._event()
+            loss = step(state, batch, t=t, z=z)
+            e1 = StepTimer._event()
+            torch.cuda.synchronize()
+            row["ms"] = e0.elapsed_time(e1)
+            row["loss"] = float(loss)
+            if mesh.rank == 0:
+                got = reduced.pop()
+                num = sum(float(torch.linalg.vector_norm((a - b).double()) ** 2)
+                          for a, b in zip(got, g_ref))
+                den = sum(float(torch.linalg.vector_norm(b.double()) ** 2) for b in g_ref)
+                row["grad_err"] = math.sqrt(num / den)
+                del got, g_ref
+            row["replicas_equal"] = _replicas_equal(optimizer.params.values(), mesh)
+            rows.append(row)
+            return loss
+        return checked
+
+    workdir = os.path.join(plan["workdir"], "train")
+    argv = ["--num_channels", "128", "--dtype", "bfloat16", "--batch_size", str(MC_TRAIN_BATCH),
+            "--epochs", "1", "--steps_per_epoch", str(MC_TRAIN_STEPS), "--init_ckpt", CKPT,
+            "--lr_warmup", str(TRAIN_WARMUP), "--base_path", workdir]
+    T.make_train_step, T.all_reduce_mean_ = checked_make_train_step, capturing_reduce
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        ts = time.perf_counter()
+        result = TRAIN_CLI.coordinator(TRAIN_CLI.parser.parse_args(argv))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - ts
+        counts = read_counts()
+    finally:
+        T.make_train_step, T.all_reduce_mean_ = make_step, reduce_
+    saved = os.path.isfile(os.path.join(result["log_dir"], "ckpts", str(MC_TRAIN_STEPS),
+                                        "state.pt")) if mesh.rank == 0 else None
+    return dict(rows=rows, counts=counts, wall_s=wall_s, step=result["step"], saved=saved)
+
+
+def _mc_cli(module, argv, workdir, patch=None):
+    """run_cli's measurements in a rank: the CLI runs in this rank's group;
+    (output directory, wall seconds, counts, report) on rank 0, the report
+    None elsewhere."""
+    import torch
+    import torch.distributed as dist
+
+    cwd = os.getcwd()
+    os.makedirs(workdir, exist_ok=True)
+    os.chdir(workdir)
+    orig = None
+    if patch is not None:
+        mod, name, wrap = patch
+        orig = getattr(mod, name)
+        setattr(mod, name, wrap(orig))
+    try:
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_counts()
+        ts = time.perf_counter()
+        root = module.coordinator(module.parser.parse_args(argv))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - ts
+        counts = read_counts()
+    finally:
+        if orig is not None:
+            setattr(patch[0], patch[1], orig)
+        os.chdir(cwd)
+    if dist.get_rank() != 0:
+        return None, wall_s, counts, None
+    root = os.path.join(workdir, root)
+    return root, wall_s, counts, read_report(os.path.join(root, "report.yaml"))
+
+
+def _mc_sampling(plan, mesh):
+    """14b and 14c in a rank: the conditional and the adapted CLI sharded,
+    then the fp32 chains, sharded against one process, and profiled steps."""
+    import torch
+    import torch.distributed as dist
+
+    import diffusion_models_dev_project_tpu_torch.factory as F
+    from diffusion_models_dev_project_tpu_torch import run_adapted_sampling as ACLI
+    from diffusion_models_dev_project_tpu_torch import run_conditional_sampling as CLI
+    from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import get_config
+    from diffusion_models_dev_project_tpu_torch.sampling.adaptation import init_lora
+    from diffusion_models_dev_project_tpu_torch.utils.metrics import PSNR
+
+    n = SHARD_IMAGES
+    out = {}
+    config = get_config("vesde")
+    config.model.num_channels = 128
+    config.model.dtype = "bfloat16"
+    config.data.part = "val"
+    config32 = copy.deepcopy(config)
+    config32.model.dtype = "float32"
+    sde = F.get_standard_sde(config)
+    trafo = F.get_standard_ray_trafo(config)
+    images = np.load(VALSET)["images"]
+    gen = torch.Generator(device="cuda").manual_seed(14)         # alike on every rank
+    obs2 = []
+    for j in range(MC_CHAIN_IMAGES):
+        g = torch.Generator(device="cuda").manual_seed(config.seed + j)
+        obs2.append(F.get_data_from_ground_truth(images[j], trafo, config.data.stddev,
+                                                 generator=g)[1])
+
+    # ---- 14b. the conditional CLI, its chunk of n images sharded over the ranks
+    timers = []
+
+    def wrap(make):
+        def made(*a, **k):
+            smp = make(*a, **k)
+            timers.append(CallTimer(smp, ["sample"]))
+            return smp
+        return made
+
+    argv = ["--load_path", CKPT, "--num_channels", "128", "--method", "dds", "--eta", "0.85",
+            "--num_steps", str(SHARD_DDS_STEPS), "--num_images", str(n), "--shard_images", str(n)]
+    root, wall_s, counts, report = _mc_cli(CLI, argv, os.path.join(plan["workdir"], "dds"),
+                                           (F, "get_standard_sampler", wrap))
+    out["dds"] = dict(wall_s=wall_s, counts=counts, sample_s=timers[0].seconds["sample"],
+                      report=report, psnr=None)
+    if mesh.rank == 0:
+        psnr = []
+        for i in range(n):
+            with np.load(os.path.join(root, f"recon_{i}_info.npz")) as info:
+                psnr.append(float(PSNR(info["recon"], info["ground_truth"])))
+        out["dds"]["psnr"] = psnr
+    # the fp32 chain: MC_CHAIN_IMAGES images x MC_DDS_CHAIN_STEPS, sharded, against one process
+    m32, _, score32 = F.get_standard_score(config32, sde, ckpt_path=CKPT)
+    smp = F.get_standard_sampler("dds", score32, sde, trafo, torch.cat(obs2),
+                                 num_steps=MC_DDS_CHAIN_STEPS, batch_size=MC_CHAIN_IMAGES,
+                                 im_shape=(256, 256, 1), eta=0.85, gamma=0.01, cg_iter=5)
+    noises = [torch.randn((MC_CHAIN_IMAGES, 256, 256, 1), generator=gen, device="cuda")
+              for _ in range(smp.num_draws)]
+    x_sh, _ = smp.sample(noises=noises, mesh=mesh)
+    if mesh.rank == 0:
+        x_one, _ = smp.sample(noises=noises)
+        out["dds_chain_err"] = float((x_sh - x_one).abs().max() / x_one.abs().max())
+        out["dds_chain_finite"] = bool(torch.isfinite(x_sh).all())
+    del m32, score32, smp
+    # busy share per rank: MC_TRACE_DDS_STEPS steps of the sharded chain, both ranks at once
+    model, _, score = F.get_standard_score(config, sde, ckpt_path=CKPT)
+    obs4 = torch.cat([torch.cat(obs2)] * (n // MC_CHAIN_IMAGES))
+    smp = F.get_standard_sampler("dds", score, sde, trafo, obs4, num_steps=SHARD_DDS_STEPS,
+                                 batch_size=n, im_shape=(256, 256, 1), gamma=0.01, eta=0.85,
+                                 cg_iter=5)
+    smp._time_data = tuple(a[-MC_TRACE_DDS_STEPS:] if isinstance(a, np.ndarray) else a
+                           for a in smp._time_data)
+    dist.barrier()
+    out["dds_busy"] = busy_share_profiled(lambda: smp.sample(generator=gen, mesh=mesh),
+                                          os.path.join(plan["workdir"], f"trace_dds_{mesh.rank}"))
+    del model, score, smp
+
+    # ---- 14c. the adapted CLI (lora), its chunk of n images split over the ranks
+    made = []
+
+    def wrap_a(make):
+        def mk(*a, **k):
+            s_ = make(*a, **k)
+            made.append(CallTimer(s_, ["sample_batched"]))
+            return s_
+        return mk
+
+    argv = ["--load_path", CKPT, "--num_channels", "128", "--dtype", "bfloat16", "--adaptation",
+            "lora", "--num_steps", str(SHARD_ADAPT_STEPS), "--num_optim_step",
+            str(SHARD_ADAPT_OPTIM), "--add_cg", "--num_images", str(n), "--shard_images", str(n)]
+    root, wall_s, counts, report = _mc_cli(ACLI, argv, os.path.join(plan["workdir"], "adapted"),
+                                           (F, "get_standard_adapted_sampler", wrap_a))
+    out["adapted"] = dict(wall_s=wall_s, counts=counts,
+                          sample_s=sum(c.seconds["sample_batched"] for c in made),
+                          report=report, psnr=None)
+    if mesh.rank == 0:
+        psnr = []
+        for i in range(n):
+            with np.load(os.path.join(root, f"recon_{i}_info.npz")) as info:
+                psnr.append(float(PSNR(info["recon"], info["ground_truth"])))
+        out["adapted"]["psnr"] = psnr
+    # the fp32 chain (phase 11c's): MC_CHAIN_IMAGES images, own LoRA states and draws
+    m32, _, _ = F.get_standard_score(config32, sde, ckpt_path=CKPT, lora_rank=LORA_RANK)
+    smp = F.get_standard_adapted_sampler(
+        "dds", m32, sde, trafo, obs2[0], num_steps=SHARD_CHAIN_STEPS, eta=0.85, gamma=0.01,
+        tv_penalty=1e-6, lr=1e-3, num_optim_step=SHARD_CHAIN_OPTIM, adapt_freq=1,
+        lora_rank=LORA_RANK, add_cg=True, dc_type="cg", cg_iter=1)
+    loras = [init_lora(m32, seed=j) for j in range(MC_CHAIN_IMAGES)]
+    stack = {k: torch.stack([lo[k] for lo in loras]) for k in loras[0]}
+    noises = [[torch.randn((1, 256, 256, 1), generator=gen, device="cuda")
+               for _ in range(smp.num_draws)] for _ in range(MC_CHAIN_IMAGES)]
+    xb_sh = smp.sample_batched(torch.stack(obs2), noises=noises, lora_stack=stack, mesh=mesh)
+    if mesh.rank == 0:
+        xb_one = smp.sample_batched(torch.stack(obs2), noises=noises, lora_stack=stack)
+        out["adapted_chain_err"] = float((xb_sh - xb_one).abs().max() / xb_one.abs().max())
+        out["adapted_chain_finite"] = bool(torch.isfinite(xb_sh).all())
+    del m32, smp
+    # busy share per rank: SHARD_TRACE_STEPS outer steps of the sharded lora chain
+    m16, _, _ = F.get_standard_score(config, sde, ckpt_path=CKPT, lora_rank=LORA_RANK)
+    smp = F.get_standard_adapted_sampler("dds", m16, sde, trafo, obs2[0],
+                                         num_steps=SHARD_ADAPT_STEPS,
+                                         num_optim_step=SHARD_ADAPT_OPTIM, lora_rank=LORA_RANK,
+                                         add_cg=True, cg_iter=1)
+    smp._time_data = tuple(a[:SHARD_TRACE_STEPS] if isinstance(a, np.ndarray) else a
+                           for a in smp._time_data)
+    dist.barrier()
+    out["adapted_busy"] = busy_share_profiled(
+        lambda: smp.sample_batched(obs4.reshape(n, 1, *obs4.shape[1:]), generator=gen, mesh=mesh),
+        os.path.join(plan["workdir"], f"trace_adapted_{mesh.rank}"))
+    return out
+
+
+def multicard_rank(plan):
+    """Phase 14 in one rank (`parallel/launch.py::launch`); rank 0 returns
+    every rank's results, in rank order."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    t0 = time.perf_counter()
+    res = {"rank": mesh.rank, "device": str(mesh.device),
+           "name": torch.cuda.get_device_name(mesh.device)}
+    res["train"] = _mc_train(plan, mesh)
+    res["train_s"] = time.perf_counter() - t0
+    res.update(_mc_sampling(plan, mesh))
+    res["seconds"] = time.perf_counter() - t0
+    return _gather_objects(res)
+
+
+def one_card_batched(F, CLI, ACLI, config, trafo, workdir):
+    """Phase 14 alone: phase 11's one-card batch-4 runs through both CLIs
+    (DDS and adapted lora, the same flags), with the images' PSNR, their
+    FBP's and the seconds per image."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.utils.metrics import PSNR
+
+    n, out = SHARD_IMAGES, {}
+    for key, module, make, method, argv in (
+            ("dds", CLI, "get_standard_sampler", "sample",
+             ["--method", "dds", "--eta", "0.85", "--num_steps", str(SHARD_DDS_STEPS)]),
+            ("adapted", ACLI, "get_standard_adapted_sampler", "sample_batched",
+             ["--dtype", "bfloat16", "--adaptation", "lora", "--num_steps", str(SHARD_ADAPT_STEPS),
+              "--num_optim_step", str(SHARD_ADAPT_OPTIM), "--add_cg"])):
+        timers = []
+
+        def wrap(mk, method=method):
+            def made(*a, **k):
+                smp = mk(*a, **k)
+                timers.append(CallTimer(smp, [method]))
+                return smp
+            return made
+
+        root, _, _, _ = run_cli(module, ["--load_path", CKPT, "--num_channels", "128",
+                                         "--num_images", str(n), "--shard_images", str(n)] + argv,
+                                os.path.join(workdir, key), (F, make, wrap))
+        psnr, fbp = [], []
+        for i in range(n):
+            with np.load(os.path.join(root, f"recon_{i}_info.npz")) as info:
+                recon, g_np = info["recon"], info["ground_truth"]
+            psnr.append(float(PSNR(recon, g_np)))
+            g = torch.Generator(device="cuda").manual_seed(config.seed * 1000 + i)
+            f = F.get_data_from_ground_truth(g_np[..., None], trafo, config.data.stddev,
+                                             generator=g)[2]
+            fbp.append(float(PSNR(f[0, ..., 0].cpu().numpy(), g_np)))
+        out[f"{key}_psnr"] = psnr
+        out[f"{key}_s_per_image"] = sum(t.seconds[method] for t in timers) / n
+        if key == "dds":
+            out["dds_fbp"] = fbp
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def multicard_phase(one_card, workdir):
+    """Phase 14: the three multi-card paths through their CLIs, sharded over
+    `MC_RANKS` ranks (`mc_layout`), every gate checked here on rank 0's
+    report of every rank.  `one_card`: phase 11's batch-4 one-card results
+    (per-image DDS PSNR and FBP, seconds per image)."""
+    from diffusion_models_dev_project_tpu_torch.parallel.launch import launch
+
+    t0 = time.perf_counter()
+    devices, backend, what = mc_layout()
+    log(f"  layout: {what}; backend {backend}, devices {devices}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    ranks = launch(multicard_rank, devices, backend, {"workdir": workdir})
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    n = SHARD_IMAGES
+    log(f"  ranks: " + ", ".join(f"rank {r['rank']} on {r['device']} ({r['name']}) "
+                                 f"{r['seconds']:.1f} s of work" for r in ranks)
+        + f"; {spawn_s:.1f} s in launch")
+
+    # ---- 14a
+    # per rank and step one forward and one backward at its rows, every
+    # parameter training (phase 9's pattern: 62 weight and 61 input gradients)
+    s = MC_TRAIN_STEPS
+    want = {"conv_fwd": 62 * s, "attn_fwd": 4 * s, "conv_wgrad": 62 * s, "conv_bwd": 61 * s,
+            "attn_bwd": 4 * s}
+    for r in ranks:
+        tr = r["train"]
+        if {k: tr["counts"][k] for k in want} != want:
+            raise AssertionError(f"rank {r['rank']}'s data-parallel training run: launch counts "
+                                 f"{tr['counts']}, want {want}")
+        if not all(row["replicas_equal"] for row in tr["rows"]) or len(tr["rows"]) != MC_TRAIN_STEPS:
+            raise AssertionError(f"rank {r['rank']}: the replicas differ after a step: "
+                                 f"{[row['replicas_equal'] for row in tr['rows']]}")
+    rows = r0["train"]["rows"]
+    log(f"  14a train CLI, batch {MC_TRAIN_BATCH} over {MC_RANKS} ranks ({MC_TRAIN_BATCH // MC_RANKS} "
+        f"rows a rank), {MC_TRAIN_STEPS} steps warm-started from {os.path.relpath(CKPT, REPO)}: "
+        "per step loss (mean over ranks) / one-process loss at the global batch, gradient over all "
+        "leaves against the one-process step's: "
+        + "; ".join(f"{row['loss']:.6e} / {row['loss_ref']:.6e} ({abs(row['loss'] / row['loss_ref'] - 1):.2e}), "
+                    f"{row['grad_err']:.3e}" for row in rows)
+        + f" (tol {MC_LOSS_RTOL:g}, {TOL_GRAD_ALL:g}); replicas bitwise equal after every step; "
+        "ms per step (CUDA events) " + " | ".join(
+            f"rank {r['rank']} " + ", ".join(f"{row['ms']:.1f}" for row in r["train"]["rows"])
+            for r in ranks)
+        + f"; the CLI {r0['train']['wall_s']:.1f} s; checkpoint saved by rank 0: {r0['train']['saved']}")
+    for row in rows:
+        if not (math.isfinite(row["loss"]) and abs(row["loss"] / row["loss_ref"] - 1) <= MC_LOSS_RTOL
+                and row["grad_err"] <= TOL_GRAD_ALL):
+            raise AssertionError(f"a data-parallel step differs from the one-process step: {row}")
+    if not (r0["train"]["saved"] and r0["train"]["step"] == MC_TRAIN_STEPS):
+        raise AssertionError("the data-parallel run saved no checkpoint at its last step")
+
+    # ---- 14b
+    dds = r0["dds"]
+    for r in ranks:
+        check_counts(r["dds"]["counts"], SHARD_DDS_STEPS, 0,
+                     f"rank {r['rank']}'s share of the sharded DDS through the CLI")
+    if dds["report"]["diverged_images"] != "[]":
+        raise AssertionError(f"sharded DDS diverged: {dds['report']['diverged_images']}")
+    for i in range(n):
+        pb, pf, p1 = dds["psnr"][i], one_card["dds_fbp"][i], one_card["dds_psnr"][i]
+        log(f"  14b test-fold image {i}: DDS sharded over {MC_RANKS} ranks {pb:.2f} dB | one card, "
+            f"batch {n} (phase 11b) {p1:.2f} dB | FBP {pf:.2f} dB")
+        if not (pb > pf and abs(pb - p1) <= MC_DDS_AGREE_DB):
+            raise AssertionError(f"image {i}: sharded DDS {pb:.2f} dB against FBP {pf:.2f} dB and "
+                                 f"the one-card run's {p1:.2f} dB (within {MC_DDS_AGREE_DB} dB)")
+    log(f"  14b fp32 DDS chain, {MC_CHAIN_IMAGES} images x {MC_DDS_CHAIN_STEPS} steps, injected "
+        f"draws, sharded against one process: max|diff| / max|x| {r0['dds_chain_err']:.3e} "
+        f"(tol {TOL_SHARD_CHAIN:g})")
+    if not (r0["dds_chain_finite"] and r0["dds_chain_err"] <= TOL_SHARD_CHAIN):
+        raise AssertionError(f"the sharded fp32 DDS chain differs: {r0['dds_chain_err']}")
+
+    # ---- 14c
+    adapted = r0["adapted"]
+    chain = SHARD_ADAPT_STEPS * (SHARD_ADAPT_OPTIM + 2) + 1
+    for r in ranks:
+        check_counts(r["adapted"]["counts"], chain, SHARD_ADAPT_STEPS * SHARD_ADAPT_OPTIM,
+                     f"rank {r['rank']}'s share of the sharded adapted run through the CLI")
+    log("  14c adapted lora " + f"{SHARD_ADAPT_STEPS} x {SHARD_ADAPT_OPTIM}, {n} images over "
+        f"{MC_RANKS} ranks (PSNR printed, not gated: the cut run does not reconstruct): "
+        + ", ".join(f"image {i} {p:.2f} dB (one card {q:.2f})" for i, (p, q) in
+                    enumerate(zip(adapted["psnr"], one_card["adapted_psnr"]))))
+    log(f"  14c fp32 adapted chain (lora, {MC_CHAIN_IMAGES} images, {SHARD_CHAIN_STEPS} x "
+        f"{SHARD_CHAIN_OPTIM}, own LoRA states, injected draws), sharded against one process: "
+        f"max|diff| / max|x| {r0['adapted_chain_err']:.3e} (tol {TOL_SHARD_CHAIN:g})")
+    if not (r0["adapted_chain_finite"] and r0["adapted_chain_err"] <= TOL_SHARD_CHAIN):
+        raise AssertionError(f"the sharded fp32 adapted chain differs: {r0['adapted_chain_err']}")
+
+    # ---- what it prints
+    summed = {}
+    for r in ranks:
+        for part in ("train", "dds", "adapted"):
+            for k in ("conv_fwd", "conv_bwd", "conv_wgrad", "attn_fwd", "attn_bwd"):
+                summed[k] = summed.get(k, 0) + r[part]["counts"][k]
+    out = {"layout": what, "backend": backend, "launches": summed,
+           "dds_s_per_image": {1: one_card["dds_s_per_image"], MC_RANKS: dds["sample_s"] / n},
+           "adapted_s_per_image": {1: one_card["adapted_s_per_image"],
+                                   MC_RANKS: adapted["sample_s"] / n},
+           "busy": {r["rank"]: (r["dds_busy"], r["adapted_busy"]) for r in ranks}}
+    log(f"  seconds per image, {n} images per call ({what}): DDS {SHARD_DDS_STEPS} steps "
+        f"{out['dds_s_per_image'][1]:.3f} at 1 rank (phase 11b), {out['dds_s_per_image'][MC_RANKS]:.3f} "
+        f"at {MC_RANKS}; adapted lora {SHARD_ADAPT_STEPS} x {SHARD_ADAPT_OPTIM} "
+        f"{out['adapted_s_per_image'][1]:.3f} at 1 rank (phase 11c), "
+        f"{out['adapted_s_per_image'][MC_RANKS]:.3f} at {MC_RANKS}"
+        + ("" if backend == "nccl" else " (two host processes feeding one card, not a multi-card "
+           "speed-up)"))
+    log("  device busy per rank (torch.profiler, union of the rank's device events over its wall "
+        f"time; DDS {MC_TRACE_DDS_STEPS} steps, adapted {SHARD_TRACE_STEPS} outer step): "
+        + ", ".join(f"rank {k} DDS " + ("no device time" if d is None else f"{d:.1%}")
+                    + " adapted " + ("no device time" if a is None else f"{a:.1%}")
+                    for k, (d, a) in out["busy"].items()))
+    log("  launches in phase 14's runs, per rank summed: " + json.dumps(summed))
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[phase 14 multi-card] {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2456,6 +2973,9 @@ def main() -> None:
                     help="adapted images: val image 0, then the OOD bars phantom")
     ap.add_argument("--dps-steps", type=int, default=DPS_PROTOCOL_STEPS,
                     help="steps of the DPS and naive CLI runs (protocol: 1000)")
+    ap.add_argument("--phase14", action="store_true",
+                    help="run phase 14 (multi-card) alone, after the device and the build, against "
+                         "one-card batch-4 runs of its own; prints no kernel line")
     args = ap.parse_args()
     if args.images < 1 or args.adapt_images < 1 or args.adapt_steps < 2 or args.dps_steps < 6:
         raise SystemExit("chip_smoke: --images and --adapt-images must be at least 1, "
@@ -2505,6 +3025,17 @@ def main() -> None:
         raise AssertionError("the built library holds no HGMMA, no UTMALDG, no HMMA in one of "
                              f"{HMMA_FUNCTIONS} or no HGMMA or UTMALDG in one of {HGMMA_FUNCTIONS}")
     log(f"[phase 2 build] nvcc {nvcc_s:.1f} s, total {time.perf_counter() - t0:.1f} s")
+    multicard_dir = os.path.join(REPO, "build", "chip_smoke_multicard")
+    if args.phase14:
+        from diffusion_models_dev_project_tpu_torch import run_adapted_sampling as ACLI
+
+        config = get_config("vesde")
+        one_card = one_card_batched(F, CLI, ACLI, config, F.get_standard_ray_trafo(config),
+                                    os.path.join(REPO, "build", "chip_smoke_one_card"))
+        multicard_phase(one_card, multicard_dir)
+        log(smi.splitlines()[0])
+        log(f"phase 14 alone: every gate held; whole run {time.perf_counter() - t_all:.1f} s")
+        return
 
     # ---- 3. kernels at the UNet's shapes
     t0 = time.perf_counter()
@@ -3018,10 +3549,11 @@ def main() -> None:
     del state, exported
 
     # 9b'. the bf16 ties (printed, not gated): TRAIN_WITNESS_STEPS steps from the
-    # masters the CLI starts from (rounded to bf16), from masters left at the
+    # masters the CLI starts from (rounded to bf16) and from masters left at the
     # checkpoint's fp16 values (an eighth of them halfway between two bf16
-    # values) and in fp32; the probe of the EMA shadow, cast to bf16 under bf16
-    # compute as the JAX trainer probes it
+    # values); the probe of the EMA shadow, cast to bf16 as the JAX trainer
+    # probes it (the fp32 witness was cut to keep the run inside its time
+    # limit: PERF.md §4)
     def witness(cfg, rounded):
         if rounded:
             m, _, _ = F.get_standard_score(cfg, sde, ckpt_path=CKPT, train=True)
@@ -3034,7 +3566,6 @@ def main() -> None:
         step = T.make_train_step(m, sde, opt, cfg.training.ema_decay, cfg.training.ema_warm_start_steps)
         em, _, _ = F.get_standard_score(cfg, sde, load_model=False)
         probe = TRAIN_CLI._make_probe("dds", F, cfg, get_config, sde, em, torch.device("cuda"))
-        bf16 = cfg.model.dtype == "bfloat16"
         start = []                  # this start's own loss on each step's batch, t and z
         _, bs = F.get_standard_train_dataset(cfg)
         with torch.no_grad():
@@ -3046,21 +3577,24 @@ def main() -> None:
         out, probes = [], {}
         for k in range(TRAIN_WITNESS_STEPS):
             out.append(float(step(st, next(bs), T.step_generator(cfg.seed, k, "cuda"))))
-            if k + 1 in (TRAIN_STEPS, TRAIN_WITNESS_STEPS) and (bf16 or k + 1 == TRAIN_WITNESS_STEPS):
-                probes[k + 1] = -probe({n: v.to(torch.bfloat16) if bf16 else v
-                                        for n, v in st.ema.shadow.items()})
+            if k + 1 in (TRAIN_STEPS, TRAIN_WITNESS_STEPS):
+                probes[k + 1] = -probe({n: v.to(torch.bfloat16) for n, v in st.ema.shadow.items()})
         return out, start, probes
 
-    for what, cfg, rounded in (("bf16, masters rounded to bf16 (the CLI's)", config, True),
-                               ("bf16, masters at the checkpoint's fp16 values", config, False),
-                               ("fp32", config32, False)):
-        w_losses, w_start, w_probes = witness(cfg, rounded)
-        log(f"  {what}: loss per step " + ", ".join(f"{v:.6e}" for v in w_losses)
-            + "; ratio to this start's loss on the same batch, t and z "
-            + ", ".join(f"{a / b:.5f}" for a, b in zip(w_losses, w_start))
-            + "; probe " + ", ".join(f"after {k} steps {v:.2f} dB" for k, v in w_probes.items())
-            + f" (FBP {fbp_psnr:.2f} dB)")
-        torch.cuda.empty_cache()
+    probe_steps, TRAIN_CLI.PROBE_DDS_STEPS = TRAIN_CLI.PROBE_DDS_STEPS, WITNESS_PROBE_STEPS
+    try:
+        for what, cfg, rounded in (("bf16, masters rounded to bf16 (the CLI's)", config, True),
+                                   ("bf16, masters at the checkpoint's fp16 values", config, False)):
+            w_losses, w_start, w_probes = witness(cfg, rounded)
+            log(f"  {what}: loss per step " + ", ".join(f"{v:.6e}" for v in w_losses)
+                + "; ratio to this start's loss on the same batch, t and z "
+                + ", ".join(f"{a / b:.5f}" for a, b in zip(w_losses, w_start))
+                + "; probe (" + f"{WITNESS_PROBE_STEPS}-step DDS) "
+                + ", ".join(f"after {k} steps {v:.2f} dB" for k, v in w_probes.items())
+                + f" (FBP {fbp_psnr:.2f} dB)")
+            torch.cuda.empty_cache()
+    finally:
+        TRAIN_CLI.PROBE_DDS_STEPS = probe_steps
 
     # 9c. DDPM from the fresh init: the zero output of the init rule on the card, the epsilon loss
     dconfig = get_config("ddpm")
@@ -3159,7 +3693,10 @@ def main() -> None:
     aapm = aapm_phase(F, P, model_args, AAPM_STEPS, gen, workdir)
     shutil.rmtree(workdir, ignore_errors=True)
 
-    # ---- 14. kernel summary, device line
+    # ---- 14. the multi-card paths: training, conditional and adapted sampling sharded over ranks
+    mc = multicard_phase(multi["one_card"], multicard_dir)
+
+    # ---- 15. kernel summary, device line
     src = "diffusion_models_dev_project_tpu_torch/csrc/"
     conv_src = {"tc": src + "conv3x3_tc.cu", "narrow": src + "conv3x3.cu", "simt": src + "conv3x3.cu"}
     kernels = []
@@ -3262,6 +3799,10 @@ def main() -> None:
         "launches_batched_adapted": multi["adapted_counts"]["conv_fwd"]}
     kernels[1]["launches_batched_dds"] = multi["dds_counts"]["attn_fwd"]
     kernels[1]["launches_batched_adapted"] = multi["adapted_counts"]["attn_fwd"]
+    # phase 14: the launches of the multi-card runs, per rank summed
+    kernels[0]["launches_multicard"] = {k: mc["launches"][k]
+                                        for k in ("conv_fwd", "conv_bwd", "conv_wgrad")}
+    kernels[1]["launches_multicard"] = {k: mc["launches"][k] for k in ("attn_fwd", "attn_bwd")}
     kernels[0]["aapm_unet"] = dict(aapm["aapm_unet"]["conv"],
                                    launches=aapm["aapm_unet"]["counts"]["conv_fwd"],
                                    variants=aapm["aapm_unet"]["conv_variants"])

@@ -20,7 +20,12 @@ a small size with `--im_size 64 --num_channels 64 --num_steps 3
 --num_optim_step 2` (random weights: no checkpoint has that size).  `--shard_images
 N` adapts and samples N images per call (`AdaptedSampler.sample_batched`):
 under `lora` as one chain on the batch axis, each image with its own leaves;
-under `full` and `decoder` one image after another.
+under `full` and `decoder` one image after another.  With several ranks
+(`parallel/launch.py::rank_devices`: one per visible card) and N a multiple
+of their number W, each chunk's images are split over them, one process per
+rank (`parallel/launch.py::launch`), and `sampling_mode` says `sharded(N)
+over W ranks`; otherwise it runs on one card, with a warning.  Rank 0 alone
+writes the images and the report.
 """
 import argparse
 import dataclasses
@@ -71,6 +76,35 @@ parser.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
 
 
 def coordinator(args):
+    """Run the CLI: sharded over the ranks of `rank_devices` when
+    `--shard_images` divides over them, else on one card.  Returns the
+    output directory (None on a rank other than 0 of an existing group)."""
+    from diffusion_models_dev_project_tpu_torch.parallel.launch import (is_rank0, launch,
+                                                                         rank_devices)
+
+    shard_n = int(args.shard_images)
+    devices = rank_devices(args.device)
+    if shard_n > 0 and len(devices) > 1:
+        if shard_n % len(devices) == 0:
+            if is_rank0():
+                print(f"sharding {shard_n}-image chunks over {len(devices)} ranks")
+            return launch(_sharded, devices, None, args)
+        if is_rank0():
+            print(f"WARNING: --shard_images {shard_n} is not divisible by the {len(devices)} ranks "
+                  "— running the batched chain on a SINGLE card; pick a multiple of the rank "
+                  "count to shard it")
+    return _coordinate(args, None) if is_rank0() else None
+
+
+def _sharded(args):
+    """One rank of a sharded run (`parallel/launch.py::launch`)."""
+    from diffusion_models_dev_project_tpu_torch.parallel.mesh import make_mesh
+
+    return _coordinate(args, make_mesh(device=args.device))
+
+
+def _coordinate(args, mesh):
+    """The run; with `mesh`, this rank of a sharded one (rank 0 writes)."""
     import torch
 
     import diffusion_models_dev_project_tpu_torch.factory as F
@@ -93,9 +127,11 @@ def coordinator(args):
         config.model.dtype = args.dtype
     if args.stddev is not None:
         dataconfig.data.stddev = float(args.stddev)
+    lead = mesh is None or mesh.rank == 0
     save_root = F.get_standard_path(args, run_type="adapt", data_part=dataconfig.data.part)
-    print("save to:", save_root)
-    save_root.mkdir(parents=True, exist_ok=True)
+    if lead:
+        print("save to:", save_root)
+        save_root.mkdir(parents=True, exist_ok=True)
 
     sde = F.get_standard_sde(config)
     use_lora = args.adaptation == "lora"       # full and decoder carry no LoRA branches
@@ -127,6 +163,8 @@ def coordinator(args):
         return gen, observation, ground_truth
 
     def finish(i, recon_row, ground_truth):
+        if not lead:
+            return
         r = recon_row.clamp(min=0)[..., 0].float().cpu().numpy()
         g = ground_truth[0, ..., 0].cpu().numpy()
         save_recon_info(save_root / f"recon_{i}_info.npz", r, g)
@@ -150,31 +188,38 @@ def coordinator(args):
     images = islice(iter(dataset), num_images)
     shard_n = int(args.shard_images)
     if shard_n > 0:
-        _sample_sharded(model, images, shard_n, use_lora, device, prepare, finish, make_sampler)
+        _sample_sharded(model, images, shard_n, use_lora, device, prepare, finish, make_sampler,
+                        mesh)
     else:
         for i, sample in enumerate(images):
             gen, observation, ground_truth = prepare(i, sample)
             recon, _ = make_sampler(observation, ground_truth, lora_seed=i).sample(generator=gen)
             finish(i, recon[0], ground_truth)
 
+    if not lead:
+        return save_root
     report = dataclasses.asdict(dataconfig)
     report.update({k: str(v) for k, v in vars(args).items()})
     report["PSNR"] = float(np.mean(psnrs))
     report["SSIM"] = float(np.mean(ssims))
     report["sampling_mode"] = f"sharded({shard_n})" if shard_n > 0 else "serial"
+    if mesh is not None:
+        report["sampling_mode"] += f" over {mesh.world} ranks"
     write_report(save_root / "report.yaml", report)
     print(json.dumps({"PSNR": report["PSNR"], "SSIM": report["SSIM"]}))
     return save_root
 
 
-def _sample_sharded(model, images, shard_n, use_lora, device, prepare, finish, make_sampler):
+def _sample_sharded(model, images, shard_n, use_lora, device, prepare, finish, make_sampler,
+                    mesh):
     """Several images per call (the JAX CLI's batched mode): chunks of
     `shard_n` images (the last padded with its last image, whose extra rows
     are dropped) through `AdaptedSampler.sample_batched`, each image with
     its own LoRA state (`init_lora`, seed = its index, as on the serial
     path), biases and Adam state, its chain drawn from its own generator as
-    on the serial path.  The chunk runs on the one card, whatever the
-    number of visible devices, where the JAX CLI shards it over a mesh."""
+    on the serial path.  With `mesh` every rank prepares every image alike
+    and runs its rows of each chunk, as the JAX CLI shards the chunk over
+    its mesh."""
     import torch
 
     from diffusion_models_dev_project_tpu_torch.sampling.adaptation import init_lora
@@ -192,7 +237,7 @@ def _sample_sharded(model, images, shard_n, use_lora, device, prepare, finish, m
         if use_lora:
             states = [init_lora(model, seed=c0 + j) for j in range(len(padded))]
             lora_stack = {k: torch.stack([st[k] for st in states]) for k in states[0]}
-        recon = sampler.sample_batched(obs, generator=gens, lora_stack=lora_stack)
+        recon = sampler.sample_batched(obs, generator=gens, lora_stack=lora_stack, mesh=mesh)
         for j, (_, _, ground_truth) in enumerate(chunk):
             finish(c0 + j, recon[j, 0], ground_truth)
 

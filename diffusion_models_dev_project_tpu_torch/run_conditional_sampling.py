@@ -21,7 +21,12 @@ measured observation under `WALNUT_DATA_PATH` (`--dataset walnut`, whose
 dataset gives observation, ground truth and FDK itself).  `--model_learned_on
 aapm` builds the AAPM config's UNet (random weights without `--load_path`).
 `--shard_images N` reconstructs N images per call on the batch axis, as the
-JAX CLI does; `sampling_mode` in `report.yaml` says `sharded(N)`.
+JAX CLI does; `sampling_mode` in `report.yaml` says `sharded(N)`.  With
+several ranks (`parallel/launch.py::rank_devices`: one per visible card)
+and N a multiple of their number W, each chunk is sharded over them, one
+process per rank (`parallel/launch.py::launch`), and `sampling_mode` says
+`sharded(N) over W ranks`; otherwise it runs on one card, with a warning.
+Rank 0 alone writes the images and the report.
 """
 import argparse
 import dataclasses
@@ -79,6 +84,35 @@ DIVERGED_ABS = 1e3      # a reconstruction with |x| above this has diverged
 
 
 def coordinator(args):
+    """Run the CLI: sharded over the ranks of `rank_devices` when
+    `--shard_images` divides over them, else on one card.  Returns the
+    output directory (None on a rank other than 0 of an existing group)."""
+    from diffusion_models_dev_project_tpu_torch.parallel.launch import (is_rank0, launch,
+                                                                         rank_devices)
+
+    shard_n = int(args.shard_images)
+    devices = rank_devices(args.device)
+    if shard_n > 0 and len(devices) > 1:
+        if shard_n % len(devices) == 0:
+            if is_rank0():
+                print(f"sharding {shard_n}-image chunks over {len(devices)} ranks")
+            return launch(_sharded, devices, None, args)
+        if is_rank0():
+            print(f"WARNING: --shard_images {shard_n} is not divisible by the {len(devices)} ranks "
+                  "— running the batch on a SINGLE card; pick a multiple of the rank count to "
+                  "shard it")
+    return _coordinate(args, None) if is_rank0() else None
+
+
+def _sharded(args):
+    """One rank of a sharded run (`parallel/launch.py::launch`)."""
+    from diffusion_models_dev_project_tpu_torch.parallel.mesh import make_mesh
+
+    return _coordinate(args, make_mesh(device=args.device))
+
+
+def _coordinate(args, mesh):
+    """The run; with `mesh`, this rank of a sharded one (rank 0 writes)."""
     import torch
 
     import diffusion_models_dev_project_tpu_torch.factory as F
@@ -98,9 +132,11 @@ def coordinator(args):
     if args.sigma_max is not None:
         config.sde.sigma_max = float(args.sigma_max)
     config.model.dtype = args.dtype or args.params_dtype
+    lead = mesh is None or mesh.rank == 0
     save_root = F.get_standard_path(args, run_type=args.method, data_part=dataconfig.data.part)
-    print("save to:", save_root)
-    save_root.mkdir(parents=True, exist_ok=True)
+    if lead:
+        print("save to:", save_root)
+        save_root.mkdir(parents=True, exist_ok=True)
     if args.stddev is not None:
         dataconfig.data.stddev = float(args.stddev)
 
@@ -110,7 +146,8 @@ def coordinator(args):
                                               ckpt_path=args.load_path, device=device)
     ray_trafo = F.get_standard_ray_trafo(dataconfig, device=device)
     dataset = F.get_standard_dataset(dataconfig, ray_trafo)
-    print("Number of parameters:", sum(p.numel() for p in model.parameters()))
+    if lead:
+        print("Number of parameters:", sum(p.numel() for p in model.parameters()))
     num_images = (int(args.num_images) if args.num_images is not None
                   else dataconfig.data.validation.num_images)
     seed = config.seed or 0
@@ -132,6 +169,8 @@ def coordinator(args):
     psnrs, ssims, diverged = [], [], []
 
     def finish(i, recon_row, ground_truth):
+        if not lead:
+            return
         raw = recon_row[..., 0].float().cpu().numpy()
         # divergence guard: a failed run is named in the report, not hidden in a low mean
         if not np.isfinite(raw).all() or np.abs(raw).max() > DIVERGED_ABS:
@@ -162,7 +201,7 @@ def coordinator(args):
     images = islice(iter(dataset), num_images)
     shard_n = int(args.shard_images)
     if shard_n > 0:
-        _sample_sharded(ray_trafo, images, shard_n, prepare, finish, make_sampler)
+        _sample_sharded(ray_trafo, images, shard_n, prepare, finish, make_sampler, mesh)
     else:
         sampler = None
         for i, sample in enumerate(images):
@@ -178,6 +217,8 @@ def coordinator(args):
             recon, _ = sampler.sample(generator=gen)
             finish(i, recon[0], ground_truth)
 
+    if not lead:
+        return save_root
     report = dataclasses.asdict(dataconfig)
     report.update({k: str(v) for k, v in vars(args).items()})
     report["PSNR"] = float(np.mean(psnrs))
@@ -185,22 +226,25 @@ def coordinator(args):
     # a sharded run draws each chunk's chain from one generator: the same
     # distribution as the serial protocol, not the same bits
     report["sampling_mode"] = f"sharded({shard_n})" if shard_n > 0 else "serial"
+    if mesh is not None:
+        report["sampling_mode"] += f" over {mesh.world} ranks"
     report["diverged_images"] = diverged
     write_report(save_root / "report.yaml", report)
     print(json.dumps({"PSNR": report["PSNR"], "SSIM": report["SSIM"]}))
     return save_root
 
 
-def _sample_sharded(ray_trafo, images, shard_n, prepare, finish, make_sampler):
+def _sample_sharded(ray_trafo, images, shard_n, prepare, finish, make_sampler, mesh):
     """Several images per call (the JAX CLI's `_sample_sharded`): chunks of
     `shard_n` images stacked on the sampler's batch axis (the last chunk
     padded with its last image, whose extra rows are dropped), each image's
     observation drawn as on the serial path, each chunk's chain from one
     generator: the chunk's first image's, continued after its observation,
     as the serial path continues each image's (JAX draws the chunk's chain
-    from a key of its own, `fold_in(key, 1)`).  The chunk runs on the one
-    card, whatever the number of visible devices, where the JAX CLI shards
-    it over a mesh."""
+    from a key of its own, `fold_in(key, 1)`).  With `mesh` every rank
+    prepares every image alike and runs its rows of each chunk
+    (`DiffusionSampler.sample(mesh=...)`), as the JAX CLI shards the chunk
+    over its mesh."""
     import torch
 
     items = [prepare(i, sample) for i, sample in enumerate(images)]
@@ -216,7 +260,7 @@ def _sample_sharded(ray_trafo, images, shard_n, prepare, finish, make_sampler):
             sampler.observation = obs
             sampler.rhs = ray_trafo.adjoint(obs)
             sampler.filtbackproj = fbp
-        recon, _ = sampler.sample(generator=chunk[0][0])
+        recon, _ = sampler.sample(generator=chunk[0][0], mesh=mesh)
         for j, (_, _, ground_truth, _) in enumerate(chunk):
             finish(c0 + j, recon[j], ground_truth)
 

@@ -8,9 +8,9 @@ gradient clip, the EMA decay, the sigma-weighted loss, the rolling tail
 average, the uncond sample grids of the EMA shadow and the keep-best probe.
 It trains on the generated disk-ellipse phantoms of the training fold, or
 with `--train_model_on aapm` the AAPM config's model (learn_sigma, 256
-channels) on the AAPM slices under `AAPM_DATA_PATH`, on one device: the
-card by default, the CPU with `--device cpu`; `--platform` of the JAX CLI
-is `--device` here, and `--debug_nans` fails at the first non-finite loss
+channels) on the AAPM slices under `AAPM_DATA_PATH`, on the cards by
+default (below), on the CPU with `--device cpu`; `--platform` of the JAX
+CLI is `--device` here, and `--debug_nans` fails at the first non-finite loss
 or gradient.
 
     python -m diffusion_models_dev_project_tpu_torch.run_score_based_models_train \\
@@ -22,10 +22,13 @@ warm-starts the flagship prior on the card.  `--device cpu --im_size 64
 --num_channels 32 --batch_size 2 --epochs 1 --steps_per_epoch 2` runs in
 seconds on the CPU.  `--init_ckpt` reads the JAX package's flax msgpack
 trees, the port's own checkpoint directories and reference PyTorch `.pt`
-checkpoints (`models/torch_convert.py`).  The port trains on one card,
-whatever the number of visible devices: where the JAX CLI shards the batch
-over a mesh, the port stays on its one device (`parallel/mesh.py` raises
-for a mesh over more than one card).
+checkpoints (`models/torch_convert.py`).  With several ranks
+(`parallel/launch.py::rank_devices`: one per visible card) and a batch that
+divides over them, it trains data-parallel, as the JAX CLI shards its batch
+over a mesh: one process per rank (`parallel/launch.py::launch`), each
+with its rows of the batch, the gradients averaged over the ranks
+(`training/trainer.py`); rank 0 alone writes the run directory.  A batch
+that does not divide runs on one card, with a warning.
 """
 import argparse
 import dataclasses
@@ -153,9 +156,52 @@ def _make_probe(kind, F, config, get_config, sde, eval_model, device):
     return probe
 
 
+def _get_config(args):
+    if args.train_model_on == "aapm":
+        from diffusion_models_dev_project_tpu_torch.configs.aapm_configs import get_config
+    else:
+        from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import (
+            get_config)
+    return get_config
+
+
 def coordinator(args):
+    """Train: data-parallel over the ranks of `rank_devices` when the batch
+    divides over them, else on one card.  Returns the final `TrainState`;
+    a data-parallel run returns rank 0's step and run directory
+    (`{"step", "log_dir"}`: the state stays in its checkpoints), and a rank
+    other than 0 of an existing group that trains on one card None."""
+    from diffusion_models_dev_project_tpu_torch.parallel.launch import (is_rank0, launch,
+                                                                         rank_devices)
+
+    devices = rank_devices(args.device)
+    batch = (int(args.batch_size) if args.batch_size is not None
+             else _get_config(args)(args.sde).training.batch_size)
+    if len(devices) > 1:
+        if batch % len(devices) == 0:
+            if is_rank0():
+                print(f"data-parallel training: batch {batch} over {len(devices)} ranks")
+            return launch(_data_parallel, devices, None, args)
+        if is_rank0():
+            print(f"WARNING: the batch of {batch} does not divide over the {len(devices)} ranks — "
+                  "training on a SINGLE card; pick a multiple of the rank count")
+    return _train(args, None)[0] if is_rank0() else None
+
+
+def _data_parallel(args):
+    """One rank of a data-parallel run (`parallel/launch.py::launch`)."""
+    from diffusion_models_dev_project_tpu_torch.parallel.mesh import make_mesh
+
+    state, log_dir = _train(args, make_mesh(device=args.device))
+    return {"step": state.step, "log_dir": log_dir}
+
+
+def _train(args, mesh):
+    """(final state, run directory); with `mesh`, this rank of a
+    data-parallel run (rank 0 writes)."""
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     import diffusion_models_dev_project_tpu_torch.factory as F
     from diffusion_models_dev_project_tpu_torch.training.trainer import train_score_model
@@ -163,12 +209,9 @@ def coordinator(args):
     from diffusion_models_dev_project_tpu_torch.utils.device import resolve_device
     from diffusion_models_dev_project_tpu_torch.utils.reporting import save_image_png, write_report
 
-    if args.train_model_on == "aapm":
-        from diffusion_models_dev_project_tpu_torch.configs.aapm_configs import get_config
-    else:
-        from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import (
-            get_config)
-
+    get_config = _get_config(args)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     device = resolve_device(args.device)
     config = get_config(args.sde)
     if args.im_size is not None:
@@ -204,20 +247,20 @@ def coordinator(args):
                         copied += 1
                     else:
                         skipped += 1
-                print(f"partial warm start from {args.init_ckpt}: {copied} leaves copied, "
-                      f"{skipped} kept at fresh init")
+                say(f"partial warm start from {args.init_ckpt}: {copied} leaves copied, "
+                    f"{skipped} kept at fresh init")
             else:
                 model.load_state_dict(loaded, strict=True)
-                print(f"warm-started params from {args.init_ckpt}")
+                say(f"warm-started params from {args.init_ckpt}")
         # under bf16 compute the masters start on the bf16 grid, off the ties
         # of an fp16 checkpoint that the first updates would tip all one way
         F.round_to_compute_dtype_(model)
-    print("Number of parameters:", sum(p.numel() for p in model.parameters()))
+    say("Number of parameters:", sum(p.numel() for p in model.parameters()))
 
+    log_dir = None
     if args.run_dir:
         log_dir = args.run_dir
-        os.makedirs(log_dir, exist_ok=True)
-    else:
+    elif lead:
         ds_name = "AAPM" if args.train_model_on == "aapm" else "DiskEllipses"
         log_dir = os.path.join(args.base_path, ds_name, config.sde.type)
         os.makedirs(log_dir, exist_ok=True)
@@ -225,9 +268,15 @@ def coordinator(args):
         while os.path.isdir(os.path.join(log_dir, f"version_{version_num:02d}")):
             version_num += 1
         log_dir = os.path.join(log_dir, f"version_{version_num:02d}")
-        os.makedirs(log_dir)
-    print("save model to", log_dir)
-    write_report(os.path.join(log_dir, "report.yaml"), dataclasses.asdict(config))
+    if lead:
+        os.makedirs(log_dir, exist_ok=True)
+        print("save model to", log_dir)
+        write_report(os.path.join(log_dir, "report.yaml"), dataclasses.asdict(config))
+    if mesh is not None:
+        # rank 0 picked the version directory and made it; the others follow
+        shared = [log_dir]
+        dist.broadcast_object_list(shared, src=0, group=mesh.group)
+        log_dir = shared[0]
 
     _, batches = F.get_standard_train_dataset(config, device=device)
     steps_per_epoch = (int(args.steps_per_epoch) if args.steps_per_epoch
@@ -238,11 +287,11 @@ def coordinator(args):
     # the sample grids and the probe run a frozen copy of the model in the
     # compute dtype, into which each candidate's weights are loaded
     eval_model = None
-    if sample_freq > 0 or args.keep_best_probe:
+    if lead and (sample_freq > 0 or args.keep_best_probe):
         eval_model, _, _ = F.get_standard_score(config, sde, load_model=False, device=device)
 
     sample_hook = None
-    if sample_freq > 0:
+    if sample_freq > 0 and lead:
         val_bs = int(config.validation.batch_size)
         im = int(config.data.im_size)
         val_sampler = F.get_standard_sampler(
@@ -264,11 +313,11 @@ def coordinator(args):
                   f"std {grid.std():.3f}")
 
     probe_hook = None
-    if args.keep_best_probe:
+    if args.keep_best_probe and lead:
         probe_hook = _make_probe(args.keep_best_probe, F, config, get_config, sde, eval_model,
                                  device)
 
-    return train_score_model(
+    state = train_score_model(
         model, None, sde, batches,
         epochs=config.training.epochs,
         steps_per_epoch=steps_per_epoch,
@@ -285,7 +334,9 @@ def coordinator(args):
         log_dir=log_dir, seed=config.seed,
         checkpointer=Checkpointer(os.path.join(log_dir, "ckpts")),
         sample_hook=sample_hook, sample_freq=sample_freq,
-        avg_tail=int(args.avg_tail), probe_hook=probe_hook, debug_nans=bool(args.debug_nans))
+        avg_tail=int(args.avg_tail), probe_hook=probe_hook, debug_nans=bool(args.debug_nans),
+        mesh=mesh)
+    return state, log_dir
 
 
 if __name__ == "__main__":

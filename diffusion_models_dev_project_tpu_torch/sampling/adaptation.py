@@ -35,7 +35,10 @@ own LoRA, its own biases and its own Adam state.  The inner loss is the sum
 of the images' own losses, so each row's gradient is its image's alone.
 `full` and `decoder` train every base weight they touch per image, which
 leaves no shared weight to batch: their images run one after another
-through the single-image program.
+through the single-image program.  With a `mesh` of several ranks
+(`parallel/mesh.py`; JAX: a `shard_map` of the vmapped program over the
+mesh's `data` axis) each rank takes its rows of the images (observations,
+LoRA states, draws) and runs them so; the result is gathered.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ from ..models.unet import LoRAConv, LoRADense
 from ..ops.cg import cg
 from ..ops.diffusion import ddim, tweedy
 from ..ops.sde import DDPM, SDE
+from ..parallel.mesh import gather_batch
 from .engine import SamplerSpec, _time_arrays
 from .predictors import make_dc_op
 
@@ -346,7 +350,8 @@ class AdaptedSampler:
 
     @torch.no_grad()
     def sample_batched(self, observations: torch.Tensor, noises=None, generator=None,
-                       lora_stack: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                       lora_stack: Optional[Dict[str, torch.Tensor]] = None,
+                       mesh=None) -> torch.Tensor:
         """Adapt and sample N images in one call (JAX `sample_batched`); the
         result is (N, 1, H, W, 1), image n in row n, with no PSNR trace (no
         ground truth, as in JAX).
@@ -364,7 +369,12 @@ class AdaptedSampler:
         `noises` is stacked per image, (N, draws, 1, H, W, 1) or N sequences,
         row n being image n's draws in `sample`'s order; `generator` is one
         `torch.Generator` for the whole batch or a sequence of N, one per
-        image, each drawing what `sample(generator=...)` would draw."""
+        image, each drawing what `sample(generator=...)` would draw.
+
+        With a `mesh` of several ranks (`parallel/mesh.py::make_mesh`) each
+        rank runs its rows of the N images, of `lora_stack` and of `noises`
+        or the generators (one generator draws for the whole batch, and the
+        rank keeps its rows), as above; every rank returns all N."""
         n = len(observations)
         if noises is not None and (len(noises) != n
                                    or any(len(nz) != self.num_draws for nz in noises)):
@@ -372,11 +382,27 @@ class AdaptedSampler:
         gens = generator if isinstance(generator, (list, tuple)) else None
         if gens is not None and len(gens) != n:
             raise ValueError(f"{len(gens)} generators for {n} images")
+        rows = slice(0, n) if mesh is None else mesh.rows(n)
+        observations = observations[rows]
+        noises = None if noises is None else noises[rows]
+        gens = None if gens is None else gens[rows]
+        if lora_stack is not None:
+            lora_stack = {k: v[rows] for k, v in lora_stack.items()}
         if self.adapt.impl != "lora":
-            return self._sample_one_by_one(observations, noises, generator)
+            # one generator for all: this rank's images draw after the earlier ones'
+            x_mean = self._sample_one_by_one(observations, noises,
+                                             gens if gens is not None else generator,
+                                             skip_images=rows.start)
+        else:
+            x_mean = self._sample_lora(observations, noises, gens, generator, lora_stack, n, rows)
+        return x_mean if mesh is None else gather_batch(mesh, x_mean)
+
+    def _sample_lora(self, observations, noises, gens, generator, lora_stack, n, rows):
+        """`lora`: the images (`rows` of N) as one chain on the batch axis."""
         images = self.batched_inputs(observations, lora_stack)
         device = images.observation.device
         shape = (1, *self.spec.im_shape)
+        k = len(observations)
 
         def draw(i):
             if noises is not None:
@@ -384,23 +410,28 @@ class AdaptedSampler:
                                   for nz in noises])
             if gens is not None:
                 return torch.cat([torch.randn(shape, generator=g, device=device) for g in gens])
-            return torch.randn((n, *shape[1:]), generator=generator, device=device)
+            return torch.randn((n, *shape[1:]), generator=generator, device=device)[rows]
 
         flags = {name: p.requires_grad for name, p in self.model.named_parameters()}
         try:
             self.model.requires_grad_(False)        # the base weights stay frozen
-            x_mean, _ = self._chain(n, draw, images)
+            x_mean, _ = self._chain(k, draw, images)
         finally:
             for name, p in self.model.named_parameters():
                 p.requires_grad_(flags[name])
-        return x_mean.reshape(n, 1, *self.spec.im_shape)
+        return x_mean.reshape(k, 1, *self.spec.im_shape)
 
-    def _sample_one_by_one(self, observations, noises, generator):
+    def _sample_one_by_one(self, observations, noises, generator, skip_images=0):
         """`full` and `decoder`: each image through `sample`, its data
-        swapped into the sampler."""
+        swapped into the sampler; one shared `generator` first draws (and
+        drops) what `skip_images` earlier images would."""
         saved = self.observation, self.rhs, self.ground_truth
         device = self.rhs.device
         outs = []
+        if generator is not None and not isinstance(generator, (list, tuple)):
+            shape = (self.spec.batch_size, *self.spec.im_shape)
+            for _ in range(skip_images * self.num_draws):
+                torch.randn(shape, generator=generator, device=device)
         try:
             self.ground_truth = None
             for j, obs in enumerate(observations):

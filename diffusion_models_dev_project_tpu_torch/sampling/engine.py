@@ -16,6 +16,14 @@ draw, then per step one draw for the predictor and one per corrector step,
 all standard normal of the chain's shape, in the order the JAX engine
 splits its keys.  No torch generator can reproduce JAX's split keys, so
 parity tests hand its draws over this way.
+
+With a `mesh` of several ranks (`parallel/mesh.py`; JAX: the batch axis
+sharded over the mesh's `data` axis) each rank runs its rows of the batch:
+of the observation, Aᵀy and the FBP, and of every draw, which it makes for
+the whole batch and cuts, so that the chain sees the one-process run's
+noise.  The norms that span the batch (naive's and DPS's data fit, the
+corrector's step size) are all-reduced; the result is gathered on every
+rank, and the PSNR trace (of image 0) is rank 0's.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 from ..ops.sde import DDPM, SDE
 from ..ops.woodbury import build_woodbury_sinv
 from ..ops.time_grids import ddpm_time_pairs, score_time_grid
+from ..parallel.mesh import gather_batch, replicate
 from ..utils.device import resolve_device
 from . import predictors as P
 
@@ -140,18 +149,22 @@ class DiffusionSampler:
         the predictor and one per corrector step."""
         return 1 + len(self._time_data[0]) * (1 + self.corrector_steps)
 
-    def _step(self, x, t, t_prev, datafitscale, noise, nloglik):
-        """One predictor step, dispatched as the JAX engine's `_step`."""
+    def _step(self, x, t, t_prev, datafitscale, noise, nloglik, observation=None, rhs=None):
+        """One predictor step, dispatched as the JAX engine's `_step`, on the
+        chain's rows of the observation and of Aᵀy (by default the
+        sampler's)."""
         spec, sde = self.spec, self.sde
+        observation = self.observation if observation is None else observation
+        rhs = self.rhs if rhs is None else rhs
         if spec.method == "uncond":
             if sde.prediction_type == "score":
                 return P.euler_maruyama_step(self.score_fn, sde, x, t, self._step_size, noise)
             return P.wrapper_ddim_step(self.score_fn, sde, x, t, t_prev, noise)
         if spec.method == "dds":
-            return P.dds_step(self.score_fn, sde, x, t, t_prev, self.rhs, self.ray_trafo,
+            return P.dds_step(self.score_fn, sde, x, t, t_prev, rhs, self.ray_trafo,
                               spec.gamma, spec.eta, spec.cg_iter, noise,
                               use_simplified_eqn=spec.use_simplified_eqn,
-                              observation=self.observation, dc_sinv=self.dc_sinv)
+                              observation=observation, dc_sinv=self.dc_sinv)
         if isinstance(sde, DDPM):
             if spec.method == "dps":
                 return P.ancestral_step(self.score_fn, sde, x, t, noise, nloglik, spec.penalty)
@@ -162,13 +175,18 @@ class DiffusionSampler:
 
     @torch.no_grad()
     def sample(self, generator: Optional[torch.Generator] = None,
-               noises: Optional[Sequence[torch.Tensor]] = None, return_trace: bool = False):
+               noises: Optional[Sequence[torch.Tensor]] = None, return_trace: bool = False,
+               mesh=None):
         """Run the reverse diffusion; returns (x_mean, trace) with `trace` the
         per-step PSNR of x_mean against `ground_truth` (zeros without one), a
-        tensor on the chain's device, when `return_trace`, else (x_mean, None)."""
+        tensor on the chain's device, when `return_trace`, else (x_mean, None).
+        With a `mesh` of several ranks (`parallel/mesh.py::make_mesh`) the
+        batch is sharded over them (see the module's docstring); every rank
+        returns the whole batch."""
         spec, sde = self.spec, self.sde
         ts, tps, dfs, _ = self._time_data
-        b = spec.batch_size
+        rows = slice(None) if mesh is None else mesh.rows(spec.batch_size)
+        b = spec.batch_size // (1 if mesh is None else mesh.world)
         shape = (b, *spec.im_shape)
         device = self.device
         if noises is not None and len(noises) != self.num_draws:
@@ -176,21 +194,27 @@ class DiffusionSampler:
         draws = iter(noises) if noises is not None else None
 
         def draw():
+            """The whole batch's next draw; this rank's rows of it."""
             if draws is not None:
-                return torch.as_tensor(next(draws), dtype=torch.float32, device=device)
-            return torch.randn(shape, generator=generator, device=device)
+                return torch.as_tensor(next(draws), dtype=torch.float32, device=device)[rows]
+            return torch.randn((spec.batch_size, *spec.im_shape), generator=generator,
+                               device=device)[rows]
 
+        def local(a):
+            return None if a is None else a[rows]
+
+        observation, rhs = local(self.observation), local(self.rhs)
         if spec.start_time_step > 0 and self.filtbackproj is not None:
             # chain initialised from the FBP at the first time step
             std = sde.marginal_prob_std(torch.full((b,), float(ts[0]), device=device))
-            x = self.filtbackproj + draw() * std.reshape(b, 1, 1, 1)
+            x = local(self.filtbackproj) + draw() * std.reshape(b, 1, 1, 1)
         else:
             x = sde.prior_sampling(shape, noise=draw())
         gt = self.ground_truth
         if gt is not None:
             gt_range = 20 * torch.log10(gt.max() - gt.min())
         trace = torch.zeros(len(ts), device=device)
-        nloglik = (P.make_nloglik(self.ray_trafo, self.observation)
+        nloglik = (P.make_nloglik(self.ray_trafo, observation, mesh)
                    if spec.method in ("naive", "dps") else None)
         t_dtype = torch.int64 if isinstance(sde, DDPM) else torch.float32
         x_mean = torch.zeros_like(x)
@@ -198,15 +222,19 @@ class DiffusionSampler:
                                                           dfs.tolist())):
             tvec = torch.full((b,), t, dtype=t_dtype, device=device)
             tpvec = torch.full((b,), t_prev, dtype=t_dtype, device=device)
-            x, x_mean = self._step(x, tvec, tpvec, datafitscale, draw(), nloglik)
+            x, x_mean = self._step(x, tvec, tpvec, datafitscale, draw(), nloglik, observation,
+                                   rhs)
             if self.corrector_steps:
                 x = P.langevin_corrector(self.score_fn, sde, x, tvec,
                                          [draw() for _ in range(self.corrector_steps)],
                                          nloglik=nloglik, datafitscale=datafitscale,
-                                         penalty=spec.penalty, snr=spec.corrector_snr)
+                                         penalty=spec.penalty, snr=spec.corrector_snr, mesh=mesh)
             if gt is not None:
+                # rank 0's first row is image 0
                 mse = (x_mean[0, ..., 0] - gt[0, ..., 0]).square().mean()
                 trace[i] = gt_range - 10 * torch.log10(mse)
+        if mesh is not None:
+            x_mean, trace = gather_batch(mesh, x_mean), replicate(mesh, trace)
         return (x_mean, trace) if return_trace else (x_mean, None)
 
 

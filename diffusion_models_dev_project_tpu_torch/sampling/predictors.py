@@ -31,6 +31,7 @@ from ..ops.cg import cg
 from ..ops.diffusion import ddim, tweedy
 from ..ops.sde import DDPM, SDE
 from ..ops.woodbury import woodbury_dc
+from ..parallel.mesh import all_reduce_sum
 
 __all__ = ["make_nloglik", "make_dc_op", "euler_maruyama_step", "ancestral_step", "dds_step",
            "langevin_corrector", "wrapper_ddim_step"]
@@ -40,9 +41,12 @@ def _b(v: torch.Tensor, ndim: int) -> torch.Tensor:
     return v.reshape(v.shape + (1,) * (ndim - v.ndim))
 
 
-def make_nloglik(ray_trafo, observation: torch.Tensor) -> Callable:
-    """x -> ||y - A x||_2 over the whole tensor."""
-    return lambda x: torch.linalg.vector_norm(observation - ray_trafo.apply(x))
+def make_nloglik(ray_trafo, observation: torch.Tensor, mesh=None) -> Callable:
+    """x -> ||y - A x||_2 over the whole tensor; with a `mesh` of several
+    ranks, each holding its rows of the batch, over the whole batch."""
+    if mesh is None or mesh.world == 1:
+        return lambda x: torch.linalg.vector_norm(observation - ray_trafo.apply(x))
+    return lambda x: all_reduce_sum(mesh, (observation - ray_trafo.apply(x)).square().sum()).sqrt()
 
 
 def make_dc_op(ray_trafo, gamma: float) -> Callable:
@@ -150,10 +154,12 @@ def dds_step(score_fn: Callable, sde: SDE, x: torch.Tensor, t: torch.Tensor,
 def langevin_corrector(score_fn: Callable, sde: SDE, x: torch.Tensor, t: torch.Tensor,
                        noises: Sequence[torch.Tensor], nloglik: Optional[Callable] = None,
                        datafitscale: Optional[float] = None, penalty: float = 1.0,
-                       snr: float = 0.16) -> torch.Tensor:
+                       snr: float = 0.16, mesh=None) -> torch.Tensor:
     """Langevin MCMC corrector, one step per standard-normal draw in
     `noises`: x += eps * g + sqrt(2 eps) z, with g the score (less the
-    penalised data-fit gradient with `nloglik`) and eps set from `snr`."""
+    penalised data-fit gradient with `nloglik`) and eps set from `snr` and
+    the mean over the batch of |g| (with a `mesh` of several ranks, each
+    holding its rows, over the whole batch)."""
     if sde.prediction_type != "score":
         raise ValueError("langevin_corrector needs a score model (VE/VP)")
     noise_norm = math.sqrt(math.prod(x.shape[1:]))
@@ -161,7 +167,11 @@ def langevin_corrector(score_fn: Callable, sde: SDE, x: torch.Tensor, t: torch.T
         overall = score_fn(x, t)
         if nloglik is not None:
             overall = overall - penalty * _grad(nloglik, x) * datafitscale
-        gnorm = torch.linalg.vector_norm(overall.reshape(overall.shape[0], -1), dim=-1).mean()
+        norms = torch.linalg.vector_norm(overall.reshape(overall.shape[0], -1), dim=-1)
+        if mesh is None or mesh.world == 1:
+            gnorm = norms.mean()
+        else:
+            gnorm = all_reduce_sum(mesh, norms.sum()) / (norms.shape[0] * mesh.world)
         step = 2.0 * (snr * noise_norm / gnorm) ** 2
         x = x + step * overall + torch.sqrt(2.0 * step) * z
     return x

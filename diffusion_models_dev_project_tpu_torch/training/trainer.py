@@ -21,9 +21,17 @@ attention forward and backward).  What it keeps of the JAX step:
 
 Randomness: the JAX step splits a key per step; here step `s` draws its t
 and z from a generator seeded with (seed, s), so a resumed run draws what
-the uninterrupted run drew.  One device: `mesh` is None or the one-device
-mesh of `parallel/mesh.py`; data parallelism over several cards is not
-ported.
+the uninterrupted run drew.
+
+Data parallelism (JAX: the state replicated and the batch sharded over the
+mesh's `data` axis, XLA's gradient psum): with a mesh of W ranks
+(`parallel/mesh.py`, one process per card) every rank builds the same
+global batch and draws its t and z, and keeps its rows of the three.  Its
+loss is the mean over its rows, and the ranks' gradients (and losses) are
+all-reduced as a mean before the clip: with equal shards that is the
+global batch's gradient.  Adam and the EMA then run alike on every rank,
+so the replicas stay bitwise equal.  Rank 0 alone logs, saves (a barrier
+on each side), probes and exports; a resumed run restores on every rank.
 """
 from __future__ import annotations
 
@@ -36,11 +44,13 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.convert import flax_from_params, save_flax_msgpack
 from ..ops.sde import SDE
+from ..parallel.mesh import all_reduce_mean_, replicate, shard_batch
 from .ema import EmaState, ema_copy, ema_init, ema_update
-from .losses import epsilon_matching_loss, score_matching_loss
+from .losses import draw_time_and_noise, epsilon_matching_loss, score_matching_loss
 
 __all__ = ["Optimizer", "TrainLog", "TrainState", "make_train_step", "step_generator",
            "train_score_model"]
@@ -136,13 +146,16 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 def make_train_step(model_apply: Callable, sde: SDE, optimizer: Optimizer, ema_decay: float,
                     ema_warm_start_steps: int, loss_kwargs: Optional[dict] = None,
-                    debug_nans: bool = False):
+                    debug_nans: bool = False, mesh=None):
     """The step (state, batch, generator | t and z) -> loss of the JAX
     `make_train_step`: loss and gradients of `model_apply(x, t)` over
     `optimizer.params`, the clipped Adam update, the EMA (warm start while
     `state.step < ema_warm_start_steps`).  `loss_kwargs` go to the loss
     (`sigma_alpha`; the epsilon loss drops it).  With `debug_nans` a
-    non-finite loss or gradient raises FloatingPointError."""
+    non-finite loss or gradient raises FloatingPointError.  With a `mesh`
+    of several ranks, `batch` (and `t`, `z`) are this rank's rows, and the
+    loss and gradients are all-reduced as a mean over the ranks before the
+    clip; the returned loss is that mean."""
     score = sde.prediction_type == "score"
     loss_impl = score_matching_loss if score else epsilon_matching_loss
     loss_kwargs = dict(loss_kwargs or {})
@@ -158,6 +171,9 @@ def make_train_step(model_apply: Callable, sde: SDE, optimizer: Optimizer, ema_d
             loss = loss_impl(batch, model_apply, sde, generator=generator, t=t, z=z,
                              **loss_kwargs)
             grads = list(torch.autograd.grad(loss, list(params.values())))
+        loss = loss.detach()
+        if mesh is not None:
+            all_reduce_mean_(mesh, grads + [loss])
         if debug_nans and not (torch.isfinite(loss)
                                and all(torch.isfinite(g).all() for g in grads)):
             raise FloatingPointError(f"non-finite loss or gradient at step {state.step}")
@@ -167,7 +183,7 @@ def make_train_step(model_apply: Callable, sde: SDE, optimizer: Optimizer, ema_d
         else:
             ema_update(state.ema, params, ema_decay)
         state.step += 1
-        return loss.detach()
+        return loss
 
     return step_fn
 
@@ -242,8 +258,9 @@ def train_score_model(
     masters; `init_params`, a state_dict, is copied into the model first);
     returns the final `TrainState`.  The arguments are the JAX
     `train_score_model`'s, with `model` (its forward `model(x, t)`) for
-    its `model_apply` and `mesh` None or one device; `debug_nans` fails at the
-    first non-finite loss or gradient.
+    its `model_apply`; `mesh` (`parallel/mesh.py::make_mesh`) is None or
+    one device, or this rank of a data-parallel group (see the module's
+    docstring); `debug_nans` fails at the first non-finite loss or gradient.
 
     `train_iter` yields NHWC numpy or torch batches.  `checkpointer` is a
     `utils.checkpoint.Checkpointer`; its latest save is resumed exactly.
@@ -255,12 +272,12 @@ def train_score_model(
     the JAX trainer casts them (`weights`: name -> bf16 tensor on the
     model's device); the best so far goes to `{log_dir}/best_ema.msgpack.npz`
     (fp16) with `best_ema.json`, whose score a resumed run starts from."""
-    if mesh is not None and len(getattr(mesh, "devices", ())) != 1:
-        raise NotImplementedError("train_score_model: a mesh over more than one card is not "
-                                  "ported; pass None or a one-device mesh (parallel/mesh.py)")
     device = next(model.parameters()).device
-    if mesh is not None and mesh.devices[0] != device:
-        raise ValueError(f"the mesh's device {mesh.devices[0]} is not the model's {device}")
+    if mesh is not None and mesh.device != device:
+        raise ValueError(f"the mesh's device {mesh.device} is not the model's {device}")
+    if mesh is not None and mesh.world == 1:
+        mesh = None
+    lead = mesh is None or mesh.rank == 0          # logs, saves, probes and exports
     if init_params is not None:
         with torch.no_grad():
             for name, p in model.named_parameters():
@@ -269,19 +286,23 @@ def train_score_model(
     if not params or any(p.dtype != torch.float32 for p in params.values()):
         raise ValueError("train_score_model trains fp32 master parameters that require a "
                          "gradient (factory.get_standard_score(..., train=True))")
+    if mesh is not None:
+        with torch.no_grad():
+            replicate(mesh, list(params.values()))      # rank 0's start, in place
     opt = Optimizer(params, lr, lr_warmup_steps, grad_clip)
     state = TrainState(params, opt, ema_init(params), 0)
     start_epoch = 0
     if checkpointer is not None and checkpointer.latest_step() is not None:
         state.load_state_dict(checkpointer.restore())
         start_epoch = state.step // max(steps_per_epoch, 1)
-        print(f"resumed from step {state.step} (epoch {start_epoch})")
+        if lead:
+            print(f"resumed from step {state.step} (epoch {start_epoch})")
     step_fn = make_train_step(lambda x, t: model(x, t), sde, opt, ema_decay, ema_warm_start_steps,
-                              loss_kwargs=loss_kwargs, debug_nans=debug_nans)
-    log = TrainLog(log_dir)
+                              loss_kwargs=loss_kwargs, debug_nans=debug_nans, mesh=mesh)
+    log = TrainLog(log_dir) if lead else None
     avg_buf = deque(maxlen=int(avg_tail)) if avg_tail >= 2 else None
     best_probe = None
-    if probe_hook is not None:
+    if probe_hook is not None and lead:
         # a resumed run keeps the best score so far, so that a worse later
         # snapshot cannot overwrite the export
         try:
@@ -295,17 +316,25 @@ def train_score_model(
     for epoch in range(start_epoch, epochs):
         losses = []
         for i in range(steps_per_epoch):
+            # the global batch and its draws; with a mesh, this rank's rows of each
             batch = torch.as_tensor(next(data_it)).to(device=device, dtype=torch.float32)
-            loss = step_fn(state, batch, step_generator(seed, state.step, device))
+            t, z = draw_time_and_noise(batch, sde, step_generator(seed, state.step, device))
+            if mesh is not None:
+                batch, t, z = shard_batch(mesh, (batch, t, z))
+            loss = step_fn(state, batch, t=t, z=z)
             losses.append(loss)
-            if i % log_freq == 0:
+            if i % log_freq == 0 and lead:
                 log.scalar("train/loss", float(loss), epoch * steps_per_epoch + i + 1)
         mean_loss = float(torch.stack(losses).mean())
-        log.scalar("train/mean_loss_per_epoch", mean_loss, epoch + 1)
-        print(f"epoch {epoch}: mean loss {mean_loss:.5f}")
+        if lead:
+            log.scalar("train/mean_loss_per_epoch", mean_loss, epoch + 1)
+            print(f"epoch {epoch}: mean loss {mean_loss:.5f}")
 
-        if checkpointer is not None and (epoch % save_model_every_n_epoch == 0
-                                         or epoch == epochs - 1):
+        save = checkpointer is not None and (epoch % save_model_every_n_epoch == 0
+                                             or epoch == epochs - 1)
+        if save and mesh is not None:
+            dist.barrier(group=mesh.group)
+        if save and lead:
             t_save = time.time()
             checkpointer.save(state.state_dict(), step=state.step)
             log.scalar("save/checkpoint_seconds", time.time() - t_save, state.step)
@@ -336,7 +365,10 @@ def train_score_model(
                             json.dump({"score": score, "step": state.step, "source": tag}, f)
                         print(f"probe: new best {score:.5f} ({tag} @ step {state.step}) -> "
                               "best_ema.msgpack.npz")
-        if sample_freq > 0 and epoch % sample_freq == 0 and sample_hook is not None:
+        if save and mesh is not None:
+            dist.barrier(group=mesh.group)
+        if sample_freq > 0 and epoch % sample_freq == 0 and sample_hook is not None and lead:
             sample_hook(state, epoch)
-    log.close()
+    if lead:
+        log.close()
     return state

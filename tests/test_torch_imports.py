@@ -8,7 +8,10 @@ where there is no CUDA device.  The paths of ROADMAP.md queue 1 item 9
 (matrix and walnut operators, AAPM and walnut data) resolve; the walnut
 data, which the repository does not hold, raise FileNotFoundError naming
 them.  Reference `.pt` checkpoints are read (a missing one raises
-FileNotFoundError), and a mesh over more than one card raises.
+FileNotFoundError).  The multi-card paths (`parallel/launch.py`, one
+process per rank) import no JAX either; outside a process group a mesh
+over more than one device raises, and `rank_devices` gives one CPU rank
+when asked for the CPU.
 
 The torch half of each test runs in a child interpreter (tests/_torch_child.py):
 no pytest process runs torch code.
@@ -48,8 +51,8 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
         "run_conditional_sampling", "data.ellipses", "configs.aapm_configs",
         "configs.walnut_configs", "sampling.predictors", "sampling.engine",
         "run_score_based_models_train", "training.losses", "training.ema", "training.trainer",
-        "utils.checkpoint", "parallel.mesh", "utils.kvlogger", "utils.profiling", "utils.flops",
-        "models.torch_convert")} <= set(modules)
+        "utils.checkpoint", "parallel.mesh", "parallel.launch", "utils.kvlogger",
+        "utils.profiling", "utils.flops", "models.torch_convert")} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         f"for name in {ABSENT!r}:",
@@ -158,11 +161,16 @@ def unported_paths_raise(workdir):
         TF.get_standard_adapted_sampler("dds", None, None, None, None, adaptation="dif-fit")
     with pytest.raises(NotImplementedError, match="strategy"):
         TA.AdaptSpec(impl="dif-fit")
-    # training: one device; a mesh over more than one card raises
-    from diffusion_models_dev_project_tpu_torch.training.trainer import train_score_model
+    # several devices take one process each: outside a process group a mesh
+    # over two raises, and the CPU gives one rank
+    from diffusion_models_dev_project_tpu_torch.parallel.launch import launch, rank_devices
+    from diffusion_models_dev_project_tpu_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        train_score_model(None, None, None, [], epochs=1, steps_per_epoch=1, mesh=object())
+    with pytest.raises(ValueError, match="one process per device"):
+        make_mesh(2, device="cpu")
+    assert rank_devices("cpu") == ["cpu"]
+    with pytest.raises(ValueError, match="NCCL takes one rank per card"):
+        launch(print, ["cuda:0", "cuda:0"], "nccl")
     # part "test" has no shipped set: the port generates the test-fold
     # phantoms, as the JAX package does (tests/test_torch_ellipses.py holds
     # them to its)

@@ -17,8 +17,10 @@
   `convert_torch_state_dict` result mapped through the port's
   `params_from_flax`, exactly; `factory.get_standard_score` reads the same
   weights from a `.pt` file;
-- `parallel/mesh.py`: a mesh over the one device, and NotImplementedError
-  for more (and from `train_score_model` for a mesh of two).
+- `parallel/mesh.py`: outside a process group, a mesh over the one device,
+  and ValueError for more (a mesh over several devices takes one process
+  per device: tests/test_torch_parallel.py); `train_score_model` refuses
+  a mesh on another device than the model's.
 
 The torch half runs in a child interpreter (tests/_torch_child.py): no
 pytest process runs torch code.
@@ -125,21 +127,21 @@ def utils_half(workdir, x, t, jax_tree, **arrays):
                                              device="cpu")
         out[f"pt_file_{name}"] = np.array(all(torch.equal(p.float(), want[n])
                                               for n, p in loaded.state_dict().items()))
-    # the mesh: one device, and no more
+    # the mesh outside a process group: one device, and no more
     mesh = M.make_mesh(device="cpu")
     batch = M.shard_batch(mesh, {"x": np.ones((2, 3), np.float32), "y": [torch.zeros(2)]})
     out["mesh_one_device"] = np.array(
         mesh.devices == (torch.device("cpu"),) and mesh.shape == {"data": 1}
         and batch["x"].device.type == "cpu" and tuple(batch["x"].shape) == (2, 3)
         and isinstance(batch["y"], list) and M.replicate(mesh, torch.ones(2)).device.type == "cpu")
-    with pytest.raises(NotImplementedError, match="one card"):
+    with pytest.raises(ValueError, match="one process per device"):
         M.make_mesh(2, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             M.make_mesh()
-    two = M.Mesh((torch.device("cpu"), torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        train_score_model(model, None, None, [], epochs=1, steps_per_epoch=1, mesh=two)
+    elsewhere = M.Mesh((torch.device("meta"),))
+    with pytest.raises(ValueError, match="is not the model's"):
+        train_score_model(model, None, None, [], epochs=1, steps_per_epoch=1, mesh=elsewhere)
     return out
 
 
