@@ -8,10 +8,11 @@ the conditional CLI and the parallel-beam matrix operator, steerable LoRA
 adaptation inside the DDS loop, four images per call through the
 conditional and the adapted CLIs (`--shard_images`), DPS and naive
 sampling through the conditional CLI,
-score-model training through the train CLI, and `full` and `decoder`
+score-model training through the train CLI, `full` and `decoder`
 adaptation through the adapted CLI, whose gradients run through the hand
 kernels' backward passes (conv3x3's input and weight gradients, the
-attention backward):
+attention backward), the 512² configuration, and the evaluation entry
+points (`scripts/`):
 
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles `csrc/*.cu` with nvcc for sm_90a (ops/_build.py) and
@@ -59,7 +60,7 @@ attention backward):
    gradient, and in fp32 with the kernels against it; the launch counts of
    one forward and backward;
 6. DDS: reconstructs the first images of the shipped val set (`PHASE6_STEPS`
-   = 200 steps,
+   = 100 steps,
    60 angles, noise 0.01, gamma 0.01, eta 0.85, 5 CG iterations) and requires each to
    beat its FBP in PSNR, with the kernel launch counts of the run checked
    (per forward 62 conv3x3, of which 60 tc, 1 narrow, 1 simt, and 4
@@ -101,7 +102,7 @@ attention backward):
    better than FBP on its images; then, printed and not gated, 4 steps each
    from the CLI's masters (rounded to bf16) and from masters left at the
    checkpoint's fp16 values, their losses and probes (`WITNESS_PROBE_STEPS`
-   = 100 DDS steps; what the rounding guards against); then DDPM from the
+   = 50 DDS steps; what the rounding guards against); then DDPM from the
    fresh init (output exactly
    0, the epsilon loss finite, counts exact);
 10. full and decoder: the full-width gradient of the adaptation loss under
@@ -131,9 +132,9 @@ attention backward):
    leaf); the batched chain (`sample_batched`, fp32 with the kernels, 2
    images, injected draws, `SHARD_CHAIN_STEPS` x `SHARD_CHAIN_OPTIM`)
    within `TOL_SHARD_CHAIN` of each image's serial chain by tensors; then
-   the adapted CLI with `--shard_images 4` cut to 10 x 3 and the first
+   the adapted CLI with `--shard_images 4` cut to 5 x 3 and the first
    image serially, its batched PSNR within `SHARD_ADAPT_AGREE_DB` of its
-   serial run (against FBP printed, not gated: 10 x 3 does not
+   serial run (against FBP printed, not gated: 5 x 3 does not
    reconstruct), launch counts exact, seconds per image at 1 and 4, busy
    share (graph replay, and profiler traces of `SHARD_TRACE_STEPS` outer
    steps) and peak memory;
@@ -155,7 +156,7 @@ attention backward):
    cut 5 x 3 adapted run (PSNR printed, not gated), launch counts exact;
 13. AAPM: synthetic slices (scripts/make_synth_aapm.py, run, not edited);
    DDS through the conditional CLI (`--dataset aapm`, ellipse prior,
-   `AAPM_STEPS` = 200 of the protocol's 1000 steps, η 0.85) better than FBP; DDS through the parallel-beam matrix
+   `AAPM_STEPS` = 100 of the protocol's 1000 steps, η 0.85) better than FBP; DDS through the parallel-beam matrix
    operator (Joseph, ELL) on AAPM val image 0 better than FBP; the AAPM
    config's UNet at full width (256 channels, random weights) against its
    plain path with exact launch counts, and its conv3x3 shapes timed by
@@ -173,18 +174,35 @@ attention backward):
    `MC_DDS_AGREE_DB` of phase 11b's one-card batch-4 run, launch counts
    exact per rank, and an fp32 DDS chain of 2 images x 4 steps, sharded,
    within `TOL_SHARD_CHAIN` of one process by tensors; 14c the adapted CLI
-   at `--shard_images 4` (10 x 3, phase 11c's run, sharded), counts exact,
+   at `--shard_images 4` (5 x 3, phase 11c's run, sharded), counts exact,
    and phase 11c's fp32 `sample_batched` (2 images, 4 x 3) sharded within
    `TOL_SHARD_CHAIN` of one process.  Printed: the layout, seconds per
    image at 1 rank (phase 11) and at 2, the busy share per rank from
    profiler traces, the launches per rank summed.  `--phase14` runs it
    alone after phases 1 and 2, against one-card runs of its own;
-15. prints one `{"kernels": [...]}` line, then, last, the device line
-   `{"ok": true, "device": {...}}`.
+15. the 512² configuration (`scripts/smoke_512.py`: channel_mult (0.5, 1,
+   1, 2, 2, 4, 4) at 128 channels, random weights) and the evaluation entry
+   points: 15a every conv3x3 and attention shape of its forward (its
+   attention runs at the 16² and 8² maps: the flagship's (8, 256, 64) and
+   (8, 64, 64)), and attention at (4, 1024, 64), off the path, against
+   their plain versions (phase 3's tolerances), timed beside the plain
+   versions, cuDNN, SDPA and the bound (no speed gate);
+   15b the forward at full width with every leaf drawn nonzero against the
+   plain path within `TOL_UNET`, launch counts exact (each call on the
+   variant its plan picks); 15c the 512² DDS through the smoke entry point
+   (`DDS_512_STEPS` = 20 of its 100 steps, γ 10, CG(10)): finite, counts
+   exact, PSNR against FBP printed (an untrained prior), the step split into
+   UNet, CG and rest; 15d `scripts/eval_flagship_256.py` in-process (VESDE,
+   η 0.85, 2 val images, 50 steps): each image above its FBP, its printed
+   lines parsed, counts exact; `scripts/eval_adapted_256.py` on the OOD
+   bars (5 x 3, DDS 50 steps): finite, counts exact.  `--phase15` runs it
+   alone after phases 1 and 2;
+16. prints one `{"kernels": [...]}` line (with the 512² rows), then, last,
+   the device line `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Usage: python3 chip_smoke.py [--steps N] [--images N] [--adapt-steps N] [--adapt-images N]
-       [--dps-steps N] [--phase14]
+       [--dps-steps N] [--phase14] [--phase15]
 (walnut_probe.py runs phases 12, 12b and 13 alone, at any depth and ungated)
 """
 from __future__ import annotations
@@ -194,6 +212,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -239,7 +258,7 @@ TRAIN_LOSS_RATIO = 1.02
 TRAIN_WITNESS_STEPS = 4       # steps of the bf16-tie witness (phase 9b'; cut, PERF.md §4)
 DDPM_TRAIN_STEPS = 2          # steps of the DDPM run from the fresh init
 PROBE_DDS_STEPS = 200         # the keep-best probe's DDS (run_score_based_models_train.py)
-WITNESS_PROBE_STEPS = 100     # the witnesses' probe DDS (phase 9b'; cut, PERF.md §4)
+WITNESS_PROBE_STEPS = 50      # the witnesses' probe DDS (phase 9b'; cut, PERF.md §4)
 ADAPT_CLI_STEPS, ADAPT_CLI_OPTIM = 3, 3     # the short full and decoder runs through the CLI
 ADAPT_PROTOCOL_STEPS = 50     # outer steps of the adapted protocol (10 Adam steps each)
 ADAPT_PROTOCOL_OPTIM = 10
@@ -252,7 +271,7 @@ DPS_PROTOCOL_STEPS = 1000     # steps of the conditional CLI's protocol
 # the AAPM runs'), and the grid of phase 8's runs from the prior (known
 # negative results, their PSNR printed and not gated; the CLI's divergence
 # guard is gated on this grid as on the protocol's)
-PHASE6_STEPS = 200
+PHASE6_STEPS = 100
 DPS_PRIOR_STEPS = 100
 DPS_PENALTY = 10.0            # the best DPS penalty of the JAX package's records (BENCH.md)
 DPS_T = 0.5                   # the time at which the full-width gradient in x is checked
@@ -645,11 +664,12 @@ def check_attention_once(shape, dt, gen):
     return (q, k, v), p, d, r
 
 
-def check_attention(shapes, gen):
+def check_attention(shapes, gen, extras=True):
     """Kernel vs plain at the path's attention shapes, timed beside the plain
     version, the CUDA-core `simt` kernel, SDPA as dispatched by default and
     each SDPA backend; and at added shapes, checked only.  Returns
-    per-forward totals."""
+    per-forward totals.  Without `extras` (another model's shapes) neither
+    the added shapes nor the speed gates, which hold the flagship's path."""
     import torch
 
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
@@ -667,7 +687,7 @@ def check_attention(shapes, gen):
              ((2, 37, 20), "bfloat16"), ((3, 300, 128), "bfloat16"),
              ((2, 257, 40), "float32"), ((3, 100, 128), "float32"),
              ((8, 256, 64), "float32"), ((1, 5, 8), "float32"),
-             ((2, 64, 256), "float32"), ((2, 64, 256), "bfloat16")]
+             ((2, 64, 256), "float32"), ((2, 64, 256), "bfloat16")] if extras else []
     keys = ("ms", "plain_ms", "library_ms", "library_best_ms", "bound_ms", "ops_ms", "bytes_ms",
             "simt_ms", "lse_ms")
     tot = dict.fromkeys(keys, 0.0)
@@ -724,6 +744,8 @@ def check_attention(shapes, gen):
         f"dispatched by default, {tot['ms'] / tot['library_best_ms']:.3f}x its fastest backend, "
         f"{tot['ms'] / tot['simt_ms']:.3f}x the simt kernel; with the log-sum-exp saved "
         f"{tot['lse_ms']:.4f} ms ({tot['lse_ms'] / tot['ms'] - 1:+.2%}, at most +5%)")
+    if not extras:
+        return tot, max_abs
     if not (tot["ms"] <= tot["plain_ms"] and tot["ms"] <= tot["library_ms"]
             and tot["ms"] < tot["simt_ms"]):
         raise AssertionError("attention: mma is slower per forward than its plain version, "
@@ -1208,20 +1230,11 @@ def check_attention_backward(shapes, gen):
     return tot, max_abs, by_variant
 
 
-def ood_bars(im: int) -> np.ndarray:
-    """Rectangular bars and a frame: the out-of-distribution phantom of the
-    JAX package's adapted evaluation (scripts/eval_adapted_256.py), copied."""
-    x = np.zeros((im, im), np.float32)
-    q = im // 8
-    for i in range(1, 4):
-        x[2 * i * q - q // 2:2 * i * q + q // 2, q:im - q] = 0.4 + 0.2 * i
-    x[q:im - q, q:q + im // 32] = 1.0
-    x[q:im - q, im - q - im // 32:im - q] = 1.0
-    return x
-
-
 def adapted_phantoms(images):
-    """(name, image) of the adapted phase: val image 0 and the OOD bars phantom."""
+    """(name, image) of the adapted phase: val image 0 and the OOD bars phantom
+    (the adapted evaluation's, `scripts/eval_adapted_256.py::ood_bars`)."""
+    from diffusion_models_dev_project_tpu_torch.scripts.eval_adapted_256 import ood_bars
+
     return [("val image 0", images[0]), ("OOD bars", ood_bars(256)[..., None])]
 
 
@@ -1499,11 +1512,11 @@ def gradient_gates(gk, gp, g32, g32k, losses, what):
 SHARD_IMAGES = 4              # images per call (the CLIs' --shard_images)
 # cut to fit the run's time limit (PERF.md §4): the conditional DDS of the
 # four test-fold images runs this many steps (protocol 1000), the adapted
-# runs 10 outer x 3 Adam steps (protocol 50 x 10), and the serial runs that
+# runs 5 outer x 3 Adam steps (protocol 50 x 10), and the serial runs that
 # the batched ones are held to take the first of the four images (the fp32
 # chain of 11c holds two adapted images to their serial chains by tensors)
 SHARD_DDS_STEPS = 50
-SHARD_ADAPT_STEPS, SHARD_ADAPT_OPTIM = 10, 3
+SHARD_ADAPT_STEPS, SHARD_ADAPT_OPTIM = 5, 3
 SHARD_SERIAL_IMAGES = 1
 # the batched adapted chain held to the serial one by tensors: fp32 with the
 # kernels, 2 images (val images 0 and 1, each its own LoRA state and its own
@@ -1515,7 +1528,7 @@ SHARD_CHAIN_STEPS, SHARD_CHAIN_OPTIM = 4, 3
 TOL_SHARD_CHAIN = 1e-3
 # the runs whose device busy share a torch.profiler trace reads, at 1 image
 # and at SHARD_IMAGES: the last DDS steps of the 100-step grid, and the first
-# adapted outer steps (the CLI's 3 Adam steps) of the 10-step grid
+# adapted outer steps (the CLI's 3 Adam steps) of the 5-step grid
 SHARD_TRACE_DDS_STEPS = 10
 SHARD_TRACE_STEPS = 1
 # each batched image's PSNR within this of its serial run (dB), set before
@@ -2511,7 +2524,7 @@ WALNUT_ADAPT_STEPS, WALNUT_ADAPT_OPTIM = 5, 3    # the adapted walnut run, cut
 AAPM_SLICES = 24              # scripts/make_synth_aapm.py --n
 # DDS steps of the AAPM runs (protocol 1000), cut to keep the whole run inside
 # its time limit (PERF.md §4)
-AAPM_STEPS = 200
+AAPM_STEPS = 100
 
 
 def walnut_phantom(n=501):
@@ -2962,6 +2975,221 @@ def aapm_phase(F, P, model_args, steps, gen, cli_workdir):
     return out
 
 
+# phase 15: the 512² configuration and the evaluation entry points
+DDS_512_STEPS = 20            # steps of the 512² DDS (scripts/smoke_512.py: 100; cut, PERF.md §4)
+EVAL_STEPS = 50               # DDS steps of the eval entry points' runs (protocol: 1000)
+EVAL_IMAGES = 2
+EVAL_ADAPT = (5, 3)           # outer x inner steps of the adapted OOD case (protocol: 50 x 10)
+EVAL_LINE = re.compile(r"^image (\d+): dds +(-?[\d.]+) dB / ([\d.]+) SSIM \| FBP +(-?[\d.]+) dB "
+                       r"\| ([\d.]+)s$")
+EVAL_MEAN = re.compile(r"^MEAN over (\d+): dds +(-?[\d.]+) dB / ([\d.]+) SSIM \| "
+                       r"FBP +(-?[\d.]+) dB$")
+
+
+def forward_counts(seen, n_fwd):
+    """The launch counts of `n_fwd` forwards of a model whose conv3x3 and
+    attention calls `record_shapes` saw, each call on the variant its
+    plan picks; no backward."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    conv_by, attn_by = dict.fromkeys(C.VARIANTS, 0), dict.fromkeys(A.VARIANTS, 0)
+    for (b, h, w, cin), cout, dt in seen["conv"]:
+        conv_by[C.plan(b, h, w, cin, cout, getattr(torch, dt)).variant] += n_fwd
+    for shape, dt in seen["attn"]:
+        attn_by[A.plan(*shape, getattr(torch, dt)).variant] += n_fwd
+    return {"conv_fwd": sum(conv_by.values()), "conv_fwd_by": conv_by,
+            "conv_bwd": 0, "conv_bwd_by": dict.fromkeys(C.VARIANTS, 0),
+            "conv_wgrad": 0, "conv_wgrad_by": dict.fromkeys(C.WGRAD_VARIANTS, 0),
+            "attn_fwd": sum(attn_by.values()), "attn_fwd_by": attn_by,
+            "attn_bwd": 0, "attn_bwd_by": dict.fromkeys(A.VARIANTS, 0)}
+
+
+def phase_512_and_eval(F, P, gen, workdir):
+    """Phase 15: 15a the kernels at every conv3x3 and attention shape of the
+    512² UNet (128 channels) against their plain versions, timed, and
+    attention at (4, 1024, 64), off the path; 15b its
+    forward at full width with random weights (every leaf nonzero) against
+    the plain path, launch counts exact; 15c the 512² DDS through
+    `scripts/smoke_512.py` (`DDS_512_STEPS` steps), finite, counts exact,
+    the step split into UNet, CG(10) and rest; 15d the evaluation entry
+    points in-process: `scripts/eval_flagship_256.py` (VESDE, η 0.85,
+    `EVAL_IMAGES` val images, `EVAL_STEPS` steps), each image above its FBP
+    and its printed lines parsed, and `scripts/eval_adapted_256.py` on the
+    OOD bars at `EVAL_ADAPT` with `EVAL_STEPS` DDS steps, finite; counts
+    exact.  Returns the 512² kernel totals and launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops.cg import cg
+    from diffusion_models_dev_project_tpu_torch.scripts import eval_adapted_256 as EA
+    from diffusion_models_dev_project_tpu_torch.scripts import eval_flagship_256 as EF
+    from diffusion_models_dev_project_tpu_torch.scripts import smoke_512 as S512
+
+    # ---- 15a. the kernels at the 512² UNet's shapes
+    t0 = time.perf_counter()
+    config = S512.config_512()
+    sde = F.get_standard_sde(config)
+    model, _, _ = F.get_standard_score(config, sde, load_model=False)
+    with torch.no_grad():      # the init's zero leaves drawn nonzero: every layer counts
+        for p in model.parameters():
+            if not p.any():
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
+    x = torch.randn((1, S512.IM, S512.IM, 1), generator=gen, device="cuda") * 10.0
+    t = torch.full((1,), 0.5, device="cuda")
+    seen, handles = record_shapes(model)
+    with torch.no_grad():
+        model(x, t)
+    for hnd in handles:
+        hnd.remove()
+    attn_512 = sorted({(shape, dt) for shape, dt in seen["attn"]})
+    tc_512 = [c for c in seen["conv"]
+              if c[0][1] == S512.IM and c[1] % 64 == 0 and c[0][3] % 64 == 0]
+    log(f"  512² UNet: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M parameters, "
+        f"{len(seen['conv'])} conv3x3 and {len(seen['attn'])} attention calls per forward "
+        f"(attention at {attn_512}: `attention_resolutions` 16 names the 16² maps)")
+    if not tc_512:
+        raise AssertionError("no 64-channel 512² conv of the 512² UNet runs tc")
+    conv_tot, conv_err, conv_variants = check_conv(seen["conv"], gen, extras=False)
+    attn_tot, attn_err = check_attention(seen["attn"], gen, extras=False)
+    # T = 1024, the regime of the JAX package's flash kernel (its UNet picks
+    # it at 1024 tokens or more), which no shipped config reaches: checked
+    # and timed per call, not gated
+    t1024, t1024_err = check_attention([((4, 1024, 64), "bfloat16")], gen, extras=False)
+    log(f"[phase 15a kernels at 512²] {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15b. the 512² UNet forward at full width, kernels against plain
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        reset_counts()
+        out = model(x, t)
+        counts = read_counts()
+        ref = model(x, t, use_kernel=False)
+        fwd_ms = wall_ms(lambda: model(x, t), 5)
+        fwd_dev_ms = time_ms(lambda: model(x, t), 5)
+    d, r = rel_err(out, ref)
+    want = forward_counts(seen, 1)
+    log(f"  UNet 512² forward: out {tuple(out.shape)}, max|kernel - plain| {d:.3e}, rel {r:.3e} "
+        f"(tol {TOL_UNET}); {fwd_ms:.2f} ms with kernels ({fwd_dev_ms:.2f} ms of device time, "
+        f"replayed as a CUDA graph); launches " + json.dumps(counts))
+    if not (torch.isfinite(out).all() and out.shape == x.shape and r <= TOL_UNET):
+        raise AssertionError("the 512² UNet forward with kernels disagrees with the plain path")
+    if counts != want:
+        raise AssertionError(f"512² forward: launch counts {counts}, want {want}")
+    del model, out, ref
+    log(f"[phase 15b unet 512²] {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15c. the 512² DDS through the smoke entry point
+    t0 = time.perf_counter()
+    timer = StepTimer(None, P.cg, first_step=0)
+
+    def timed(score_fn):
+        timer.score_fn = score_fn
+        return timer.score
+
+    P.cg = timer.cg
+    try:
+        reset_counts()
+        ts = time.perf_counter()
+        res = S512.main(["--num_steps", str(DDS_512_STEPS), "--workdir", workdir],
+                        score_wrap=timed)
+        timer.finish()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - ts
+        dds_counts = read_counts()
+    finally:
+        P.cg = cg
+    rows = timer.split()
+    med = {k: float(np.median([row[k] for row in rows])) for k in ("step", "unet", "cg", "rest")}
+    log(f"  512² DDS ({DDS_512_STEPS} steps, random prior, γ 10, CG(10)): {res['psnr']:.2f} dB / "
+        f"{res['ssim']:.4f} SSIM against FBP {res['fbp_psnr']:.2f} dB (printed, not gated: an "
+        f"untrained prior); {wall_s:.1f} s in the entry point; per step (CUDA events, median of "
+        f"{len(rows)}) {med['step']:.2f} ms = UNet {med['unet']:.2f} + CG(10) {med['cg']:.2f} + "
+        f"rest {med['rest']:.2f}; launches " + json.dumps(dds_counts))
+    if not (np.isfinite(res["recon"]).all() and res["recon"].shape == (S512.IM, S512.IM)):
+        raise AssertionError("the 512² DDS reconstruction is not finite or of the wrong shape")
+    if dds_counts != forward_counts(seen, DDS_512_STEPS):
+        raise AssertionError(f"512² DDS: launch counts {dds_counts}, want "
+                             f"{forward_counts(seen, DDS_512_STEPS)}")
+    log(f"[phase 15c dds 512²] {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15d. the evaluation entry points in-process
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.makedirs(workdir, exist_ok=True)
+    os.chdir(workdir)
+    try:
+        printed = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(printed):
+            ev = EF.main(["--ckpt", CKPT, "--eta", "0.85", "--num_images", str(EVAL_IMAGES),
+                          "--num_steps", str(EVAL_STEPS)])
+        eval_counts = read_counts()
+        lines = printed.getvalue().splitlines()
+        for line in lines:
+            log("  eval_flagship_256: " + line)
+        check_counts(eval_counts, EVAL_STEPS * EVAL_IMAGES, 0, "the flagship evaluation")
+        parsed = [EVAL_LINE.match(line) for line in lines[:-1]]
+        mean = EVAL_MEAN.match(lines[-1]) if lines else None
+        if not (len(lines) == EVAL_IMAGES + 1 and all(parsed) and mean
+                and [int(m.group(1)) for m in parsed] == list(range(EVAL_IMAGES))
+                and int(mean.group(1)) == EVAL_IMAGES):
+            raise AssertionError(f"the flagship evaluation's printed lines do not parse: {lines}")
+        for i, (p, fp) in enumerate(zip(ev["psnr"], ev["fbp"])):
+            if not p > fp:
+                raise AssertionError(f"eval_flagship_256 image {i}: DDS {p:.2f} dB does not beat "
+                                     f"FBP {fp:.2f} dB")
+        n_out, n_in = EVAL_ADAPT
+        reset_counts()
+        rows = EA.main(["--ckpt", CKPT, "--num_in_dist", "0", "--num_ood", "1", "--num_steps",
+                        str(n_out), "--num_optim_step", str(n_in), "--dds_steps", str(EVAL_STEPS)])
+        ad_counts = read_counts()
+    finally:
+        os.chdir(cwd)
+    check_counts(ad_counts, EVAL_STEPS + n_out * (n_in + 2) + 1, n_out * n_in,
+                 "the adapted evaluation")
+    if not (len(rows) == 1 and all(np.isfinite(rows[0][k]).all() for k in ("x_dds", "x_adapted"))):
+        raise AssertionError("the adapted evaluation's reconstructions are not finite")
+    log(f"  eval_adapted_256 ({rows[0]['name']}, {n_out} x {n_in}, DDS {EVAL_STEPS}; not gated): "
+        f"adapted {rows[0]['adapted']:.2f} dB, DDS {rows[0]['dds']:.2f} dB, FBP "
+        f"{rows[0]['fbp']:.2f} dB; launches " + json.dumps(ad_counts))
+    log(f"[phase 15d eval entry points] {time.perf_counter() - t0:.1f} s")
+    return dict(conv_tot=conv_tot, conv_err=conv_err, attn_tot=attn_tot, attn_err=attn_err,
+                t1024=t1024, t1024_err=t1024_err, dds_counts=dds_counts,
+                conv_variants={v: agg.get("calls", 0) for v, agg in conv_variants.items()})
+
+
+def kernel_rows_512(ph15):
+    """The `kernels` line's rows of the 512² configuration: times per 512²
+    UNet forward, launches from its DDS run."""
+    src = "diffusion_models_dev_project_tpu_torch/csrc/"
+    rows = []
+    for name, source, tot, err, key, replaces in (
+            ("conv3x3 (512²)", src + "conv3x3_tc.cu", ph15["conv_tot"], ph15["conv_err"],
+             "conv_fwd", "diffusion_models_dev_project_tpu/ops/conv3x3.py:35"),
+            ("attention (512²)", src + "attention_mma.cu", ph15["attn_tot"], ph15["attn_err"],
+             "attn_fwd", "diffusion_models_dev_project_tpu/ops/attention.py:43")):
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": ph15["dds_counts"][key], "max_abs_err": err, "ms": tot["ms"],
+                     "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                     "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
+                     "library_ms": tot["library_ms"]})
+    rows[0]["variants"] = ph15["conv_variants"]
+    rows[1]["library_best_ms"] = ph15["attn_tot"]["library_best_ms"]
+    rows[1]["library_best"] = ph15["attn_tot"]["library_best"]
+    # one call at (4, 1024, 64), off the path (no launches there)
+    t = ph15["t1024"]
+    rows[1]["t1024"] = {"shape": [4, 1024, 64], "max_abs_err": ph15["t1024_err"],
+                        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                             "library_best_ms", "library_best", "simt_ms")},
+                        "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"}
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=PHASE6_STEPS,
@@ -2976,6 +3204,10 @@ def main() -> None:
     ap.add_argument("--phase14", action="store_true",
                     help="run phase 14 (multi-card) alone, after the device and the build, against "
                          "one-card batch-4 runs of its own; prints no kernel line")
+    ap.add_argument("--phase15", action="store_true",
+                    help="run phase 15 (the 512² configuration, the evaluation entry points) "
+                         "alone, after the device and the build; prints its kernel rows, not "
+                         "the line")
     args = ap.parse_args()
     if args.images < 1 or args.adapt_images < 1 or args.adapt_steps < 2 or args.dps_steps < 6:
         raise SystemExit("chip_smoke: --images and --adapt-images must be at least 1, "
@@ -3035,6 +3267,14 @@ def main() -> None:
         multicard_phase(one_card, multicard_dir)
         log(smi.splitlines()[0])
         log(f"phase 14 alone: every gate held; whole run {time.perf_counter() - t_all:.1f} s")
+        return
+    if args.phase15:
+        work = os.path.join(REPO, "build", "chip_smoke_512")
+        ph15 = phase_512_and_eval(F, P, torch.Generator(device="cuda").manual_seed(0), work)
+        shutil.rmtree(work, ignore_errors=True)
+        log("phase 15 kernel rows: " + json.dumps(kernel_rows_512(ph15)))
+        log(smi.splitlines()[0])
+        log(f"phase 15 alone: every gate held; whole run {time.perf_counter() - t_all:.1f} s")
         return
 
     # ---- 3. kernels at the UNet's shapes
@@ -3696,7 +3936,11 @@ def main() -> None:
     # ---- 14. the multi-card paths: training, conditional and adapted sampling sharded over ranks
     mc = multicard_phase(multi["one_card"], multicard_dir)
 
-    # ---- 15. kernel summary, device line
+    # ---- 15. the 512² configuration and the evaluation entry points
+    ph15 = phase_512_and_eval(F, P, gen, os.path.join(REPO, "build", "chip_smoke_512"))
+    shutil.rmtree(os.path.join(REPO, "build", "chip_smoke_512"), ignore_errors=True)
+
+    # ---- 16. kernel summary, device line
     src = "diffusion_models_dev_project_tpu_torch/csrc/"
     conv_src = {"tc": src + "conv3x3_tc.cu", "narrow": src + "conv3x3.cu", "simt": src + "conv3x3.cu"}
     kernels = []
@@ -3806,6 +4050,7 @@ def main() -> None:
     kernels[0]["aapm_unet"] = dict(aapm["aapm_unet"]["conv"],
                                    launches=aapm["aapm_unet"]["counts"]["conv_fwd"],
                                    variants=aapm["aapm_unet"]["conv_variants"])
+    kernels.extend(kernel_rows_512(ph15))
     log(f"(kernel times are per UNet forward: the sum over its calls at their shapes; "
         f"whole run {time.perf_counter() - t_all:.1f} s)")
     log(smi.splitlines()[0])                # the card again, for readers of the output's tail

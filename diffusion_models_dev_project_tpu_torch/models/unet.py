@@ -62,7 +62,7 @@ from ..ops.attention import attention
 from ..ops.conv3x3 import conv3x3
 
 __all__ = ["LoRAConv", "LoRADense", "UNetModel", "UNetConfig", "build_arch_spec",
-           "timestep_embedding", "create_model_config", "group_norm32"]
+           "count_params", "timestep_embedding", "create_model_config", "group_norm32"]
 
 
 # ----------------------------------------------------------------- config
@@ -591,3 +591,13 @@ class UNetModel(nn.Module):
         if cfg.out_channels == 2:            # learn_sigma: the mean channel
             return h[..., :1]
         return h
+
+
+def count_params(params) -> int:
+    """The number of values in `params`: a module's parameters, a state_dict
+    or any iterable of tensors or arrays (JAX `count_params` of a tree)."""
+    if isinstance(params, nn.Module):
+        params = params.parameters()
+    elif isinstance(params, dict):
+        params = params.values()
+    return sum(math.prod(p.shape) for p in params)

@@ -112,17 +112,32 @@ def split_adapt_params(model: torch.nn.Module, impl: str = "lora"
 
 
 def init_lora(model: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """A fresh LoRA state for `model` (JAX `init_lora`): every `down` drawn
-    from N(0, 1/r²) with numpy's generator of `seed`, every `up` 0, so the
-    branches start as exact no-ops.  fp32, on the model's device."""
+    """A fresh LoRA state for `model`, the values of JAX `init_lora`: every
+    `down` drawn from N(0, 1/r²) with numpy's generator of `seed`, every `up`
+    0, so the branches start as exact no-ops.  The draws follow the JAX
+    `lora` tree: its leaves in sorted path order ((module, ..., "down" |
+    "up"), the flax module names of `models/unet.py`), each `down` drawn in
+    the flax layout (3x3 HWIO (3, 3, Cin, r), 1x1 (1, 1, Cin, r), dense
+    (Cin, r)) and laid out as the port holds it (`models/convert.py::
+    lora_from_flax`).  fp32, on the model's device."""
     rng = np.random.default_rng(seed)
+    mods = {tuple(name.split(".")): mod for name, mod in model.named_modules()
+            if isinstance(mod, (LoRAConv, LoRADense))}
     out = {}
-    for name, mod in model.named_modules():
-        if isinstance(mod, (LoRAConv, LoRADense)):
-            rank = mod.up.shape[1]
-            down = rng.normal(0.0, 1.0 / rank, tuple(mod.down.shape)).astype(np.float32)
-            out[f"{name}.down"] = torch.from_numpy(down).to(mod.down.device)
-            out[f"{name}.up"] = torch.zeros(tuple(mod.up.shape), device=mod.up.device)
+    for path in sorted(p + (leaf,) for p in mods for leaf in ("down", "up")):
+        mod = mods[path[:-1]]
+        name = ".".join(path)
+        if path[-1] == "up":
+            out[name] = torch.zeros(tuple(mod.up.shape), device=mod.up.device)
+            continue
+        rank = mod.up.shape[1]
+        if mod.down.ndim == 4:                    # 3x3: HWIO in both
+            down = rng.normal(0.0, 1.0 / rank, tuple(mod.down.shape))
+        else:                                     # 1x1 conv (1, 1, Cin, r), dense (Cin, r)
+            flax_shape = ((1, 1) if isinstance(mod, LoRAConv) else ()) + tuple(mod.down.shape[::-1])
+            down = rng.normal(0.0, 1.0 / rank, flax_shape).reshape(mod.down.shape[::-1]).T
+        out[name] = torch.from_numpy(np.ascontiguousarray(down, dtype=np.float32)).to(
+            mod.down.device)
     return out
 
 

@@ -5,7 +5,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "synchronize"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -26,3 +26,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on `device` (a no-op off CUDA): the entry
+    points time their images between two of these."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

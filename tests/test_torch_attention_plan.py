@@ -2,9 +2,13 @@
 emulation of the `mma` kernel, and head widths up to the port's limit.
 
 `plan` is what the wrapper hands the CUDA kernels, so it is checked on the
-flagship UNet's attention calls.  `attention_tiled_reference` carries out a
-`mma` plan step by step in PyTorch (bf16 operands, S from unscaled q and k,
-exp2 with the folded scale, P rounded to bf16, key splits merged in order);
+flagship UNet's attention calls, on the 512² configuration's (its attention
+runs at the 16² and 8² maps, `attention_resolutions` "16" naming the map
+size: the flagship's shapes), and at (4, 1024, 64), the regime in which the
+JAX UNet would pick its Pallas flash kernel (1024 tokens or more).
+`attention_tiled_reference` carries out a `mma` plan step by step in
+PyTorch (bf16 operands, S from unscaled q and k, exp2 with the folded
+scale, P rounded to bf16, key splits merged in order);
 it is held against the port's plain version and the JAX package's Pallas
 kernel (`interpret=True`, as the JAX package's own tests run it) on inputs
 from numpy with a fixed seed.
@@ -31,15 +35,17 @@ def _bf16(a):
 
 
 # ------------------------------------------------------------- torch halves
-def _flagship_attention_shapes():
-    """(B·heads, T, d, dtype) of each attention call of one flagship 256²
-    forward, traced on the meta device with the kernels' wrappers stubbed out."""
+def _flagship_attention_shapes(image_size=256):
+    """(B·heads, T, d, dtype) of each attention call of one forward of the
+    flagship's bf16 UNet (or the config's at another size), traced on the
+    meta device with the kernels' wrappers stubbed out."""
     import torch
 
     from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import get_config
     from diffusion_models_dev_project_tpu_torch.models import unet as U
 
     config = get_config("vesde")
+    config.model.image_size = image_size
     config.model.num_channels = 128
     config.model.dtype = "bfloat16"
     seen = []
@@ -54,7 +60,7 @@ def _flagship_attention_shapes():
     cfg = U.create_model_config(config.model)
     with torch.device("meta"):
         model = U.UNetModel(cfg).to(cfg.torch_dtype)
-        model(torch.empty(1, 256, 256, 1), torch.empty(1))
+        model(torch.empty(1, image_size, image_size, 1), torch.empty(1))
     return seen
 
 
@@ -94,6 +100,23 @@ def plan_on_the_flagship_calls():
                  (8, 256, 64, torch.bfloat16, "wgmma")):
         with pytest.raises(ValueError):
             A.plan(*args)
+
+
+def plan_on_the_512_calls(**arrays):
+    """The 512² configuration's four attention calls are the flagship's;
+    at (4, 1024, 64) `mma` takes 4 key splits of 4 rounds of tiles, 16 query
+    rows a block, grid (64, 4); and the plan's emulation at that shape."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
+
+    assert _flagship_attention_shapes(512) == _flagship_attention_shapes(256)
+    p = A.plan(4, 1024, 64, torch.bfloat16)
+    assert p == A.Plan("mma", 4, 4, 64, 64, (64, 4))
+    assert -(-1024 // p.key_tile) // p.key_splits == 4          # key tiles a warp
+    q, k, v = (torch.from_numpy(arrays[n]) for n in "qkv")
+    return {"tiled": A.attention_tiled_reference(q, k, v, p).float().numpy(),
+            "ref": A.attention_reference(q, k, v).numpy()}
 
 
 def mma_emulation(**arrays):
@@ -148,6 +171,22 @@ from diffusion_models_dev_project_tpu.ops.attention import flash_attention  # no
 
 def test_plan_on_the_flagship_attention_calls_and_its_limits(tmp_path):
     child.run(__file__, "plan_on_the_flagship_calls", tmp_path)
+
+
+def test_plan_at_512_and_at_1024_tokens_and_its_emulation_match_pallas(tmp_path):
+    """The 512² configuration's calls, and at (4, 1024, 64) the plan and its
+    emulation against the port's plain attention and the Pallas flash kernel
+    in interpret mode."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_bf16(rng.normal(size=(4, 1024, 64)).astype(np.float32)) for _ in range(3))
+    pending = child.start(__file__, "plan_on_the_512_calls", tmp_path, q=q, k=k, v=v)
+    pallas = np.asarray(flash_attention(*(jnp.asarray(a) for a in (q, k, v)), interpret=True))
+    out = pending.result()
+    # as in the test below: bf16 inputs, the emulation rounds P and its output to bf16
+    for other in (out["ref"], pallas):
+        assert np.abs(out["tiled"] - other).max() <= 1e-2 * np.abs(other).max()
+    # fp32 on both sides, sums of 1024 products in another order
+    np.testing.assert_allclose(out["ref"], pallas, rtol=2e-4, atol=2e-5)
 
 
 def test_mma_emulation_matches_reference_and_pallas(tmp_path):

@@ -1,7 +1,8 @@
 """The port's conv3x3 plan (variant, tiling, split of K) and its CPU emulation.
 
 `plan` is what the wrapper hands the CUDA kernels, so it is checked here on
-every conv shape of the flagship UNet.  `conv3x3_tiled_reference` carries
+every conv shape of the flagship UNet, and of the 512² configuration's
+(channel_mult (0.5, 1, 1, 2, 2, 4, 4)) at 128 and at 64 channels.  `conv3x3_tiled_reference` carries
 out a `tc` plan step by step in PyTorch (zero-filled boxes, fp32 partials
 per split, then the reduction); it is held against the port's plain version
 and the JAX package's Pallas kernel, run as the JAX package's own tests run
@@ -24,16 +25,18 @@ EMULATED = [(2, 8, 8, 64, 64, None, 8), (1, 12, 20, 128, 192, None, 4),
 
 
 # ------------------------------------------------------------- torch halves
-def _flagship_conv_shapes():
-    """(x shape, Cout, dtype) of each conv3x3 call of one flagship 256² forward,
-    traced on the meta device with the kernels' wrappers stubbed out."""
+def _flagship_conv_shapes(image_size=256, channels=128):
+    """(x shape, Cout, dtype) of each conv3x3 call of one forward of the
+    flagship's bf16 UNet (or the config's at another size and width), traced
+    on the meta device with the kernels' wrappers stubbed out."""
     import torch
 
     from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import get_config
     from diffusion_models_dev_project_tpu_torch.models import unet as U
 
     config = get_config("vesde")
-    config.model.num_channels = 128
+    config.model.image_size = image_size
+    config.model.num_channels = channels
     config.model.dtype = "bfloat16"
     seen = []
 
@@ -47,8 +50,24 @@ def _flagship_conv_shapes():
     cfg = U.create_model_config(config.model)
     with torch.device("meta"):
         model = U.UNetModel(cfg).to(cfg.torch_dtype)
-        model(torch.empty(1, 256, 256, 1), torch.empty(1))
+        model(torch.empty(1, image_size, image_size, 1), torch.empty(1))
     return seen
+
+
+def _check_tc_plans(shapes, plans):
+    """The `tc` tiling invariants of each `tc` plan of `shapes`."""
+    for ((b, h, w, cin), cout, dt), p in zip(shapes, plans):
+        if p.variant != "tc":
+            continue
+        ht, wt = p.box
+        assert ht * wt == p.bm and p.bm in (64, 128) and wt <= 256 and ht <= 256
+        assert h % ht == 0 and w % wt == 0            # the boxes tile the image exactly
+        assert p.tiles == b * (h // ht) * (w // wt) * (-(-cout // p.bn))
+        assert p.k_steps == 9 * cin // 64
+        # every split has at least one K step, and together they take them all
+        assert (p.splits - 1) * p.steps_per_split < p.k_steps <= p.splits * p.steps_per_split
+        assert p.tiles * p.splits >= 100 or p.splits == p.k_steps, (h, cin, cout, p)
+        assert p.workspace_bytes == (4 * p.splits * b * h * w * cout if p.splits > 1 else 0)
 
 
 def plan_on_every_flagship_conv():
@@ -62,18 +81,7 @@ def plan_on_every_flagship_conv():
     by_variant = {v: sum(p.variant == v for p in plans) for v in C.VARIANTS}
     assert by_variant == {"tc": 60, "narrow": 1, "simt": 1}
     assert [xs[-1] for (xs, _, _), p in zip(shapes, plans) if p.variant == "simt"] == [1]
-    for ((b, h, w, cin), cout, dt), p in zip(shapes, plans):
-        if p.variant != "tc":
-            continue
-        ht, wt = p.box
-        assert ht * wt == p.bm and p.bm in (64, 128) and wt <= 256 and ht <= 256
-        assert h % ht == 0 and w % wt == 0            # the boxes tile the image exactly
-        assert p.tiles == b * (h // ht) * (w // wt) * (-(-cout // p.bn))
-        assert p.k_steps == 9 * cin // 64
-        # every split has at least one K step, and together they take them all
-        assert (p.splits - 1) * p.steps_per_split < p.k_steps <= p.splits * p.steps_per_split
-        assert p.tiles * p.splits >= 100 or p.splits == p.k_steps, (h, cin, cout, p)
-        assert p.workspace_bytes == (4 * p.splits * b * h * w * cout if p.splits > 1 else 0)
+    _check_tc_plans(shapes, plans)
     # forced choices that cannot run raise; the measurement override takes simt anywhere
     with pytest.raises(ValueError):
         C.plan(1, 8, 8, 512, 512, torch.float32, variant="tc")
@@ -83,6 +91,37 @@ def plan_on_every_flagship_conv():
         C.plan(1, 8, 8, 512, 512, torch.bfloat16, variant="narrow")
     assert C.plan(1, 8, 8, 512, 512, torch.bfloat16, variant="simt").variant == "simt"
     assert C.plan(1, 8, 8, 1024, 512, torch.bfloat16, splits=144).steps_per_split == 1
+
+
+def plan_on_every_512_conv():
+    """The 512² configuration: at 128 channels a 64-channel 512² level, on
+    `tc` like every conv but the stem (Cin 1: `simt`) and the final conv
+    (Cout 1: `narrow`); at 64 channels its 32-channel convs go to `simt`."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    for channels in (128, 64):
+        shapes = _flagship_conv_shapes(512, channels)
+        plans = [C.plan(*xs, cout, dt) for xs, cout, dt in shapes]
+        by_variant = {v: sum(p.variant == v for p in plans) for v in C.VARIANTS}
+        off_tc = [(xs[-1], cout) for (xs, cout, _), p in zip(shapes, plans) if p.variant != "tc"]
+        assert len(shapes) == 72 and by_variant["narrow"] == 1
+        assert all(dt == torch.bfloat16 for _, _, dt in shapes[:-1])
+        assert shapes[-1][1:] == (1, torch.float32)                  # the final conv
+        assert {xs[1] for xs, _, _ in shapes} == {512, 256, 128, 64, 32, 16, 8}
+        # off tc exactly where Cin or Cout is no multiple of 64
+        assert off_tc == [(xs[-1], cout) for xs, cout, _ in shapes
+                          if xs[-1] % 64 or cout % 64]
+        if channels == 128:
+            assert by_variant == {"tc": 70, "narrow": 1, "simt": 1}
+            assert off_tc == [(1, 64), (64, 1)]
+        else:
+            assert by_variant == {"tc": 60, "narrow": 1, "simt": 11}
+        _check_tc_plans(shapes, plans)
+        # the 512² map at 64 channels: full 128-pixel tiles, one split
+        p = C.plan(1, 512, 512, 64, 64, torch.bfloat16)
+        assert p.variant == "tc" and p.bm == 128 and p.splits == 1 and p.tiles == 2048
 
 
 def tiled_emulation(**arrays):
@@ -139,6 +178,10 @@ from diffusion_models_dev_project_tpu.ops.conv3x3 import conv3x3_same  # noqa: E
 
 def test_plan_on_every_flagship_conv(tmp_path):
     child.run(__file__, "plan_on_every_flagship_conv", tmp_path)
+
+
+def test_plan_on_every_512_conv(tmp_path):
+    child.run(__file__, "plan_on_every_512_conv", tmp_path)
 
 
 def test_tiled_emulation_matches_reference_and_pallas(tmp_path):

@@ -1,5 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package, CUDA by default.
 
+The evaluation entry points (`scripts/eval_flagship_256.py`,
+`eval_adapted_256.py`, `smoke_512.py`) are among the modules checked.
+
 The card's machine has torch, numpy and scipy but no jax, flax, msgpack,
 ml_collections, yaml or PIL, so the port, chip_smoke.py, adapted_spread.py,
 conditional_probe.py, wgrad_probe.py and walnut_probe.py import none of
@@ -52,7 +55,9 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
         "configs.walnut_configs", "sampling.predictors", "sampling.engine",
         "run_score_based_models_train", "training.losses", "training.ema", "training.trainer",
         "utils.checkpoint", "parallel.mesh", "parallel.launch", "utils.kvlogger",
-        "utils.profiling", "utils.flops", "models.torch_convert")} <= set(modules)
+        "utils.profiling", "utils.flops", "models.torch_convert", "physics.simulation",
+        "scripts.eval_flagship_256", "scripts.eval_adapted_256",
+        "scripts.smoke_512")} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         f"for name in {ABSENT!r}:",
@@ -112,6 +117,15 @@ def entry_points_want_cuda():
         TF.get_standard_ray_trafo(config)
     with pytest.raises(RuntimeError, match="CUDA"):
         TF.get_standard_score(config, TF.get_standard_sde(config), load_model=False)
+    # the evaluation entry points too, unless given --device cpu
+    from diffusion_models_dev_project_tpu_torch.scripts import (eval_adapted_256, eval_flagship_256,
+                                                                smoke_512)
+
+    for script in (eval_flagship_256, eval_adapted_256):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            script.main(["--ckpt", "checkpoints/flagship_vesde_256_ema.msgpack.npz"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smoke_512.main(["--num_steps", "1"])
     trafo = TF.get_standard_ray_trafo(config, device="cpu")
     assert trafo.device.type == "cpu" and trafo.obs_shape == (6, 47)
     assert resolve_device("cpu") == torch.device("cpu")

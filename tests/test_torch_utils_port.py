@@ -17,6 +17,10 @@
   `convert_torch_state_dict` result mapped through the port's
   `params_from_flax`, exactly; `factory.get_standard_score` reads the same
   weights from a `.pt` file;
+- `physics/simulation.py::SimulatedDataset`: without noise the triplets of
+  the JAX package's, with noise the same triplet on every read of an
+  index, another per index, of std rel · mean|Ax|; `models/unet.py::
+  count_params` of the tiny UNet equals JAX `count_params` of its tree;
 - `parallel/mesh.py`: outside a process group, a mesh over the one device,
   and ValueError for more (a mesh over several devices takes one process
   per device: tests/test_torch_parallel.py); `train_score_model` refuses
@@ -145,6 +149,40 @@ def utils_half(workdir, x, t, jax_tree, **arrays):
     return out
 
 
+def simulation_and_count(images, **_):
+    """`SimulatedDataset` triplets without and with noise, and the tiny
+    UNet's parameter count (module and state_dict)."""
+    import torch
+
+    import diffusion_models_dev_project_tpu_torch.factory as TF
+    from diffusion_models_dev_project_tpu_torch.configs.disk_ellipses_configs import get_config
+    from diffusion_models_dev_project_tpu_torch.models.unet import count_params
+    from diffusion_models_dev_project_tpu_torch.physics.simulation import SimulatedDataset
+
+    c = _tiny(get_config)
+    c.forward_op.num_angles = 20
+    trafo = TF.get_standard_ray_trafo(c, device="cpu")
+    out = {}
+    clean = SimulatedDataset(list(images), trafo, white_noise_rel_stddev=0.0, seed=3)
+    assert len(clean) == len(images)
+    for i, (y, x, fbp) in enumerate(clean):
+        out[f"clean{i}_y"], out[f"clean{i}_x"], out[f"clean{i}_fbp"] = (
+            a.numpy() for a in (y, x, fbp))
+    noisy = SimulatedDataset(list(images), trafo, white_noise_rel_stddev=0.05, seed=3)
+    y0, y0b, y1 = noisy[0][0], noisy[0][0], noisy[1][0]
+    assert torch.equal(y0, y0b) and not torch.equal(y1, clean[1][0])
+    for i, y in enumerate((y0, y1)):
+        clean_y = clean[i][0]
+        out[f"noise{i}"] = (y - clean_y).numpy()
+        out[f"level{i}"] = np.array(0.05 * clean_y.abs().mean().item())
+    assert not torch.equal(noisy[0][0], SimulatedDataset(list(images), trafo, 0.05, seed=4)[0][0])
+    model, state, _ = TF.get_standard_score(c, TF.get_standard_sde(c), load_model=False,
+                                            device="cpu")
+    out["count"] = np.array([count_params(model), count_params(state),
+                             count_params(list(state.values()))])
+    return out
+
+
 if __name__ == "__main__":
     child.main(globals())
 
@@ -235,3 +273,32 @@ def test_pt_checkpoint_converts_as_the_jax_converter(utils_pair, form):
 
 def test_mesh_holds_one_device_and_refuses_more(utils_pair):
     assert bool(utils_pair["out"]["mesh_one_device"])
+
+
+def test_simulated_dataset_and_count_params_match_jax(tmp_path):
+    from diffusion_models_dev_project_tpu.models.unet import count_params as jcount
+    from diffusion_models_dev_project_tpu.physics.simulation import SimulatedDataset as JDS
+
+    rng = np.random.default_rng(92)
+    images = np.zeros((2, 32, 32, 1), np.float32)
+    images[0, 6:20, 8:24] = 1.0
+    images[1, 10:28, 4:16] = rng.uniform(0.2, 1.0)
+    pending = child.start(__file__, "simulation_and_count", tmp_path, images=images)
+    jc = _tiny(jget)
+    jc.forward_op.num_angles = 20
+    _, params, _ = JF.get_standard_score(jc, JF.get_standard_sde(jc), load_model=False)
+    clean = JDS(list(images), JF.get_standard_ray_trafo(jc), white_noise_rel_stddev=0.0, seed=3)
+    out = pending.result()
+    for i, (y, x, fbp) in enumerate(clean):
+        np.testing.assert_array_equal(out[f"clean{i}_x"], np.asarray(x))
+        for name, ref in (("y", y), ("fbp", fbp)):
+            ref = np.asarray(ref)
+            # fp32 operators on both sides, sums in another order
+            assert np.abs(out[f"clean{i}_{name}"] - ref).max() <= 2e-5 * np.abs(ref).max()
+    for i in range(2):
+        # white noise of the stated level: the sample std of ~940 draws lies
+        # within 10% of it, its mean within 0.15 of it
+        noise, level = out[f"noise{i}"], float(out[f"level{i}"])
+        assert abs(noise.std() / level - 1) < 0.1 and abs(noise.mean()) < 0.15 * level
+    assert np.abs(out["noise0"] - out["noise1"]).max() > 0
+    assert out["count"].tolist() == [jcount(params)] * 3
