@@ -50,7 +50,10 @@ points (`scripts/`):
    beside the plain twin, cuDNN's `conv2d_weight` and the bound, with the
    split-K reduction timed alone; per batch-3 backward the stem's and
    final conv's narrow kernels together must be no slower than cuDNN on
-   those two shapes, and `tc`'s ratio to cuDNN on its shapes is printed;
+   those two shapes, and `tc`'s ratio to cuDNN on its shapes is printed.
+   Heads past 256 (`WIDE_HEADS`, d = 320 and 512, fp32 and bf16): the
+   chunked `simt` forward and backward against the plain versions, bitwise
+   equal over two launches, each call a `simt` launch, timed beside SDPA;
 4. UNet: one full-width forward of the shipped VESDE prior at 256², batch 1,
    with the kernels against `use_kernel=False`;
 5. gradient: the same prior with LoRA rank 4 (up-projections drawn nonzero),
@@ -139,10 +142,14 @@ points (`scripts/`):
    share (graph replay, and profiler traces of `SHARD_TRACE_STEPS` outer
    steps) and peak memory;
 12. walnut: the cone-beam walnut protocol at full scale on the synthetic
-   centred CWI orbit (501² slice, 60 angles x 128 columns): the mask probe
+   centred CWI orbit (501² slice, 60 angles x 128 columns; the port's
+   `scripts/_walnut_common.py`): the mask probe
    on the card, the native assembly (its rows held to the plain numpy
    assembly on 256 random rays), the `.mat` round trip (bit-equal), the
-   dense model-grid operator formed on the card, FDK; gates: ELL forward
+   dense model-grid operator formed on the card, FDK; the port's
+   `scripts/walnut_full_scale.py` in-process without `--ckpt` on the same
+   work directory (its `.mat` and dense cache loaded, its FDK equal to this
+   phase's to 1e-6 dB); gates: ELL forward
    against dense, the dense adjoint, the Woodbury residual; device times of
    apply, adjoint, CG(5), the Woodbury step and S⁻¹'s build beside their
    bounds; then DDS with the shipped prior (`WALNUT_STEPS` = the
@@ -153,7 +160,10 @@ points (`scripts/`):
    rest;
 12b. walnut adapted: the LoRA adaptation loss's full-width gradient through
    the dense operator, kernels against plain with phase 5's gates, then a
-   cut 5 x 3 adapted run (PSNR printed, not gated), launch counts exact;
+   cut 5 x 3 adapted run through the port's `scripts/walnut_adapted.py`
+   in-process with the script's defaults (`--sde vesde`, the prior the copy
+   holds; CG(5) in the loss, no CG in the step; PSNR printed, not gated),
+   launch counts exact;
 13. AAPM: synthetic slices (scripts/make_synth_aapm.py, run, not edited);
    DDS through the conditional CLI (`--dataset aapm`, ellipse prior,
    `AAPM_STEPS` = 100 of the protocol's 1000 steps, η 0.85) better than FBP; DDS through the parallel-beam matrix
@@ -208,7 +218,9 @@ Usage: python3 chip_smoke.py [--steps N] [--images N] [--adapt-steps N] [--adapt
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -1228,6 +1240,75 @@ def check_attention_backward(shapes, gen):
         raise AssertionError("attention backward: the path is not all mma, or mma takes more than "
                              "a third of the simt design's time or no less than its plain twin's")
     return tot, max_abs, by_variant
+
+
+# heads past MAX_HEAD_DIM (off every shipped path): the chunked simt forward
+# and backward, 2 column chunks of 256 each
+WIDE_HEADS = [((4, 256, d), dt) for d in (320, 512) for dt in ("float32", "bfloat16")]
+
+
+def check_attention_wide(gen):
+    """Attention at heads past 256 (`WIDE_HEADS`): the chunked `simt` forward
+    and backward kernels against the plain versions at the attention
+    tolerances, bitwise equal over two launches, each call counted as a
+    `simt` launch (no fallback); timed beside the plain versions, SDPA as
+    dispatched by default (its backward: forward and backward captured
+    together, less the forward) and the bound.  Returns a row per shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
+
+    rows = []
+    log(f"{'attention, wide heads':>28} {'dtype':>8} {'pass':>8} {'chunks':>6} {'kernel_ms':>10} "
+        f"{'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} {'bound_by':>10} {'rel_err':>9}")
+    for shape, dt in WIDE_HEADS:
+        bh, t, dd = shape
+        tdt = getattr(torch, dt)
+        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(tdt) for _ in range(4))
+        p, bp = A.plan(bh, t, dd, tdt), A.backward_plan(bh, t, dd, tdt)
+        if not (p.variant == bp.variant == "simt" and p.chunks == bp.chunks == 2):
+            raise AssertionError(f"attention {shape} {dt}: plans {p}, {bp}")
+        f0, b0 = A.launches_by_variant["simt"], A.backward_launches_by_variant["simt"]
+        out, again = A.attention(q, k, v), A.attention(q, k, v)
+        grads = A.attention_backward(q, k, v, out, g)
+        grads2 = A.attention_backward(q, k, v, out, g)
+        torch.cuda.synchronize()
+        if (A.launches_by_variant["simt"] - f0, A.backward_launches_by_variant["simt"] - b0) != (2, 2):
+            raise AssertionError(f"attention {shape} {dt}: the simt kernels did not launch")
+        ref = A.attention(q, k, v, use_kernel=False)
+        gref = A.attention_backward_reference(q, k, v, out, g)
+        d_f, r_f = rel_err(out, ref)
+        errs = [rel_err(a, b) for a, b in zip(grads, gref)]
+        d_b, r_b = max(e[0] for e in errs), max(e[1] for e in errs)
+        same = torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+        finite = torch.isfinite(out).all() and all(torch.isfinite(a).all() for a in grads)
+        if not (finite and same and r_f <= TOL[dt] and r_b <= TOL[dt]):
+            raise AssertionError(f"attention {shape} {dt}: rel err forward {r_f:.3e}, backward "
+                                 f"{r_b:.3e} (tol {TOL[dt]}), or two launches differ")
+        q4, k4, v4 = (a.view(1, bh, t, dd).detach().requires_grad_() for a in (q, k, v))
+        g4 = g.view(1, bh, t, dd)
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
+        sdpa_both = time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), g4), 20)
+        row = {"shape": list(shape), "dtype": dt, "chunks": p.chunks}
+        for name, fn, plain, flops, nbytes, d, r, lib in (
+                ("forward", lambda: A.attention(q, k, v),
+                 lambda: A.attention(q, k, v, use_kernel=False), 4.0 * bh * t * t * dd,
+                 4.0 * q.numel() * q.element_size(), d_f, r_f, sdpa_fwd),
+                ("backward", lambda: A.attention_backward(q, k, v, out, g),
+                 lambda: A.attention_backward_reference(q, k, v, out, g), 10.0 * bh * t * t * dd,
+                 8.0 * q.numel() * q.element_size(), d_b, r_b, sdpa_both - sdpa_fwd)):
+            k_ms, p_ms = time_ms(fn, 20), time_ms(plain, 10)
+            b_ms, b_by, _, _ = bound(flops, nbytes, dt)
+            row[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=d)
+            log(f"{str(shape):>28} {dt:>8} {name:>8} {p.chunks:>6} {k_ms:>10.4f} {p_ms:>9.4f} "
+                f"{lib:>10.4f} {b_ms:>9.5f} {b_by:>10} {r:>9.2e}")
+        rows.append(row)
+    log("attention past 256: the chunked simt forward and backward agree with the plain "
+        "versions, bitwise equal over two launches")
+    return rows
 
 
 def adapted_phantoms(images):
@@ -2494,16 +2575,9 @@ def multicard_phase(one_card, workdir):
 
 
 # ---- phases 12, 12b and 13: the walnut protocol, AAPM and the matrix operator
-# The walnut protocol (scripts/_walnut_common.py, copied: that module imports the
-# JAX package): the CWI scanner's magnification (source 66 mm from the centre,
-# detector 199 mm, 0.1496 mm pixels) on a synthetic circular orbit of 1200
-# angles, sub-sampled 20x in angle (60) and 6x in detector columns (128); the
-# orbit is centred, so the slice is the centre of a 9-slice slab against the 9
-# detector rows about the centre
-WALNUT_SOD, WALNUT_SDD, WALNUT_PIX = 66.0, 199.0, 0.1496
-WALNUT_ASS, WALNUT_CSS = 20, 6
-WALNUT_SLICE_CFG = dict(num_slices=9, slice_offset=0, num_proj_rows=9,
-                        first_proj_row=(972 - 9) // 2)
+# The walnut protocol's geometry and phantom are the port's
+# `scripts/_walnut_common.py` (the CWI scanner's magnification on a synthetic
+# centred orbit, 60 angles x 128 columns, the centre slice of a 9-slice slab)
 WALNUT_STDDEV = 0.05          # walnut_configs: relative noise of the observation
 WALNUT_GAMMA, WALNUT_ETA = 0.01, 0.85
 WALNUT_STEPS = 1000           # DDS steps of the walnut runs (the protocol's)
@@ -2520,27 +2594,13 @@ TOL_NATIVE = dict(rtol=1e-5, atol=1e-6)   # as tests/test_native.py
 TOL_WALNUT_ELL = 1e-5         # |A_ell x - A_dense x| / |A_ell x| at the model grid
 TOL_WALNUT_ADJ = 1e-5         # |<Ax, y> - <x, Aᵀy>| / |<Ax, y>| of the dense operator
 TOL_WOODBURY = 1e-4           # |(I + γAᵀA)x - (x̂₀ + γAᵀy)| / |x̂₀ + γAᵀy|
+# the entry points' FDK (dB) against this phase's: the same operator, seed and calls
+TOL_WALNUT_FDK = 1e-6
 WALNUT_ADAPT_STEPS, WALNUT_ADAPT_OPTIM = 5, 3    # the adapted walnut run, cut
 AAPM_SLICES = 24              # scripts/make_synth_aapm.py --n
 # DDS steps of the AAPM runs (protocol 1000), cut to keep the whole run inside
 # its time limit (PERF.md §4)
 AAPM_STEPS = 100
-
-
-def walnut_phantom(n=501):
-    """Walnut-like 2D phantom: shell, interior lobes, air gaps
-    (scripts/_walnut_common.py, copied)."""
-    yy, xx = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n), indexing="ij")
-    r2 = xx ** 2 + (yy * 1.15) ** 2
-    img = np.zeros((n, n), np.float32)
-    img[r2 < 0.72 ** 2] = 0.55                           # shell
-    img[r2 < 0.62 ** 2] = 0.25                           # interior
-    th = np.arctan2(yy, xx)
-    lobes = 0.28 * (np.cos(2 * th) ** 2) * (r2 < 0.55 ** 2)
-    img += lobes.astype(np.float32)
-    img[((xx - 0.15) ** 2 + yy ** 2) < 0.08 ** 2] = 0.02  # air pocket
-    img[(xx ** 2 + (yy + 0.3) ** 2) < 0.05 ** 2] = 0.02
-    return np.clip(img, 0, 1)
 
 
 def psnr_ssim(x, gt, clamp=True):
@@ -2603,6 +2663,9 @@ def walnut_phase(F, P, model_args, steps, gen, gate=True):
     from diffusion_models_dev_project_tpu_torch.physics import cone_beam as CB
     from diffusion_models_dev_project_tpu_torch.physics import walnut as W
     from diffusion_models_dev_project_tpu_torch.physics.ray_trafo import nearest_resize
+    from diffusion_models_dev_project_tpu_torch.scripts import _walnut_common as WC
+    from diffusion_models_dev_project_tpu_torch.scripts import walnut_adapted as WA
+    from diffusion_models_dev_project_tpu_torch.scripts import walnut_full_scale as WF
 
     config, config32, sde, score_fn = model_args
     out = {}
@@ -2611,11 +2674,10 @@ def walnut_phase(F, P, model_args, steps, gen, gate=True):
     try:
         # ---- 12. operator: mask probe on the card, native assembly, .mat, densify, FDK
         t0 = time.perf_counter()
-        vecs = CB.circular_cone_vecs(1200, WALNUT_SOD, WALNUT_SDD - WALNUT_SOD,
-                                     (WALNUT_PIX, WALNUT_PIX))
+        vecs = WC.walnut_vecs()
         ts = time.perf_counter()
-        trafo3 = W.get_single_slice_ray_trafo(vecs, 1, 2, WALNUT_ASS, WALNUT_CSS,
-                                              WALNUT_SLICE_CFG, device="cuda")
+        trafo3 = W.get_single_slice_ray_trafo(vecs, 1, 2, WC.ASS, WC.CSS, WC.SLICE_CFG,
+                                              device="cuda")
         torch.cuda.synchronize()
         out["mask_s"] = time.perf_counter() - ts
         geom = trafo3.geom
@@ -2646,9 +2708,9 @@ def walnut_phase(F, P, model_args, steps, gen, gate=True):
             raise AssertionError("the native walnut rows disagree with the plain assembly")
         del plain, native
         # the .mat round trip, bit-equal
-        mat_file = os.path.join(work, W.matrix_filename(1, 2, WALNUT_ASS, WALNUT_CSS))
+        mat_file = os.path.join(work, W.matrix_filename(1, 2, WC.ASS, WC.CSS))
         ts = time.perf_counter()
-        W.save_masked_ray_trafo_matrix(mat_file, trafo3, matrix, 1, 2, WALNUT_ASS, WALNUT_CSS)
+        W.save_masked_ray_trafo_matrix(mat_file, trafo3, matrix, 1, 2, WC.ASS, WC.CSS)
         out["mat_save_s"] = time.perf_counter() - ts
         ts = time.perf_counter()
         loaded = W.load_masked_ray_trafo_matrix(mat_file)
@@ -2660,9 +2722,9 @@ def walnut_phase(F, P, model_args, steps, gen, gate=True):
             raise AssertionError("the walnut .mat round trip changed the matrix")
         del loaded
         # the operators through the entry point (it loads the .mat saved above)
-        kw = dict(walnut_id=1, orbit_id=2, angular_sub_sampling=WALNUT_ASS,
-                  proj_col_sub_sampling=WALNUT_CSS, new_shape=(256, 256), vecs_all=vecs,
-                  single_slice_config=WALNUT_SLICE_CFG, device="cuda")
+        kw = dict(walnut_id=1, orbit_id=2, angular_sub_sampling=WC.ASS,
+                  proj_col_sub_sampling=WC.CSS, new_shape=(256, 256), vecs_all=vecs,
+                  single_slice_config=WC.SLICE_CFG, device="cuda")
         rts = {}
         for impl in ("dense", "ell"):
             ts = time.perf_counter()
@@ -2692,12 +2754,31 @@ def walnut_phase(F, P, model_args, steps, gen, gate=True):
             raise AssertionError("the walnut operators disagree")
         del rts["ell"]
         # the observation of the phantom on the model grid, and FDK
-        gt501 = torch.from_numpy(walnut_phantom(501))[None, :, :, None].cuda()
+        gt501 = torch.from_numpy(WC.walnut_phantom(501))[None, :, :, None].cuda()
         gt_model = nearest_resize(gt501, (256, 256))
         g = torch.Generator(device="cuda").manual_seed(3)
         gt, obs, fdk = F.get_data_from_ground_truth(gt_model, rt, WALNUT_STDDEV, generator=g)
         out["fdk"] = psnr_ssim(fdk, gt, clamp=False)
         log(f"  walnut phantom on the model grid: FDK {out['fdk'][0]:.2f} dB / {out['fdk'][1]:.4f}")
+        # the port's entry point in-process, without --ckpt, on this work
+        # directory: the .mat and the dense cache load, and its FDK of the
+        # dense observation (the same generator seed) is this phase's
+        ts = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            ws = WF.main(["--workdir", work])
+        for line in printed.getvalue().splitlines():
+            log("  | " + line)
+        ws_fdk = ws["dense_run"]["fdk_psnr"]
+        out["entry"] = dict(seconds=time.perf_counter() - ts, fdk=ws_fdk, times=ws["times"],
+                            rel_diff=ws["rel_diff"])
+        del ws
+        log(f"  walnut_full_scale in-process (no --ckpt): {out['entry']['seconds']:.1f} s; its dense "
+            f"FDK {ws_fdk:.6f} dB, this phase's {out['fdk'][0]:.6f} dB (tol {TOL_WALNUT_FDK})")
+        if not (abs(ws_fdk - out["fdk"][0]) <= TOL_WALNUT_FDK
+                and "(.mat load)" in printed.getvalue()):
+            raise AssertionError("walnut_full_scale did not load this phase's .mat, or its FDK "
+                                 "differs from this phase's")
         # Woodbury: S⁻¹ once, then the residual of the exact solve
         sinv = build_woodbury_sinv(rt, WALNUT_GAMMA)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -2769,7 +2850,8 @@ def walnut_phase(F, P, model_args, steps, gen, gate=True):
                                  f"{agree:.3f} dB (> {WALNUT_AGREE_DB})")
         log(f"[phase 12 walnut dds] {time.perf_counter() - t0:.1f} s")
 
-        # ---- 12b. steerable (LoRA) adaptation through the dense operator
+        # ---- 12b. steerable (LoRA) adaptation through the dense operator: the
+        # full-width gradient's gates, then the run through walnut_adapted
         t0 = time.perf_counter()
         m16, _, _ = F.get_standard_score(config, sde, ckpt_path=CKPT, lora_rank=LORA_RANK)
         m32, _, _ = F.get_standard_score(config32, sde, ckpt_path=CKPT, lora_rank=LORA_RANK)
@@ -2781,7 +2863,6 @@ def walnut_phase(F, P, model_args, steps, gen, gate=True):
         lora = {n: (v if n.endswith(".down") else 0.01 * torch.randn(v.shape, generator=gen,
                                                                      device="cuda"))
                 for n, v in smp["bf16"].lora.items()}
-        start_lora = {n: v.clone() for n, v in smp["bf16"].lora.items()}
         for s_ in smp.values():
             s_.lora = lora
         tg = torch.full((1,), 0.5, device="cuda")
@@ -2795,33 +2876,41 @@ def walnut_phase(F, P, model_args, steps, gen, gate=True):
         loss_32k, g32k = adaptation_gradients(smp["fp32"], xg, tg, True)
         gradient_gates(gk, gp, g32, g32k, (loss_k, loss_p, loss_32, loss_32k),
                        f"walnut adaptation loss gradient through the dense operator, LoRA r={LORA_RANK}")
-        del smp["fp32"], m32, gk, gp, g32, g32k
-        sampler = smp["bf16"]
-        sampler.lora = start_lora                   # the protocol's own LoRA start
-        g = torch.Generator(device="cuda").manual_seed(11)
+        del smp, m16, m32, gk, gp, g32, g32k, lora
+        n = WALNUT_ADAPT_STEPS
         reset_counts()
         ts = time.perf_counter()
-        xa, _ = sampler.sample(generator=g)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            wa = WA.main(["--ckpt", CKPT, "--sde", "vesde", "--num_steps", str(n),
+                          "--num_optim_step", str(WALNUT_ADAPT_OPTIM), "--workdir", work])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - ts
         counts = read_counts()
-        n = WALNUT_ADAPT_STEPS
+        for line in printed.getvalue().splitlines():
+            log("  | " + line)
         check_counts(counts, n * (WALNUT_ADAPT_OPTIM + 2) + 1, n * WALNUT_ADAPT_OPTIM,
                      "the adapted walnut run")
-        out["adapted"] = dict(zip(("psnr", "ssim"), psnr_ssim(xa, gt)), wall_s=wall_s,
-                              counts=counts)
+        if not (np.isfinite(wa["recon"]).all() and wa["recon"].shape == (256, 256)
+                and abs(wa["fdk_psnr"] - out["fdk"][0]) <= TOL_WALNUT_FDK):
+            raise AssertionError("walnut_adapted: a reconstruction not finite or of another "
+                                 "shape, or its FDK is not this phase's")
+        out["adapted"] = dict(psnr=wa["psnr"], ssim=wa["ssim"], wall_s=wall_s,
+                              chain_s=wa["seconds"], counts=counts)
+        del wa
         # the matched-budget control: plain DDS of as many steps, same observation
         plain = F.get_standard_sampler("dds", score_fn, sde, rt, obs, num_steps=n,
                                        im_shape=(256, 256, 1), gamma=WALNUT_GAMMA,
                                        eta=WALNUT_ETA, cg_iter=5)
+        g = torch.Generator(device="cuda").manual_seed(7)
         out["plain_matched"] = psnr_ssim(plain.sample(generator=g)[0], gt)
-        log(f"  adapted walnut ({n} x {WALNUT_ADAPT_OPTIM}, LoRA r={LORA_RANK}, lr 1e-3, add_cg; "
-            f"a cut protocol, not gated): {out['adapted']['psnr']:.2f} dB / "
-            f"{out['adapted']['ssim']:.4f} SSIM | plain DDS {n} steps "
-            f"{out['plain_matched'][0]:.2f} dB / {out['plain_matched'][1]:.4f} | FDK "
-            f"{out['fdk'][0]:.2f} dB | {wall_s:.1f} s, {wall_s / n * 1e3:.0f} ms per outer step; "
-            f"launches " + json.dumps(counts))
-        del sampler, smp, m16
+        log(f"  adapted walnut through walnut_adapted ({n} x {WALNUT_ADAPT_OPTIM}, LoRA "
+            f"r={LORA_RANK}, lr 1e-3, CG(5) in the loss, no CG in the step; a cut protocol, not "
+            f"gated): {out['adapted']['psnr']:.2f} dB / {out['adapted']['ssim']:.4f} SSIM | plain "
+            f"DDS {n} steps {out['plain_matched'][0]:.2f} dB / {out['plain_matched'][1]:.4f} | FDK "
+            f"{out['fdk'][0]:.2f} dB | main {wall_s:.1f} s, the chain {out['adapted']['chain_s']:.1f} s, "
+            f"{out['adapted']['chain_s'] / n * 1e3:.0f} ms per outer step; launches "
+            + json.dumps(counts))
         log(f"[phase 12b walnut adapted] {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3301,6 +3390,7 @@ def main() -> None:
     conv_bwd_tot, conv_bwd_err, conv_bwd_variants, stem_bwd = check_conv_backward(seen["conv"], gen)
     wgrad_tots, wgrad_err, wgrad_variants = check_conv_wgrad(seen["conv"], gen)
     attn_bwd_tot, attn_bwd_err, attn_bwd_variants = check_attention_backward(seen["attn"], gen)
+    attn_wide = check_attention_wide(gen)
     log(f"[phase 3 kernels] {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. one full-width UNet forward, kernels against plain versions
@@ -4027,6 +4117,8 @@ def main() -> None:
             "launches": attn_by_variant[v], "ms": attn_ms[v], "bound_ms": attn_tot["bound_ms"],
             "library_ms": attn_tot["library_ms"]}
         for v in A.VARIANTS}
+    # simt past 256 (phase 3): no launch on any path, per call
+    kernels[1]["variants"]["simt"]["wide_heads"] = attn_wide
     # launches of the walnut DDS runs (cg and woodbury), and the AAPM UNet's
     # conv3x3 per forward (the 256-channel model)
     for kern, key in zip(kernels, ("conv_fwd", "attn_fwd")):

@@ -35,6 +35,16 @@
 // Tiles are staged in shared memory as fp32, zero-padded to DMAX channels
 // and to whole groups of 4 rows; rows past T get P = 0.  Loop bounds are the
 // same for the whole block, so the shuffles stay converged.
+//
+// Wider heads (d > 256, off every shipped path) run the `_wide` pair: the
+// same two passes with a third grid axis over column chunks of DC = 256.
+// A block accumulates dq (dk and dv) for its own chunk of columns only; the
+// logits and dP = dout v^T need the full d, so per tile of 16 keys (queries) the tile's chunks pass through
+// shared memory one after another while each thread adds its own row's
+// channels of the chunk, read from global memory, to 16 partial dot
+// products each; the tile's rows of the block's own chunk are staged last
+// for the accumulation.  Every chunk's block recomputes lse and D over the
+// full d; the first chunk's writes them for the key pass.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -276,6 +286,242 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- d > 256: column chunks of DC on grid axis z
+constexpr int DC = 256;     // columns per chunk
+constexpr int WBT = 16;     // keys (queries) per tile
+constexpr int WCPT = 16;    // channels per thread of a chunk
+constexpr int WTPR = DC / WCPT;
+constexpr int WROWS = NT / WTPR;
+
+// stage columns c0 .. c0+DC-1 of rows r0 .. r0+WBT-1 of a (T, D) matrix
+// (times `mul`) into S[WBT][DC]
+template <typename T>
+__device__ __forceinline__ void stage_chunk(float (*S)[DC], const T* __restrict__ src,
+                                            long long base, int r0, int c0, int Tn, int D,
+                                            float mul) {
+  for (int e = threadIdx.x; e < WBT * DC; e += NT) {
+    const int j = e / DC;
+    const int c = e - j * DC;
+    const int r = r0 + j;
+    S[j][c] = (r < Tn && c0 + c < D)
+                  ? load_f(src + base + static_cast<long long>(r) * D + c0 + c) * mul
+                  : 0.f;
+  }
+}
+
+// acc[j] += sum over this thread's channels of chunk c0 of a[row] * S[j]
+// (`a` read from global memory at `roff`, times `mul`; 0 past D or T)
+template <typename T>
+__device__ __forceinline__ void dot_chunk(float* acc, const float (*S)[DC],
+                                          const T* __restrict__ a, long long roff, bool live,
+                                          int c0, int part, int D, float mul) {
+#pragma unroll 4
+  for (int i = 0; i < WCPT; ++i) {
+    const int c = c0 + part + WTPR * i;
+    const float x = (live && c < D) ? load_f(a + roff + c) * mul : 0.f;
+#pragma unroll
+    for (int j = 0; j < WBT; ++j) acc[j] = fmaf(x, S[j][part + WTPR * i], acc[j]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+attention_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ o,
+                             const T* __restrict__ dout, T* __restrict__ dq,
+                             float* __restrict__ lse_out, float* __restrict__ delta_out,
+                             int Tn, int D, float scale) {
+  __shared__ float Ks[WBT][DC];
+  __shared__ float Vs[WBT][DC];
+
+  const int tid = threadIdx.x;
+  const int part = tid % WTPR;
+  const int qi = blockIdx.x * WROWS + tid / WTPR;
+  const bool live = qi < Tn;
+  const int cz = blockIdx.z * DC;
+  const long long base = static_cast<long long>(blockIdx.y) * Tn * D;
+  const long long roff = base + static_cast<long long>(qi) * D;
+
+  float delta = 0.f;
+  for (int c = part; c < D; c += WTPR)
+    if (live) delta += load_f(dout + roff + c) * load_f(o + roff + c);
+  delta = row_sum<WTPR>(delta);
+
+  // pass 1: the row's max and sum of exp over the full d, a tile at a time
+  float m = -INFINITY, l = 0.f;
+  for (int j0 = 0; j0 < Tn; j0 += WBT) {
+    float s[WBT];
+#pragma unroll
+    for (int j = 0; j < WBT; ++j) s[j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += DC) {
+      __syncthreads();
+      stage_chunk<T>(Ks, k, base, j0, c0, Tn, D, scale);
+      __syncthreads();
+      dot_chunk<T>(s, Ks, q, roff, live, c0, part, D, scale);
+    }
+    float tm = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < WBT; ++j) {
+      s[j] = row_sum<WTPR>(s[j]);
+      if (j0 + j >= Tn) s[j] = -INFINITY;     // past T: exp() gives 0
+      tm = fmaxf(tm, s[j]);
+    }
+    const float m_new = fmaxf(m, tm);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < WBT; ++j) sum += expf(s[j] - m_new);
+    l = l * expf(m - m_new) + sum;
+    m = m_new;
+  }
+  const float lse = m + logf(l);
+
+  // pass 2: dS per key from the full d; dq of this chunk += dS * (k * s)
+  float acc[WCPT];
+#pragma unroll
+  for (int i = 0; i < WCPT; ++i) acc[i] = 0.f;
+  for (int j0 = 0; j0 < Tn; j0 += WBT) {
+    float s[WBT], dp[WBT];
+#pragma unroll
+    for (int j = 0; j < WBT; ++j) s[j] = dp[j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += DC) {
+      __syncthreads();
+      stage_chunk<T>(Ks, k, base, j0, c0, Tn, D, scale);
+      stage_chunk<T>(Vs, v, base, j0, c0, Tn, D, 1.f);
+      __syncthreads();
+      dot_chunk<T>(s, Ks, q, roff, live, c0, part, D, scale);
+      dot_chunk<T>(dp, Vs, dout, roff, live, c0, part, D, 1.f);
+    }
+#pragma unroll
+    for (int j = 0; j < WBT; ++j) {
+      const float sj = row_sum<WTPR>(s[j]);
+      const float dpj = row_sum<WTPR>(dp[j]);
+      s[j] = (j0 + j < Tn) ? expf(sj - lse) * (dpj - delta) : 0.f;     // dS
+    }
+    __syncthreads();
+    stage_chunk<T>(Ks, k, base, j0, cz, Tn, D, scale);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < WCPT; ++i) {
+      float a = acc[i];
+#pragma unroll
+      for (int j = 0; j < WBT; ++j) a = fmaf(s[j], Ks[j][part + WTPR * i], a);
+      acc[i] = a;
+    }
+  }
+
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < WCPT; ++i) {
+      const int c = cz + part + WTPR * i;
+      if (c < D) store_f(dq + roff + c, acc[i] * scale);
+    }
+    if (part == 0 && blockIdx.z == 0) {
+      const long long r = static_cast<long long>(blockIdx.y) * Tn + qi;
+      lse_out[r] = lse;
+      delta_out[r] = delta;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+attention_bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const T* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               T* __restrict__ dk, T* __restrict__ dv, int Tn, int D,
+                               float scale) {
+  __shared__ float Qs[WBT][DC];
+  __shared__ float Gs[WBT][DC];
+  __shared__ float Ls[WBT];
+  __shared__ float Ds[WBT];
+
+  const int tid = threadIdx.x;
+  const int part = tid % WTPR;
+  const int kj = blockIdx.x * WROWS + tid / WTPR;
+  const bool live = kj < Tn;
+  const int cz = blockIdx.z * DC;
+  const long long base = static_cast<long long>(blockIdx.y) * Tn * D;
+  const long long roff = base + static_cast<long long>(kj) * D;
+  const long long sbase = static_cast<long long>(blockIdx.y) * Tn;
+
+  float dka[WCPT], dva[WCPT];
+#pragma unroll
+  for (int i = 0; i < WCPT; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int i0 = 0; i0 < Tn; i0 += WBT) {
+    float p[WBT], ds[WBT];
+#pragma unroll
+    for (int r = 0; r < WBT; ++r) p[r] = ds[r] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += DC) {
+      __syncthreads();
+      stage_chunk<T>(Qs, q, base, i0, c0, Tn, D, scale);
+      stage_chunk<T>(Gs, dout, base, i0, c0, Tn, D, 1.f);
+      __syncthreads();
+      dot_chunk<T>(p, Qs, k, roff, live, c0, part, D, scale);
+      dot_chunk<T>(ds, Gs, v, roff, live, c0, part, D, 1.f);
+    }
+    __syncthreads();
+    stage_chunk<T>(Qs, q, base, i0, cz, Tn, D, scale);
+    stage_chunk<T>(Gs, dout, base, i0, cz, Tn, D, 1.f);
+    for (int e = tid; e < WBT; e += NT) {
+      const bool in = i0 + e < Tn;
+      Ls[e] = in ? lse[sbase + i0 + e] : 0.f;
+      Ds[e] = in ? delta[sbase + i0 + e] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < WBT; ++r) {
+      const float s = row_sum<WTPR>(p[r]);
+      const float dp = row_sum<WTPR>(ds[r]);
+      p[r] = (i0 + r < Tn) ? expf(s - Ls[r]) : 0.f;     // queries past T: P = 0
+      ds[r] = p[r] * (dp - Ds[r]);
+    }
+#pragma unroll
+    for (int i = 0; i < WCPT; ++i) {
+      float a = dva[i], b = dka[i];
+#pragma unroll
+      for (int r = 0; r < WBT; ++r) {
+        a = fmaf(p[r], Gs[r][part + WTPR * i], a);
+        b = fmaf(ds[r], Qs[r][part + WTPR * i], b);
+      }
+      dva[i] = a;
+      dka[i] = b;
+    }
+  }
+
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < WCPT; ++i) {
+      const int c = cz + part + WTPR * i;
+      if (c < D) {
+        store_f(dk + roff + c, dka[i] * scale);
+        store_f(dv + roff + c, dva[i]);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, void* dq, void* dk, void* dv, float* ws, int BH,
+                        int Tn, int D, float scale, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((Tn + WROWS - 1) / WROWS), static_cast<unsigned>(BH),
+                  static_cast<unsigned>((D + DC - 1) / DC));
+  float* lse = ws;
+  float* delta = ws + static_cast<long long>(BH) * Tn;
+  attention_bwd_dq_wide_kernel<T><<<grid, NT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<T*>(dq), lse, delta,
+      Tn, D, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkdv_wide_kernel<T><<<grid, NT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Tn, D,
+      scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int DMAX, int BKV, int CPT>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, void* dq, void* dk, void* dv, float* ws, int BH,
@@ -298,7 +544,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 }
 
 // head width -> (DMAX, keys per tile, channels per thread): 8 threads a row
-// up to d = 128, 16 at d = 256 (ops/attention.py::backward_plan mirrors it)
+// up to d = 128, 16 at d = 256 and in the column chunks past it
+// (ops/attention.py::backward_plan mirrors it)
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, void* dq, void* dk, void* dv, float* ws, int BH,
@@ -307,13 +554,15 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
     return launch<T, 64, 32, 8>(q, k, v, o, dout, dq, dk, dv, ws, BH, Tn, D, scale, s);
   if (D <= 128)
     return launch<T, 128, 32, 16>(q, k, v, o, dout, dq, dk, dv, ws, BH, Tn, D, scale, s);
-  return launch<T, 256, 16, 16>(q, k, v, o, dout, dq, dk, dv, ws, BH, Tn, D, scale, s);
+  if (D <= 256)
+    return launch<T, 256, 16, 16>(q, k, v, o, dout, dq, dk, dv, ws, BH, Tn, D, scale, s);
+  return launch_wide<T>(q, k, v, o, dout, dq, dk, dv, ws, BH, Tn, D, scale, s);
 }
 
 }  // namespace
 
 // q, k, v, o (the forward's output), dout and dq, dk, dv: (BH, T, D)
-// contiguous on the device, all fp32 or all bf16 (is_bf16); D <= 256;
+// contiguous on the device, all fp32 or all bf16 (is_bf16); any D >= 1;
 // `scale` = D^-1/4; `workspace` holds 2 * BH * T floats (the rows' lse and
 // D).  Launches two kernels on `stream`, allocates nothing, returns
 // cudaGetLastError().
@@ -321,7 +570,8 @@ extern "C" int attention_backward(const void* q, const void* k, const void* v, c
                                   const void* dout, void* dq, void* dk, void* dv,
                                   void* workspace, int BH, int Tn, int D, float scale,
                                   int is_bf16, void* stream) {
-  if (D < 1 || D > 256 || Tn < 1 || BH < 1 || BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || D > 65535 * 256 || Tn < 1 || BH < 1 || BH > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(workspace);
   const cudaError_t err =

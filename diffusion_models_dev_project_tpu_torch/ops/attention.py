@@ -12,8 +12,11 @@ kernels, chosen by `plan` from the dtype and the shape alone:
 - `simt` (`csrc/attention.cu`): fp32, and bf16 with d > 128; fp32 dot
   products on the CUDA cores.
 
-Both take any T and d up to `MAX_HEAD_DIM` = 256; wider heads raise.  On a
-CPU tensor, or when the caller passes `use_kernel=False`, `attention` runs
+Both take any T; `mma` d up to 128, `simt` any d: up to `MAX_HEAD_DIM` =
+256 in one pass, past it in column chunks of 256 (a third grid axis over
+the output's chunks; each block recomputes the rows' softmax over the full
+d, streaming the head through shared memory chunk by chunk).  On a CPU
+tensor, or when the caller passes `use_kernel=False`, `attention` runs
 `attention_reference`.
 
 Gradients (the JAX package differentiates its einsum attention with XLA):
@@ -31,7 +34,8 @@ atomics, so every launch gives the same bits:
   product, the 4 warps of a block splitting the walked dimension and their
   partial sums added in order;
 - `simt` (`csrc/attention_bwd.cu`): fp32, and bf16 with d > 128; fp32 dot
-  products on the CUDA cores, the rows' statistics recomputed.
+  products on the CUDA cores, the rows' statistics recomputed; past
+  `MAX_HEAD_DIM` in column chunks as the forward.
 
 On a CPU tensor, or with `use_kernel=False`, it runs
 `attention_backward_reference`, the same formula in plain PyTorch.  Forward
@@ -61,7 +65,7 @@ launches_by_variant = dict.fromkeys(VARIANTS, 0)    # the same, by variant
 backward_launches = 0    # backward calls that launched the kernels, the same way
 backward_launches_by_variant = dict.fromkeys(VARIANTS, 0)    # the same, by variant
 
-MAX_HEAD_DIM = 256       # the widest head `simt` takes
+MAX_HEAD_DIM = 256       # the widest head `simt` takes in one pass; wider ones go in chunks of it
 MMA_MAX_HEAD_DIM = 128   # the widest head `mma` takes
 MMA_KEY_TILE = 64        # keys per shared-memory tile of `mma`
 MMA_ROWS = 16            # query rows per warp of `mma` (one m16n8k16 row block)
@@ -78,13 +82,16 @@ class Plan(NamedTuple):
     `key_splits` warps of a row group take every key_splits-th key tile
     each (`simt`: 8 warps over `SIMT_ROWS` rows, no split).  Keys stream in
     tiles of `key_tile`, the head is zero-padded to `d_pad` columns in
-    shared memory, and `grid` = (query blocks, B·heads)."""
+    shared memory, and `grid` = (query blocks, B·heads).  `chunks` > 1
+    (`simt` past `MAX_HEAD_DIM`): the output's columns split into that many
+    chunks of `MAX_HEAD_DIM` over a third grid axis."""
     variant: str
     warps: int
     key_splits: int
     key_tile: int
     d_pad: int
     grid: Tuple[int, int]
+    chunks: int = 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,11 +101,10 @@ def plan(bh: int, t: int, d: int, dtype: torch.dtype, variant: Optional[str] = N
     the keys of a row group over as many of them (4, 2, then 1) as leave
     every split a key tile: a warp's chain of tiles, not the card's rate,
     sets the time at these sizes.  Two rounds of split tiles must fit in
-    shared memory, so d > 64 splits at most 2 ways.  `variant` forces the
+    shared memory, so d > 64 splits at most 2 ways.  Past `MAX_HEAD_DIM`,
+    `simt` runs in ceil(d / 256) column chunks.  `variant` forces the
     kernel (measurements only); one that cannot take the shape raises."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"attention: head width {d} outside 1..{MAX_HEAD_DIM}, "
-                         f"the widest the port's kernels take")
+    _check_head_width(d)
     mma_ok = dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM
     if variant is None:
         variant = "mma" if mma_ok else "simt"
@@ -112,9 +118,16 @@ def plan(bh: int, t: int, d: int, dtype: torch.dtype, variant: Optional[str] = N
         return Plan("mma", MMA_WARPS, key_splits, MMA_KEY_TILE, -(-d // 16) * 16,
                     (-(-t // rows), bh))
     if variant == "simt":
-        d_max = 64 if d <= 64 else 128 if d <= 128 else 256
-        return Plan("simt", 8, 1, 32 if d_max <= 128 else 16, d_max, (-(-t // SIMT_ROWS), bh))
+        chunks = -(-d // MAX_HEAD_DIM)
+        d_max = 64 if d <= 64 else 128 if d <= 128 else MAX_HEAD_DIM * chunks
+        return Plan("simt", 8, 1, 32 if d_max <= 128 else 16, d_max, (-(-t // SIMT_ROWS), bh),
+                    chunks)
     raise ValueError(f"attention: unknown variant {variant!r}")
+
+
+def _check_head_width(d: int) -> None:
+    if d < 1:
+        raise ValueError(f"attention: head width {d}, not at least 1")
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -190,7 +203,8 @@ class BackwardPlan(NamedTuple):
     w taking chunks w, w + 4, ...; `channels` is 0.
     `simt` (csrc/attention_bwd.cu): each row is held by d_pad / `channels`
     threads, tiles of `tile` keys (queries) go through shared memory;
-    `splits` is 1."""
+    `splits` is 1.  Past `MAX_HEAD_DIM`, `chunks` > 1 column chunks of 256
+    on a third grid axis, each row held by 256 / `channels` threads."""
     variant: str
     d_pad: int
     tile: int
@@ -198,6 +212,7 @@ class BackwardPlan(NamedTuple):
     splits: int
     channels: int
     grid: Tuple[int, int]
+    chunks: int = 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -208,11 +223,10 @@ def backward_plan(bh: int, t: int, d: int, dtype: torch.dtype, variant: Optional
     (16, 32 or 64 rows; at most 32 for d > 64, whose two stages per warp
     must fit in shared memory) that leaves each of its 4 warps at most one
     chunk: a warp's chain of chunks sets the time at these sizes.
+    Past `MAX_HEAD_DIM`, `simt` runs in ceil(d / 256) column chunks.
     `variant` and `tile` force the kernels and the `mma` chunk
     (measurements only); a forced choice that cannot take the shape raises."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"attention: head width {d} outside 1..{MAX_HEAD_DIM}, "
-                         f"the widest the port's kernels take")
+    _check_head_width(d)
     mma_ok = dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM
     if variant is None:
         variant = "mma" if mma_ok else "simt"
@@ -230,11 +244,12 @@ def backward_plan(bh: int, t: int, d: int, dtype: torch.dtype, variant: Optional
     if variant == "simt":
         if tile is not None:
             raise ValueError("attention_backward: simt takes no chunk")
-        d_pad = 64 if d <= 64 else 128 if d <= 128 else 256
+        chunks = -(-d // MAX_HEAD_DIM)
+        d_pad = 64 if d <= 64 else 128 if d <= 128 else MAX_HEAD_DIM * chunks
         channels = 8 if d_pad == 64 else 16
-        rows = BWD_THREADS // (d_pad // channels)
+        rows = BWD_THREADS // (min(d_pad, MAX_HEAD_DIM) // channels)
         return BackwardPlan("simt", d_pad, 32 if d_pad <= 128 else 16, rows, 1, channels,
-                            (-(-t // rows), bh))
+                            (-(-t // rows), bh), chunks)
     raise ValueError(f"attention_backward: unknown variant {variant!r}")
 
 
@@ -460,9 +475,7 @@ def _check_inputs(q, k, v, use_kernel):
     if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     bh, t, d = q.shape
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"attention: head width {d} outside 1..{MAX_HEAD_DIM}, "
-                         f"the widest the port's kernels take")
+    _check_head_width(d)
     kernel = use_kernel and q.device.type != "cpu"
     if kernel:
         if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -488,7 +501,7 @@ def attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               use_kernel: bool = True, *, variant: Optional[str] = None) -> torch.Tensor:
-    """q, k, v (B·heads, T, d) -> (B·heads, T, d), d <= `MAX_HEAD_DIM`;
+    """q, k, v (B·heads, T, d) -> (B·heads, T, d), any d >= 1;
     differentiable in q, k and v.
 
     `variant` (measurements only) forces the kernel that `plan` would

@@ -93,8 +93,12 @@ def plan_routes_and_limits():
     assert A.backward_plan(8, 256, 64, fp32) == A.BackwardPlan("simt", 64, 32, 16, 1, 8, (16, 8))
     assert A.backward_plan(2, 64, 256, fp32)[1:4] == (256, 16, 8)
     assert A.backward_plan(8, 256, 64, bf16, "simt").variant == "simt"
-    with pytest.raises(ValueError, match="256"):
-        A.backward_plan(2, 64, 257, bf16)
+    # past 256: simt in column chunks of 256, 8 rows a block; no head is
+    # narrower than 1
+    assert A.backward_plan(2, 64, 257, bf16) == A.BackwardPlan("simt", 512, 16, 8, 1, 16, (8, 2),
+                                                               2)
+    with pytest.raises(ValueError, match="head width"):
+        A.backward_plan(2, 64, 0, bf16)
     # a forced choice that cannot take the shape raises
     for args, kw in (((8, 256, 64, fp32, "mma"), {}), ((8, 256, 160, bf16, "mma"), {}),
                      ((8, 256, 64, bf16, "wgmma"), {}), ((2, 100, 128, bf16), {"tile": 64}),

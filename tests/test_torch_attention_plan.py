@@ -1,5 +1,7 @@
 """The port's attention plan (variant, blocking, key splits), its CPU
-emulation of the `mma` kernel, and head widths up to the port's limit.
+emulation of the `mma` kernel, and head widths up to 256 and past it (the
+chunked `simt` plan; tests/test_torch_attention_wide.py holds wide heads
+to the JAX kernel).
 
 `plan` is what the wrapper hands the CUDA kernels, so it is checked on the
 flagship UNet's attention calls, on the 512² configuration's (its attention
@@ -87,14 +89,16 @@ def plan_on_the_flagship_calls():
     assert A.plan(1, 150, 64, torch.bfloat16).key_splits == 2          # 3 tiles
     assert A.plan(3, 300, 128, torch.bfloat16).key_splits == 2         # d > 64: two rounds must fit
     assert A.plan(2, 37, 20, torch.bfloat16).d_pad == 32
-    # fp32 and d > 128 go to simt; past 256 nothing takes the head
+    # fp32 and d > 128 go to simt; past 256 simt takes the head in column
+    # chunks of 256; no head is narrower than 1
     for args in ((8, 256, 64, torch.float32), (8, 256, 160, torch.bfloat16),
                  (2, 64, 256, torch.bfloat16), (2, 64, 256, torch.float32)):
-        assert A.plan(*args).variant == "simt"
+        assert A.plan(*args).variant == "simt" and A.plan(*args).chunks == 1
     assert A.plan(2, 64, 256, torch.float32).key_tile == 16
     assert A.plan(8, 256, 64, torch.bfloat16, "simt").grid == (4, 8)
-    with pytest.raises(ValueError, match="256"):
-        A.plan(2, 64, 257, torch.bfloat16)
+    assert A.plan(2, 64, 257, torch.bfloat16) == A.Plan("simt", 8, 1, 16, 512, (1, 2), 2)
+    with pytest.raises(ValueError, match="head width"):
+        A.plan(2, 64, 0, torch.bfloat16)
     # a forced variant that cannot take the shape raises
     for args in ((8, 256, 64, torch.float32, "mma"), (8, 256, 160, torch.bfloat16, "mma"),
                  (8, 256, 64, torch.bfloat16, "wgmma")):
@@ -153,10 +157,14 @@ def head_widths(**arrays):
     for i in range(len(WIDE)):
         out[str(i)] = A.attention(*(torch.from_numpy(arrays[f"{i}_{n}"]) for n in "qkv")).numpy()
     assert A.launches == 0 and set(A.launches_by_variant.values()) == {0}   # no kernel ran
-    wide = torch.zeros(1, 4, 257)
+    # past 256 the CPU runs the plain version too; no head is narrower than 1
+    wide = torch.from_numpy(np.random.default_rng(5).normal(size=(1, 4, 257)).astype(np.float32))
     for kw in ({}, {"use_kernel": False}):
-        with pytest.raises(ValueError, match="256"):
-            A.attention(wide, wide, wide, **kw)
+        assert torch.equal(A.attention(wide, wide, wide, **kw),
+                           A.attention_reference(wide, wide, wide))
+        with pytest.raises(ValueError, match="head width"):
+            A.attention(wide[..., :0], wide[..., :0], wide[..., :0], **kw)
+    assert A.launches == 0
     return out
 
 

@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, nothing of the JAX package, CUDA by default.
 
 The evaluation entry points (`scripts/eval_flagship_256.py`,
-`eval_adapted_256.py`, `smoke_512.py`) are among the modules checked.
+`eval_adapted_256.py`, `smoke_512.py`) and the walnut protocol's
+(`scripts/_walnut_common.py`, `walnut_full_scale.py`, `walnut_adapted.py`)
+are among the modules checked.
 
 The card's machine has torch, numpy and scipy but no jax, flax, msgpack,
 ml_collections, yaml or PIL, so the port, chip_smoke.py, adapted_spread.py,
@@ -57,7 +59,8 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
         "utils.checkpoint", "parallel.mesh", "parallel.launch", "utils.kvlogger",
         "utils.profiling", "utils.flops", "models.torch_convert", "physics.simulation",
         "scripts.eval_flagship_256", "scripts.eval_adapted_256",
-        "scripts.smoke_512")} <= set(modules)
+        "scripts.smoke_512", "scripts._walnut_common", "scripts.walnut_full_scale",
+        "scripts.walnut_adapted")} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         f"for name in {ABSENT!r}:",
@@ -126,6 +129,14 @@ def entry_points_want_cuda():
             script.main(["--ckpt", "checkpoints/flagship_vesde_256_ema.msgpack.npz"])
     with pytest.raises(RuntimeError, match="CUDA"):
         smoke_512.main(["--num_steps", "1"])
+    # and the walnut protocol's, unless given --device cpu (or --platform cpu)
+    from diffusion_models_dev_project_tpu_torch.scripts import walnut_adapted, walnut_full_scale
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        walnut_full_scale.main(["--workdir", "unused"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        walnut_adapted.main(["--ckpt", "unused", "--workdir", "unused"])
+    assert not os.path.exists("unused")
     trafo = TF.get_standard_ray_trafo(config, device="cpu")
     assert trafo.device.type == "cpu" and trafo.obs_shape == (6, 47)
     assert resolve_device("cpu") == torch.device("cpu")
