@@ -17,9 +17,10 @@ points (`scripts/`):
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles `csrc/*.cu` with nvcc for sm_90a (ops/_build.py) and
    requires HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS,
-   both also in the weight gradient's `wgrad_tc_kernel` by name, and HMMA
-   (mma.sync) in the functions of attention_mma.cu and in both kernels of
-   attention_bwd_mma.cu;
+   both also in the weight gradient's `wgrad_tc_kernel` and the fp32
+   forward's `conv3x3_tf32x3_kernel` by name, and HMMA (mma.sync) in the
+   functions of attention_mma.cu, in both kernels of attention_bwd_mma.cu
+   and in the fp32 weight gradient's `wgrad_tf32x3_kernel`;
 3. kernels: runs each kernel's wrapper at every shape the UNet forward
    gives it (recorded with forward hooks), checks it against its plain
    PyTorch version, and times kernel, plain version and library yardstick;
@@ -51,6 +52,18 @@ points (`scripts/`):
    split-K reduction timed alone; per batch-3 backward the stem's and
    final conv's narrow kernels together must be no slower than cuDNN on
    those two shapes, and `tc`'s ratio to cuDNN on its shapes is printed.
+   The fp32 route (the CLIs' default dtype; TF32 off in cuDNN and in
+   matmuls): at every shape `tf32x3` takes (60 a pass) the forward, the
+   input gradient and the weight gradient at batch 3 and 1, each within
+   `TOL["float32"]` (`TOL_WGRAD`) of the plain version and bitwise equal
+   over two launches, timed beside the forced `simt` kernel, the plain
+   version, cuDNN fp32 and both bounds (three TF32 products at 495
+   TFLOP/s; the fp32 CUDA cores at 67); per forward, per input-gradient
+   backward and per batch-3 weight-gradient backward `tf32x3` must take at
+   most half of forced `simt`'s time; after an Adam step of its weight
+   `tf32x3` must use the updated weight (its split copy is cached on the
+   weight by version); the fp32 attention (`simt`, forward
+   and backward) per pass beside SDPA in fp32, not gated.
    Heads past 256 (`WIDE_HEADS`, d = 320 and 512, fp32 and bf16): the
    chunked `simt` forward and backward against the plain versions, bitwise
    equal over two launches, each call a `simt` launch, timed beside SDPA;
@@ -112,10 +125,18 @@ points (`scripts/`):
    each strategy, kernels against plain with the gates of phase 5 and launch
    counts derived from the model's structure; a short run of each through
    the adapted CLI (finite, PSNR printed and not gated);
+10b. the CLIs at their default compute dtype (fp32, no `--dtype`): the
+   adapted CLI's LoRA run (`FP32_ADAPT_STEPS` x `FP32_ADAPT_OPTIM`, add_cg)
+   on val image 0, beside the same run in bf16, and the train CLI
+   warm-started for `FP32_TRAIN_STEPS` steps at batch 3: launch counts exact
+   (per forward 60 `tf32x3`, 1 `narrow`, 1 `simt` and 4 `simt` attention;
+   per backward 60 `tf32x3` input gradients and, training, 60 `tf32x3`
+   weight gradients), the plain weight gradient never on CUDA, finite
+   results; ms per outer step and per training step beside bf16's;
 11. several images per call (`SHARD_IMAGES` = 4) on the one card: 11a the
    forward kernels with a bias per image, (4, Cout), at every conv shape of
-   a batch-4 forward in both I/O types (`tc` with one split and with
-   several, `narrow`, `simt`, and `simt` at the `tc` shapes) within `TOL`
+   a batch-4 forward in both I/O types (`tc` and `tf32x3` with one split
+   and with several, `narrow`, `simt`, and `simt` at their shapes) within `TOL`
    of `conv3x3_reference`, bitwise equal to the shared-bias launch when the
    four rows are equal, the bias gradient per image against autograd of
    the plain version; timed per batch-4 forward beside cuDNN (shared bias)
@@ -207,7 +228,8 @@ points (`scripts/`):
    lines parsed, counts exact; `scripts/eval_adapted_256.py` on the OOD
    bars (5 x 3, DDS 50 steps): finite, counts exact.  `--phase15` runs it
    alone after phases 1 and 2;
-16. prints one `{"kernels": [...]}` line (with the 512² rows), then, last,
+16. prints one `{"kernels": [...]}` line (with the 512² rows and the fp32
+   route's `conv3x3_tf32x3` and `conv3x3_weight_grad_tf32x3`), then, last,
    the device line `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -236,8 +258,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "checkpoints", "flagship_vesde_256_ema.msgpack.npz")
 VALSET = os.path.join(REPO, "data_assets", "disk_ellipses_val_256.npz")
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, TF32
+# tensor cores, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+# TF32 products per fp32 product in the `tf32x3` kernels (hi*hi, hi*lo, lo*hi):
+# their bound is TF32_PRODUCTS x FLOPs at the TF32 rate
+TF32_PRODUCTS = 3
 PEAK_BYTES = 3.35e12
 # kernel vs plain version on the same inputs: max|diff| / max|plain|.  bf16
 # output is rounded once from an fp32 sum in either version; a different
@@ -272,6 +298,11 @@ DDPM_TRAIN_STEPS = 2          # steps of the DDPM run from the fresh init
 PROBE_DDS_STEPS = 200         # the keep-best probe's DDS (run_score_based_models_train.py)
 WITNESS_PROBE_STEPS = 50      # the witnesses' probe DDS (phase 9b'; cut, PERF.md §4)
 ADAPT_CLI_STEPS, ADAPT_CLI_OPTIM = 3, 3     # the short full and decoder runs through the CLI
+# phase 10b, the CLIs at their default compute dtype (fp32): the adapted CLI's
+# LoRA run on val image 0 (outer x Adam steps, and the same in bf16 beside
+# it) and the train CLI's warm-started steps
+FP32_ADAPT_STEPS, FP32_ADAPT_OPTIM = 5, 3
+FP32_TRAIN_STEPS = 3
 ADAPT_PROTOCOL_STEPS = 50     # outer steps of the adapted protocol (10 Adam steps each)
 ADAPT_PROTOCOL_OPTIM = 10
 # phase 7 runs the protocol on the OOD bars, where adaptation matters most,
@@ -419,6 +450,43 @@ def bound(flops: float, nbytes: float, dtype: str):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_ops, t_bytes
 
 
+FP32_KEYS = ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms",
+             "fp32_bound_ms", "gflop")
+
+
+def fp32_row(label, n, fn, simt_fn, plain_fn, library_fn, flops, nbytes, reps):
+    """Time one `tf32x3` shape of the fp32 route: the kernel, the forced
+    `simt` kernel, the plain version and the cuDNN fp32 call (TF32 off), each
+    by graph replay, with both bounds; print the row and return it."""
+    row = dict(ms=time_ms(fn, reps), simt_ms=time_ms(simt_fn, 2), plain_ms=time_ms(plain_fn, 2),
+               library_ms=time_ms(library_fn, reps), gflop=flops / 1e9)
+    # the tf32x3 design's least time (its TF32 products at the TF32 rate, or
+    # the bytes), and any fp32 CUDA-core kernel's
+    row["bound_ms"], _, row["ops_ms"], row["bytes_ms"] = bound(TF32_PRODUCTS * flops, nbytes, "tf32")
+    row["fp32_bound_ms"] = bound(flops, nbytes, "float32")[0]
+    log(f"{label} {n:>3} {'tf32x3':>7} fp32: kernel {row['ms']:.4f} ms, simt {row['simt_ms']:.4f}, "
+        f"plain {row['plain_ms']:.4f}, cuDNN {row['library_ms']:.4f}; bounds {row['bound_ms']:.5f} "
+        f"({TF32_PRODUCTS} TF32 products), {row['fp32_bound_ms']:.5f} (fp32 cores)")
+    return row
+
+
+def fp32_summary(what, tot, gate=True):
+    """Print the fp32 route's totals per pass and gate `tf32x3` at half of
+    the forced `simt` kernel's time."""
+    import torch
+
+    log(f"{what} in fp32 ({tot['calls']} tf32x3 calls; cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}): "
+        f"tf32x3 {tot['ms']:.3f} ms, forced simt {tot['simt_ms']:.3f} ms "
+        f"({tot['ms'] / tot['simt_ms']:.3f}x), plain {tot['plain_ms']:.3f} ms, cuDNN fp32 "
+        f"{tot['library_ms']:.3f} ms ({tot['ms'] / tot['library_ms']:.3f}x); bounds "
+        f"{tot['bound_ms']:.4f} ms ({TF32_PRODUCTS} TF32 products at 495 TFLOP/s, "
+        f"{tot['bound_ms'] / tot['ms']:.1%} of it reached), {tot['fp32_bound_ms']:.4f} ms (fp32 "
+        f"CUDA cores at 67 TFLOP/s); {tot['gflop'] / tot['ms']:.1f} TFLOP/s of fp32 work")
+    if gate and not 2 * tot["ms"] <= tot["simt_ms"]:
+        raise AssertionError(f"{what}: tf32x3 takes more than half of the simt kernel's time")
+
+
 def rel_err(out, ref) -> tuple:
     d = (out.float() - ref.float()).abs().max().item()
     return d, d / max(ref.float().abs().max().item(), 1e-30)
@@ -475,20 +543,22 @@ def check_conv_once(xshape, cout, dt, gen, splits=None):
     d, r = rel_err(out, ref)
     if not (torch.isfinite(out).all() and r <= TOL[dt]):
         raise AssertionError(f"conv3x3 {p.variant} {xshape}->{cout} {dt}: rel err {r:.3e} > {TOL[dt]}")
-    if p.variant == "tc":
+    if p.variant in ("tc", "tf32x3"):
         again = C.conv3x3(x, wt, bias, splits=splits)
         if not torch.equal(out, again):
-            raise AssertionError(f"conv3x3 tc {xshape}->{cout}: two launches differ")
+            raise AssertionError(f"conv3x3 {p.variant} {xshape}->{cout}: two launches differ")
     return (x, wt, bias), p, d, r
 
 
 def check_conv(shapes, gen, extras=True):
     """Kernel vs plain at every distinct conv shape in both I/O types, timed
     in the path's type beside the plain version, cuDNN and the bound; at the
-    shapes `tc` takes, also the CUDA-core `simt` kernel in the same run.  Added
+    shapes `tc` takes, also the CUDA-core `simt` kernel in the same run; and
+    the fp32 route at the shapes `tf32x3` takes (`fp32_row`), its total per
+    forward in `tot["fp32"]`, gated at half of forced `simt`'s.  Added
     shapes are checked, not timed.  Returns per-forward totals.  Without
-    `extras` (another model's shapes) neither `simt` nor the added shapes
-    nor the host's time per call are measured."""
+    `extras` (another model's shapes) neither `simt` nor the fp32 route nor
+    the added shapes nor the host's time per call are measured."""
     import torch
     import torch.nn.functional as F
 
@@ -502,6 +572,8 @@ def check_conv(shapes, gen, extras=True):
     by_variant, by_map = {}, {}
     worst = {"bfloat16": 0.0, "float32": 0.0}
     max_abs = 0.0
+    tot32, max_abs32 = dict.fromkeys(FP32_KEYS, 0.0), 0.0
+    tot32["calls"] = 0
     log(f"{'shape (B,H,W,Cin->Cout)':>28} {'dtype':>8} {'n':>3} {'variant':>7} {'splits':>6} "
         f"{'kernel_ms':>10} {'simt_ms':>9} {'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} "
         f"{'bound_by':>10} {'rel_err':>9}")
@@ -510,6 +582,19 @@ def check_conv(shapes, gen, extras=True):
         for dt in ("bfloat16", "float32"):     # correctness in both I/O types
             (x, wt, bias), p, d, r = check_conv_once(xshape, cout, dt, gen)
             worst[dt] = max(worst[dt], r)
+            if dt == "float32" and p.variant == "tf32x3" and extras:
+                max_abs32 = max(max_abs32, d)
+                xl = x.permute(0, 3, 1, 2)
+                wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                row = fp32_row(
+                    f"{str((b, h, w, cin)) + '->' + str(cout):>28}", n,
+                    lambda: C.conv3x3(x, wt, bias), lambda: C.conv3x3(x, wt, bias, variant="simt"),
+                    lambda: C.conv3x3(x, wt, bias, use_kernel=False),
+                    lambda: F.conv2d(xl, wl, bias, padding=1), 2.0 * b * h * w * cin * cout * 9,
+                    4.0 * (x.numel() * (1 + cout / cin) + wt.numel() + cout), 10 if h >= 128 else 30)
+                for key in FP32_KEYS:
+                    tot32[key] += n * row[key]
+                tot32["calls"] += n
             if dt != dtype:
                 continue
             max_abs = max(max_abs, d)
@@ -540,10 +625,16 @@ def check_conv(shapes, gen, extras=True):
     extra = [] if not extras else [((2, 32, 32, 256), 256, None), ((1, 16, 48, 128), 128, None),
              ((1, 8, 8, 1024), 512, 144), ((1, 32, 32, 64), 64, None),
              ((1, 12, 20, 128), 192, None)]
-    for xshape, cout, splits in extra:
-        _, p, _, r = check_conv_once(xshape, cout, "bfloat16", gen, splits=splits)
-        worst["bfloat16"] = max(worst["bfloat16"], r)
-        log(f"{str(xshape) + '->' + str(cout):>28} {'bfloat16':>8} {'-':>3} {p.variant:>7} {p.splits:>6} "
+    # and in fp32: tf32x3 at batch 2, the ragged map, the largest split;
+    # simt at channels that are no multiple of 64
+    extra = [(xs, cout, splits, "bfloat16") for xs, cout, splits in extra]
+    if extras:
+        extra += [((2, 32, 32, 256), 256, None, "float32"), ((1, 12, 20, 128), 192, None, "float32"),
+                  ((1, 8, 8, 1024), 512, 144, "float32"), ((1, 12, 20, 48), 80, None, "float32")]
+    for xshape, cout, splits, dt in extra:
+        _, p, _, r = check_conv_once(xshape, cout, dt, gen, splits=splits)
+        worst[dt] = max(worst[dt], r)
+        log(f"{str(xshape) + '->' + str(cout):>28} {dt:>8} {'-':>3} {p.variant:>7} {p.splits:>6} "
             f"{'':>10} {'':>9} {'':>9} {'':>10} {'':>9} {'':>10} {r:>9.2e}")
     if extras:
         x, wt, bias = conv_inputs((1, 8, 8, 512), 512, "bfloat16", gen)
@@ -555,7 +646,8 @@ def check_conv(shapes, gen, extras=True):
         log(f"host time per call at (1, 8, 8, 512)->512, enqueue only: conv3x3 (tc) "
             f"{host['tc']:.1f} us, F.conv2d {host['cuDNN']:.1f} us")
     log(f"conv3x3 max rel err: bf16 {worst['bfloat16']:.3e} (tol {TOL['bfloat16']}), "
-        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']}); tc bitwise equal over two launches")
+        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']}); tc and tf32x3 bitwise equal over two "
+        "launches")
     log(f"{'per UNet forward':>28} {'calls':>5} {'kernel_ms':>10} {'TFLOP/s':>8} {'of bound':>8} "
         f"{'simt_ms':>9} {'cuDNN_ms':>9} {'bound_ms':>9}")
     for name, agg in ([(f"map {h}x{h}", by_map[h]) for h in sorted(by_map, reverse=True)]
@@ -572,15 +664,51 @@ def check_conv(shapes, gen, extras=True):
            f"{tc['simt_ms']:.3f} ms" if extras else ""))
     if extras and not tc["ms"] * 5 <= tc["simt_ms"]:
         raise AssertionError("conv3x3: tc takes more than 1/5 of the simt design's time per forward")
+    if extras:
+        fp32_summary("conv3x3 per UNet forward", tot32)
+        tot["fp32"] = dict(tot32, max_abs=max_abs32)
+        check_split_operand_follows_weight(gen)
     return tot, max_abs, by_variant
 
 
-# functions whose SASS must hold HMMA (mma.sync): the attention forward and
-# both kernels of its backward; and HGMMA (wgmma) and UTMALDG (TMA load): the
-# weight gradient's tensor-core kernel
+def check_split_operand_follows_weight(gen):
+    """`tf32x3` keeps its split copy of a weight on the weight, keyed by the
+    weight's version: after a step of `torch.optim.Adam` (in-place updates,
+    as the trainer's and the adapted sampler's) the forward and the input
+    gradient must use the new weight, within `TOL["float32"]` of the plain
+    version on it, and differ from before the step."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    x, wt, bias = conv_inputs((2, 16, 16, 128), 128, "float32", gen)
+    g = torch.randn((2, 16, 16, 128), generator=gen, device="cuda")
+    w = torch.nn.Parameter(wt)
+    opt = torch.optim.Adam([w], lr=1e-2)
+    with torch.no_grad():
+        before = (C.conv3x3(x, w, bias), C.conv3x3_input_grad(g, w))
+    w.grad = torch.randn(w.shape, generator=gen, device="cuda")
+    opt.step()
+    with torch.no_grad():
+        after = (C.conv3x3(x, w, bias), C.conv3x3_input_grad(g, w))
+        plain = (C.conv3x3_reference(x, w, bias), C.conv3x3_input_grad(g, w, use_kernel=False))
+    torch.cuda.synchronize()
+    errs = [rel_err(a, p)[1] for a, p in zip(after, plain)]
+    if not (all(r <= TOL["float32"] for r in errs)
+            and not any(torch.equal(a, b) for a, b in zip(after, before))):
+        raise AssertionError(f"conv3x3 tf32x3 after an Adam step: rel err {errs} against the plain "
+                             "version on the updated weight, or the output did not change")
+    log(f"conv3x3 tf32x3 after an Adam step of its weight: forward and input grad within "
+        f"{max(errs):.2e} of the plain version on the updated weight (the split copy rebuilt)")
+
+
+# functions whose SASS must hold HMMA (mma.sync): the attention forward, both
+# kernels of its backward and the fp32 weight gradient's `tf32x3`; and HGMMA
+# (wgmma) and UTMALDG (TMA load): the weight gradient's tensor-core kernel and
+# the fp32 forward's `tf32x3`
 HMMA_FUNCTIONS = ("attention_mma_kernel", "attention_bwd_mma_dq_kernel",
-                  "attention_bwd_mma_dkdv_kernel")
-HGMMA_FUNCTIONS = ("wgrad_tc_kernel",)
+                  "attention_bwd_mma_dkdv_kernel", "wgrad_tf32x3_kernel")
+HGMMA_FUNCTIONS = ("wgrad_tc_kernel", "conv3x3_tf32x3_kernel")
 
 
 def sass_counts(lib_path):
@@ -775,6 +903,9 @@ def check_conv_backward(shapes, gen):
     and the bound, summed over the convs whose input takes a gradient in the
     adapted and training backwards (all but the stem, whose input is the
     diffusion state); the stem's (`narrow`, DPS's gradient in x) apart.
+    In fp32 at the shapes whose swapped conv `tf32x3` takes, the fp32 route
+    (`fp32_row`: forced `simt` on the swapped weight, cuDNN fp32), its total
+    per backward in `tot["fp32"]`, gated at half of forced `simt`'s.
     Returns (per-backward totals, max|diff|, launches by variant per
     backward, the stem's row)."""
     import torch
@@ -789,6 +920,8 @@ def check_conv_backward(shapes, gen):
     stem = None
     worst = {"bfloat16": 0.0, "float32": 0.0}
     max_abs, by_variant = 0.0, {}
+    tot32, max_abs32 = dict.fromkeys(FP32_KEYS, 0.0), 0.0
+    tot32["calls"] = 0
     log(f"{'input grad (B,H,W,Cin<-Cout)':>28} {'dtype':>8} {'n':>3} {'variant':>7} {'splits':>6} "
         f"{'kernel_ms':>10} {'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} {'bound_by':>10} "
         f"{'rel_err':>9} {'bias_err':>9}")
@@ -814,6 +947,21 @@ def check_conv_backward(shapes, gen):
             if not (torch.equal(gx, again) and torch.equal(kx, gx)):
                 raise AssertionError(f"conv3x3 input grad {label}: launches or the Function differ")
             worst[dt] = max(worst[dt], r)
+            if dt == "float32" and p.variant == "tf32x3":
+                max_abs32 = max(max_abs32, d)
+                sw, zero = C.swapped_weight(wt), torch.zeros(cin, device="cuda")
+                gl = g.permute(0, 3, 1, 2)
+                wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                row = fp32_row(
+                    label, n, lambda: C.conv3x3_input_grad(g, wt),
+                    lambda: C.conv3x3(g, sw, zero, variant="simt"),
+                    lambda: C.conv3x3_input_grad(g, wt, use_kernel=False),
+                    lambda: torch.nn.grad.conv2d_input((b, cin, h, w), wl, gl, padding=1),
+                    2.0 * b * h * w * cin * cout * 9, 4.0 * (g.numel() * (1 + cin / cout) + wt.numel()),
+                    10 if h >= 128 else 30)
+                for key in FP32_KEYS:
+                    tot32[key] += n * row[key]
+                tot32["calls"] += n
             if dt != dtype:
                 log(f"{label} {'-':>3} {p.variant:>7} {p.splits:>6} {'':>10} {'':>9} {'':>10} {'':>9} "
                     f"{'':>10} {r:>9.2e} {rb_err:>9.2e}")
@@ -848,6 +996,8 @@ def check_conv_backward(shapes, gen):
         f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms; the stem's ({stem['variant']}, "
         f"DPS only) {stem['ms']:.4f} ms, plain {stem['plain_ms']:.4f}, cuDNN {stem['library_ms']:.4f}, "
         f"bound {stem['bound_ms']:.5f}")
+    fp32_summary("conv3x3 input grad per UNet backward", tot32)
+    tot["fp32"] = dict(tot32, max_abs=max_abs32)
     return tot, max_abs, by_variant, stem
 
 
@@ -856,8 +1006,9 @@ def check_conv_bias(shapes, gen):
     batched adapted path's) at every conv shape of a batch-4 forward, in
     both I/O types, against `conv3x3_reference` within `TOL`: `tc` as
     planned and with its split of K forced to one and to several splits
-    (the one-split epilogue and the split-K reduction), `narrow` and `simt`
-    as planned, and `simt` also at the `tc` shapes; with four equal rows
+    (the one-split epilogue and the split-K reduction), `tf32x3` the same
+    in fp32, `narrow` and `simt` as planned, and `simt` also at the `tc` and
+    `tf32x3` shapes; with four equal rows
     each launch bitwise equal to the shared-bias launch; the per-image bias
     gradient through the autograd Function against autograd of the plain
     version.  Timed in the path's type beside the plain version, cuDNN
@@ -886,8 +1037,8 @@ def check_conv_bias(shapes, gen):
             bias = torch.randn((b, cout), generator=gen, device="cuda") * 0.1
             p = C.plan(b, h, w, cin, cout, x.dtype)
             runs = [(p.variant, None)]
-            if p.variant == "tc":       # both epilogues: one split and the split-K reduction
-                runs += [("tc", 1 if p.splits > 1 else 2), ("simt", None)]
+            if p.variant in ("tc", "tf32x3"):   # both epilogues: one split and the split-K reduction
+                runs += [(p.variant, 1 if p.splits > 1 else 2), ("simt", None)]
             ref = C.conv3x3_reference(x, wt, bias)
             same = bias[:1].expand(b, cout).contiguous()     # four equal rows
             shared = bias[0].contiguous()
@@ -1036,17 +1187,32 @@ def check_conv_wgrad(shapes, gen):
     def split_text(p):
         return f"{p.splits}/{p.cluster}" if p.variant == "tc" else str(p.splits)
 
+    fp32 = {"max_abs": 0.0}
     for batch in (TRAIN_BATCH, 1):
         counts = {}
         for xs, cout, dt in shapes:
             key = ((batch,) + tuple(xs[1:]), cout, dt)
             counts[key] = counts.get(key, 0) + 1
         tot, variants = dict.fromkeys(keys, 0.0), {}
+        tot32 = fp32[batch] = dict(dict.fromkeys(FP32_KEYS, 0.0), calls=0)
         for (xshape, cout, dtype), n in sorted(counts.items(), key=lambda kv: (-kv[0][0][1], kv[0][0][3])):
             b, h, w, cin = xshape
             for dt in ("bfloat16", "float32"):
                 x, g, p, d, r = check_once(xshape, cout, dt)
                 label = f"{str(xshape) + '->' + str(cout):>30} {dt:>8}"
+                if dt == "float32" and p.variant == "tf32x3":
+                    fp32["max_abs"] = max(fp32["max_abs"], d)
+                    xl, gl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+                    row = fp32_row(
+                        label, n, lambda: C.conv3x3_weight_grad(x, g),
+                        lambda: C.conv3x3_weight_grad(x, g, variant="simt"),
+                        lambda: C.conv3x3_weight_grad(x, g, use_kernel=False),
+                        lambda: torch.nn.grad.conv2d_weight(xl, (cout, cin, 3, 3), gl, padding=1),
+                        2.0 * b * h * w * cin * cout * 9,
+                        4.0 * (x.numel() + g.numel() + 9 * cin * cout), 5 if b * h * w >= 65536 else 20)
+                    for key in FP32_KEYS:
+                        tot32[key] += n * row[key]
+                    tot32["calls"] += n
                 if dt != dtype:
                     log(f"{label} {'-':>3} {p.variant:>10} {split_text(p):>9} {'':>10} {'':>9} {'':>9} "
                         f"{'':>10} {'':>9} {'':>10} {r:>9.2e}")
@@ -1071,6 +1237,8 @@ def check_conv_wgrad(shapes, gen):
                     for key in keys:
                         agg[key] += n * row[key]
         tots[batch], by_batch[batch] = tot, variants
+        fp32_summary(f"conv3x3 weight grad per batch-{batch} UNet backward", tot32,
+                     gate=batch == TRAIN_BATCH)
         log(f"conv3x3 weight grad per batch-{batch} UNet backward ({sum(variants.values())} calls: "
             + ", ".join(f"{v} {k}" for v, k in variants.items())
             + f"): kernel {tot['ms']:.3f} ms (of it the split-K reduction alone {tot['reduce_ms']:.3f} "
@@ -1116,12 +1284,16 @@ def check_conv_wgrad(shapes, gen):
                                      ((1, 64, 64, 128), 128, "bfloat16", 32),
                                      ((2, 16, 16, 128), 3, "bfloat16", None),
                                      ((2, 9, 7, 3), 20, "float32", None),
+                                     ((1, 12, 20, 128), 192, "float32", None),
+                                     ((1, 64, 64, 128), 128, "float32", 7),
+                                     ((1, 12, 20, 48), 80, "float32", None),
                                      ((2, 16, 16, 48), 80, "bfloat16", None)):
         _, _, p, _, r = check_once(xshape, cout, dt, splits)
         log(f"{str(xshape) + '->' + str(cout):>30} {dt:>8} {'-':>3} {p.variant:>10} "
             f"{split_text(p):>9} {'':>10} {'':>9} {'':>9} {'':>10} {'':>9} {'':>10} {r:>9.2e}")
     log(f"conv3x3 weight grad max rel err: bf16 {worst['bfloat16']:.3e}, fp32 {worst['float32']:.3e} "
         f"(tol {TOL_WGRAD}); bitwise equal over two launches")
+    tots["fp32"] = fp32
     return tots, max_abs, by_batch
 
 
@@ -1240,6 +1412,47 @@ def check_attention_backward(shapes, gen):
         raise AssertionError("attention backward: the path is not all mma, or mma takes more than "
                              "a third of the simt design's time or no less than its plain twin's")
     return tot, max_abs, by_variant
+
+
+def attention_fp32_pass(shapes, gen):
+    """The fp32 route's attention (the CLIs' default dtype; `simt`, forward
+    and backward, checked in `check_attention` and `check_attention_backward`)
+    at the path's attention shapes: per UNet pass, the kernel, the plain
+    version, SDPA in fp32 as dispatched by default (its backward: forward and
+    backward captured together, less the forward) and the fp32 bound, timed
+    and printed, not gated.  Returns {"forward": totals, "backward": totals}."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
+
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    tot = {part: dict.fromkeys(keys, 0.0) for part in ("forward", "backward")}
+    for shape in shapes:
+        bh, t, dd = shape
+        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
+        o = A.attention(q, k, v)
+        q4, k4, v4 = (a.view(1, bh, t, dd).detach().requires_grad_() for a in (q, k, v))
+        g4 = g.view(1, bh, t, dd)
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 50)
+        sdpa_both = time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), g4), 50)
+        rows = {"forward": (time_ms(lambda: A.attention(q, k, v), 50),
+                            time_ms(lambda: A.attention(q, k, v, use_kernel=False), 20), sdpa_fwd,
+                            4.0 * bh * t * t * dd, 16.0 * q.numel()),
+                "backward": (time_ms(lambda: A.attention_backward(q, k, v, o, g), 50),
+                             time_ms(lambda: A.attention_backward_reference(q, k, v, o, g), 20),
+                             sdpa_both - sdpa_fwd, 10.0 * bh * t * t * dd, 32.0 * q.numel())}
+        for part, (k_ms, p_ms, l_ms, flops, nbytes) in rows.items():
+            b_ms, _, ops_ms, bytes_ms = bound(flops, nbytes, "float32")
+            for key, val in zip(keys, (k_ms, p_ms, l_ms, b_ms, ops_ms, bytes_ms)):
+                tot[part][key] += val
+    for part, t_ in tot.items():
+        log(f"attention {part} in fp32 per UNet pass ({len(shapes)} simt calls): kernel "
+            f"{t_['ms']:.4f} ms, plain {t_['plain_ms']:.4f} ms, SDPA fp32 by default "
+            f"{t_['library_ms']:.4f} ms ({t_['ms'] / t_['library_ms']:.2f}x), bound "
+            f"{t_['bound_ms']:.5f} ms (fp32 CUDA cores or bytes)")
+    return tot
 
 
 # heads past MAX_HEAD_DIM (off every shipped path): the chunked simt forward
@@ -1396,29 +1609,41 @@ def read_counts():
             "attn_bwd": A.backward_launches, "attn_bwd_by": dict(A.backward_launches_by_variant)}
 
 
-def check_counts(counts, n_fwd, n_bwd, what, stem_grad=False, per_backward=None):
+def by_variants(variants, **counts):
+    """{variant: count} over `variants`, 0 where `counts` names none."""
+    return {v: counts.get(v, 0) for v in variants}
+
+
+def check_counts(counts, n_fwd, n_bwd, what, stem_grad=False, per_backward=None,
+                 dtype="bfloat16"):
     """Per forward 62 conv3x3 (60 tc, 1 narrow, 1 simt) and 4 attention
     (mma); per backward, by default (LoRA: frozen base weights), 61 conv3x3
     input gradients (60 tc, 1 simt: the final conv's, whose gradient has
     Cin = 1), no weight gradient and 4 attention backwards (mma).  With
+    `dtype` "float32" (the CLIs' default) the 60 take `tf32x3` and attention
+    `simt`, forward and backward.  With
     `stem_grad` (a gradient in the diffusion state x, as DPS takes it) the
     backward also takes the stem's input gradient, whose swapped shape
     (Cin 128 -> Cout 1) runs on `narrow`: 62 per backward.  `per_backward`
     (from `backward_pattern`) replaces the backward's counts where base
     weights train."""
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
 
+    hot, attn = ("tc", "mma") if dtype == "bfloat16" else ("tf32x3", "simt")
     n_stem = n_bwd if stem_grad else 0
-    pb = per_backward or {"conv_bwd_by": {"tc": 60, "narrow": 0, "simt": 1},
+    pb = per_backward or {"conv_bwd_by": by_variants(C.VARIANTS, **{hot: 60, "simt": 1}),
                           "conv_wgrad_by": dict.fromkeys(C.WGRAD_VARIANTS, 0), "attn_bwd": 4}
     bwd_by = {v: k * n_bwd for v, k in pb["conv_bwd_by"].items()}
     bwd_by["narrow"] += n_stem
     wgrad_by = {v: k * n_bwd for v, k in pb["conv_wgrad_by"].items()}
-    want = {"conv_fwd": 62 * n_fwd, "conv_fwd_by": {"tc": 60 * n_fwd, "narrow": n_fwd, "simt": n_fwd},
+    want = {"conv_fwd": 62 * n_fwd,
+            "conv_fwd_by": by_variants(C.VARIANTS, **{hot: 60 * n_fwd, "narrow": n_fwd, "simt": n_fwd}),
             "conv_bwd": sum(bwd_by.values()), "conv_bwd_by": bwd_by,
             "conv_wgrad": sum(wgrad_by.values()), "conv_wgrad_by": wgrad_by,
-            "attn_fwd": 4 * n_fwd, "attn_fwd_by": {"mma": 4 * n_fwd, "simt": 0},
-            "attn_bwd": pb["attn_bwd"] * n_bwd, "attn_bwd_by": {"mma": pb["attn_bwd"] * n_bwd, "simt": 0}}
+            "attn_fwd": 4 * n_fwd, "attn_fwd_by": by_variants(A.VARIANTS, **{attn: 4 * n_fwd}),
+            "attn_bwd": pb["attn_bwd"] * n_bwd,
+            "attn_bwd_by": by_variants(A.VARIANTS, **{attn: pb["attn_bwd"] * n_bwd})}
     if counts != want:
         raise AssertionError(f"{what}: launch counts {counts}, want {want} for {n_fwd} forwards "
                              f"and {n_bwd} backwards")
@@ -3279,6 +3504,107 @@ def kernel_rows_512(ph15):
     return rows
 
 
+def fp32_defaults_phase(F, ACLI, TRAIN_CLI, T, calls, workdir, bf16_train_ms):
+    """Phase 10b: the adapted and the train CLI at their default compute
+    dtype (the config's float32; no `--dtype`).  The adapted CLI's LoRA run
+    (`FP32_ADAPT_STEPS` x `FP32_ADAPT_OPTIM`, add_cg) on val image 0, then
+    the same in bf16; the train CLI warm-started from the shipped prior for
+    `FP32_TRAIN_STEPS` steps at batch 3.  Launch counts exact, every fp32
+    conv3x3 with Cin and Cout multiples of 64 on `tf32x3` (60 per forward,
+    60 input and, training, 60 weight gradients per backward; the plain
+    weight gradient never on CUDA); reconstructions and losses finite; ms
+    per outer step and per training step printed beside the bf16 runs'
+    (`bf16_train_ms`: phase 9's median step).  `calls`: `module_calls` of
+    the flagship.  Returns the runs' counts and times."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
+
+    t0 = time.perf_counter()
+    out = {}
+    n, k = FP32_ADAPT_STEPS, FP32_ADAPT_OPTIM
+    base = ["--load_path", CKPT, "--num_channels", "128", "--adaptation", "lora", "--num_steps",
+            str(n), "--num_optim_step", str(k), "--add_cg", "--num_images", "1"]
+
+    def on_val(get_configs):          # the CLI's data on the shipped val set
+        def wrapped(args):
+            config, dataconfig = get_configs(args)
+            dataconfig.data.part = "val"
+            return config, dataconfig
+        return wrapped
+
+    for dt, argv in (("float32", base), ("bfloat16", base + ["--dtype", "bfloat16"])):
+        root, wall_s, counts, report = run_cli(ACLI, argv, os.path.join(workdir, dt),
+                                               patch=(F, "get_standard_configs", on_val))
+        check_counts(counts, n * (k + 2) + 1, n * k, f"the adapted CLI at {dt} (LoRA {n} x {k})",
+                     dtype=dt)
+        with np.load(os.path.join(root, "recon_0_info.npz")) as info:
+            recon = info["recon"]
+        if not (recon.shape == (256, 256) and np.isfinite(recon).all()):
+            raise AssertionError(f"the adapted CLI at {dt}: reconstruction not finite")
+        out["adapted", dt] = {"ms": wall_s / n * 1e3, "counts": counts}
+        log(f"  adapted CLI, {'default dtype (float32)' if dt == 'float32' else '--dtype bfloat16'}, "
+            f"LoRA {n} x {k} on val image 0: {report['PSNR']:.2f} dB / {report['SSIM']:.4f} SSIM (a "
+            f"shortened protocol, not gated), {wall_s:.1f} s, {wall_s / n * 1e3:.0f} ms per outer step "
+            f"(wall, the first step's weight splits included); launches " + json.dumps(counts))
+    log(f"  adapted, ms per outer step: fp32 (tf32x3) {out['adapted', 'float32']['ms']:.0f}, bf16 (tc) "
+        f"{out['adapted', 'bfloat16']['ms']:.0f}")
+
+    # the train CLI: every leaf trains, so the 60 weight gradients run tf32x3 too
+    calls32 = [(kind, name, shape, cout, None if dt is None else torch.float32)
+               for kind, name, shape, cout, dt in calls]
+    pattern = backward_pattern(calls32, lambda name: True)
+    events, make_step, wgrad_reference, plain_wgrad = [], T.make_train_step, \
+        C.conv3x3_weight_grad_reference, [0]
+
+    def timed_make_train_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def timed(*aa, **kk):
+            e0 = StepTimer._event()
+            loss = step(*aa, **kk)
+            events.append((e0, StepTimer._event(), loss))
+            return loss
+        return timed
+
+    def counted_reference(xx, gg):
+        plain_wgrad[0] += xx.is_cuda
+        return wgrad_reference(xx, gg)
+
+    train_dir = os.path.join(workdir, "train")
+    argv = ["--num_channels", "128", "--epochs", "1", "--steps_per_epoch", str(FP32_TRAIN_STEPS),
+            "--init_ckpt", CKPT, "--lr_warmup", str(TRAIN_WARMUP), "--base_path", train_dir]
+    T.make_train_step, C.conv3x3_weight_grad_reference = timed_make_train_step, counted_reference
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ts = time.perf_counter()
+        TRAIN_CLI.coordinator(TRAIN_CLI.parser.parse_args(argv))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - ts
+        counts = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        T.make_train_step, C.conv3x3_weight_grad_reference = make_step, wgrad_reference
+    check_counts(counts, FP32_TRAIN_STEPS, FP32_TRAIN_STEPS, "the train CLI at float32",
+                 per_backward=pattern, dtype="float32")
+    step_ms = [a.elapsed_time(b) for a, b, _ in events]
+    losses = [float(v) for _, _, v in events]
+    if plain_wgrad[0] or len(step_ms) != FP32_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"the train CLI at float32: {len(step_ms)} steps, losses {losses}, "
+                             f"{plain_wgrad[0]} plain weight gradients on CUDA")
+    out["train"] = {"ms": float(np.median(step_ms)), "counts": counts}
+    log(f"  train CLI, default dtype (float32), batch {TRAIN_BATCH}, {FP32_TRAIN_STEPS} steps warm-"
+        f"started (--lr_warmup {TRAIN_WARMUP}): {wall_s:.1f} s in the CLI; per step (CUDA events) "
+        + ", ".join(f"{v:.1f}" for v in step_ms) + f" ms, median {out['train']['ms']:.1f} ms against "
+        f"{bf16_train_ms:.1f} in bf16 (phase 9); losses " + ", ".join(f"{v:.6e}" for v in losses)
+        + f"; peak memory {peak_gb:.2f} GiB; launches " + json.dumps(counts))
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[phase 10b fp32 defaults] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=PHASE6_STEPS,
@@ -3390,6 +3716,7 @@ def main() -> None:
     conv_bwd_tot, conv_bwd_err, conv_bwd_variants, stem_bwd = check_conv_backward(seen["conv"], gen)
     wgrad_tots, wgrad_err, wgrad_variants = check_conv_wgrad(seen["conv"], gen)
     attn_bwd_tot, attn_bwd_err, attn_bwd_variants = check_attention_backward(seen["attn"], gen)
+    attn_fp32 = attention_fp32_pass([shape for shape, _ in seen["attn"]], gen)
     attn_wide = check_attention_wide(gen)
     log(f"[phase 3 kernels] {time.perf_counter() - t0:.1f} s")
 
@@ -3529,7 +3856,7 @@ def main() -> None:
         f"{(fwd_dev_ms + cg_dev_ms) / ms_step:.0%} of the step")
     if conv_launches != 62 * n_fwd or attn_launches != 4 * n_fwd:
         raise AssertionError("the DDS run did not launch 62 conv3x3 and 4 attention kernels per forward")
-    if by_variant != {"tc": 60 * n_fwd, "narrow": n_fwd, "simt": n_fwd}:
+    if by_variant != by_variants(C.VARIANTS, tc=60 * n_fwd, narrow=n_fwd, simt=n_fwd):
         raise AssertionError(f"conv3x3 launches by variant {by_variant}: want 60 tc, 1 narrow "
                              "and 1 simt per forward")
     if attn_by_variant != {"mma": 4 * n_fwd, "simt": 0}:
@@ -4012,6 +4339,9 @@ def main() -> None:
     shutil.rmtree(workdir, ignore_errors=True)
     log(f"[phase 10 full, decoder] {time.perf_counter() - t0:.1f} s")
 
+    # ---- 10b. the adapted and train CLIs at their default compute dtype, fp32
+    fp32_runs = fp32_defaults_phase(F, ACLI, TRAIN_CLI, T, calls, workdir, float(np.median(step_ms)))
+
     # ---- 11. several images per call: the per-image bias, conditional and adapted serving
     multi = multi_image_phase(F, P, CLI, ACLI, model, config, config32, sde, trafo, images, gen,
                               workdir, {"fwd": fwd_dev_ms, "cg": cg_dev_ms, "adapt_both": both_dev})
@@ -4032,7 +4362,8 @@ def main() -> None:
 
     # ---- 16. kernel summary, device line
     src = "diffusion_models_dev_project_tpu_torch/csrc/"
-    conv_src = {"tc": src + "conv3x3_tc.cu", "narrow": src + "conv3x3.cu", "simt": src + "conv3x3.cu"}
+    conv_src = {"tc": src + "conv3x3_tc.cu", "tf32x3": src + "conv3x3_tf32x3.cu",
+                "narrow": src + "conv3x3.cu", "simt": src + "conv3x3.cu"}
     kernels = []
     for name, source, tot, err, launches, replaces, bwd in (
             ("conv3x3", conv_src["tc"], conv_tot, conv_err, conv_launches,
@@ -4071,8 +4402,8 @@ def main() -> None:
     # times beside); launches from the training run through the CLI, then
     # per strategy through the adapted CLI
     w3, w1 = wgrad_tots[TRAIN_BATCH], wgrad_tots[1]
-    wgrad_src = {v: src + ("conv3x3_wgrad_tc.cu" if v == "tc" else "conv3x3_wgrad.cu")
-                 for v in C.WGRAD_VARIANTS}
+    wgrad_src = {v: src + {"tc": "conv3x3_wgrad_tc.cu", "tf32x3": "conv3x3_wgrad_tf32x3.cu"}.get(
+        v, "conv3x3_wgrad.cu") for v in C.WGRAD_VARIANTS}
     kernels[0]["backward"]["weight_grad"] = {
         "name": "conv3x3_weight_grad", "route": "cuda", "source": wgrad_src["tc"],
         "replaces": "diffusion_models_dev_project_tpu/ops/conv3x3.py:35",
@@ -4119,6 +4450,12 @@ def main() -> None:
         for v in A.VARIANTS}
     # simt past 256 (phase 3): no launch on any path, per call
     kernels[1]["variants"]["simt"]["wide_heads"] = attn_wide
+    # simt in fp32 (the CLIs' default dtype), per pass; launches of phase 10b's adapted run
+    kernels[1]["variants"]["simt"]["fp32"] = {
+        part: {"launches": fp32_runs["adapted", "float32"]["counts"][key], "ms": t_["ms"],
+               "plain_ms": t_["plain_ms"], "bound_ms": t_["bound_ms"],
+               "library_ms": t_["library_ms"]}
+        for (part, t_), key in zip(attn_fp32.items(), ("attn_fwd", "attn_bwd"))}
     # launches of the walnut DDS runs (cg and woodbury), and the AAPM UNet's
     # conv3x3 per forward (the 256-channel model)
     for kern, key in zip(kernels, ("conv_fwd", "attn_fwd")):
@@ -4142,6 +4479,31 @@ def main() -> None:
     kernels[0]["aapm_unet"] = dict(aapm["aapm_unet"]["conv"],
                                    launches=aapm["aapm_unet"]["counts"]["conv_fwd"],
                                    variants=aapm["aapm_unet"]["conv_variants"])
+    # the fp32 route (phase 3's times per pass at the 60 tf32x3 shapes; the
+    # launches of phase 10b's runs through the CLIs at their default dtype:
+    # the adapted LoRA run, then the training run)
+    c32, b32, w32 = conv_tot["fp32"], conv_bwd_tot["fp32"], wgrad_tots["fp32"]
+    a32, t32 = fp32_runs["adapted", "float32"]["counts"], fp32_runs["train"]["counts"]
+
+    def fp32_fields(t):
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
+                "library_ms": t["library_ms"], "simt_ms": t["simt_ms"],
+                "fp32_cores_bound_ms": t["fp32_bound_ms"], "calls_per_pass": t["calls"]}
+    kernels.append({
+        "name": "conv3x3_tf32x3", "route": "cuda", "source": src + "conv3x3_tf32x3.cu",
+        "replaces": "diffusion_models_dev_project_tpu/ops/conv3x3.py:35",
+        "launches": a32["conv_fwd_by"]["tf32x3"], "max_abs_err": c32["max_abs"], **fp32_fields(c32),
+        "launches_train": t32["conv_fwd_by"]["tf32x3"],
+        "backward": {"launches": a32["conv_bwd_by"]["tf32x3"],
+                     "launches_train": t32["conv_bwd_by"]["tf32x3"], "max_abs_err": b32["max_abs"],
+                     **fp32_fields(b32)}})
+    kernels.append({
+        "name": "conv3x3_weight_grad_tf32x3", "route": "cuda",
+        "source": src + "conv3x3_wgrad_tf32x3.cu",
+        "replaces": "diffusion_models_dev_project_tpu/ops/conv3x3.py:35",
+        "launches": t32["conv_wgrad_by"]["tf32x3"], "max_abs_err": w32["max_abs"],
+        **fp32_fields(w32[TRAIN_BATCH]), "batch": TRAIN_BATCH, "batch1": fp32_fields(w32[1])})
     kernels.extend(kernel_rows_512(ph15))
     log(f"(kernel times are per UNet forward: the sum over its calls at their shapes; "
         f"whole run {time.perf_counter() - t_all:.1f} s)")

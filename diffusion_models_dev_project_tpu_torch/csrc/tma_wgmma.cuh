@@ -1,8 +1,9 @@
 // Building blocks of the `wgmma` kernels fed by TMA (conv3x3_tc.cu,
-// conv3x3_wgrad_tc.cu): mbarriers with a wait that traps instead of hanging,
-// 4-D and 2-D TMA loads, the shared-memory matrix descriptor with the
-// 128-byte swizzle, the m64n128k16 bf16 product, and the bf16 tensor map
-// encoder (cuTensorMapEncodeTiled through the runtime, so no -lcuda).
+// conv3x3_wgrad_tc.cu, conv3x3_tf32x3.cu): mbarriers with a wait that traps
+// instead of hanging, 4-D, 3-D and 2-D TMA loads, the shared-memory matrix
+// descriptor with the 128-byte swizzle, the m64n128k16 bf16 and m64n128k8
+// tf32 products, and the tensor map encoder (cuTensorMapEncodeTiled through
+// the runtime, so no -lcuda).
 // Each including source gets its own copy (anonymous namespace).
 #pragma once
 
@@ -71,6 +72,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
   asm volatile(
@@ -135,6 +145,35 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(1), "n"(TRANS_A));
 }
 
+// d[64] = A (64x8) * B (8x128) + (scale_d ? d : 0), tf32 x tf32 -> fp32,
+// both from shared memory and both K-major (the only layout wgmma takes for
+// 32-bit operands), no negation.  Each operand is an fp32 word holding a
+// TF32 value (the callers clear its low 13 bits).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float* d, uint64_t da, uint64_t db,
+                                                     int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -157,13 +196,15 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// bf16 tensor map of `rank` dims (innermost first), 128-byte swizzle, zero fill.
+// Tensor map of `rank` dims (innermost first) of `type` (bf16 unless
+// given), 128-byte swizzle, zero fill.
 CUresult encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                const cuuint64_t* strides, const cuuint32_t* box) {
+                const cuuint64_t* strides, const cuuint32_t* box,
+                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   EncodeTiled fn = encoder();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides,
             box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

@@ -39,12 +39,18 @@ _SIGNATURES = {
     # x, w, bias, out, workspace, B, H, W, Cin, Cout, bias_stride, box_h, box_w,
     # bm, splits, steps_per_split, stream
     "conv3x3_tc_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # the same for the fp32 tf32x3 variant, its kernel the split (2,3,3,Cout,Cin)
+    "conv3x3_tf32x3_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _P),
+    # w (3,3,Cin,Cout), out (2,3,3,N,K), Cin, Cout, flip (1: the input gradient's), stream
+    "conv3x3_tf32x3_split_weight": (_P, _P, _I, _I, _I, _P),
     # x, dy, dw, workspace, B, H, W, Cin, Cout, box_h, box_w, splits, cluster, stream
     "conv3x3_wgrad_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # cluster size, out: the most clusters of the tc weight-gradient kernel at once
     "conv3x3_wgrad_tc_max_clusters": (_I, ctypes.POINTER(_I)),
     # x, dy, dw, workspace, B, H, W, Cin, Cout, splits, steps_per_split, stream
     "conv3x3_wgrad_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "conv3x3_wgrad_tf32x3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, dy, dw, workspace, B, H, W, Cin, Cout, is_bf16, out_side, box_h, box_w, splits, stream
     "conv3x3_wgrad_narrow": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, dy, dw, workspace, B, H, W, Cin, Cout, is_bf16, splits, steps_per_split, stream

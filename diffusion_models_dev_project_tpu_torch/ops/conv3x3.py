@@ -1,18 +1,24 @@
 """3x3 stride-1 zero-padding-1 convolution, NHWC x HWIO + bias -> NHWC.
 
 Port of the Pallas TPU kernel `ops/conv3x3.py::conv3x3_same` of the JAX
-package.  On a CUDA tensor `conv3x3` launches one of three hand-written
+package.  On a CUDA tensor `conv3x3` launches one of four hand-written
 kernels, chosen by `plan` from the dtype and the shape alone:
 
 - `tc` (`csrc/conv3x3_tc.cu`): bf16 with Cin and Cout multiples of 64, the
   UNet's 60 hot convs.  An implicit GEMM on the tensor cores (`wgmma`) fed
   by TMA, with the K loop split over several blocks on small maps;
+- `tf32x3` (`csrc/conv3x3_tf32x3.cu`): fp32 with Cin and Cout multiples of
+  64, the same 60 convs in the fp32 default compute dtype.  The same GEMM on
+  `wgmma` tf32, each fp32 operand split into TF32 hi + lo and each product
+  taken as hi*hi + hi*lo + lo*hi (fp32 accuracy; `conv3x3_tf32x3_reference`
+  is its arithmetic), its kernel operand split once per weight version and
+  cached on the weight;
 - `narrow` (`csrc/conv3x3.cu`): Cout < 16 (the UNet's final conv), one
   thread per output pixel over a shared-memory tile, bound by bytes;
-- `simt` (`csrc/conv3x3.cu`): everything else (fp32 I/O, the Cin = 1 stem,
-  other channel counts), fp32 FMA on the CUDA cores.
+- `simt` (`csrc/conv3x3.cu`): everything else (the Cin = 1 stem, other
+  channel counts), fp32 FMA on the CUDA cores.
 
-All three accumulate in fp32, add the fp32 bias and round once to the input
+All four accumulate in fp32, add the fp32 bias and round once to the input
 dtype.  The bias is one row (Cout,) or one row per image (B, Cout): a batch
 of images that each carry their own adapted biases (the adapted sampler's
 `sample_batched`); each kernel's epilogue reads the row of the image it
@@ -25,18 +31,23 @@ when an input needs one, `conv3x3` runs as a `torch.autograd.Function`.
 - The input gradient of a stride-1 zero-pad-1 3x3 conv is the same conv of
   the output gradient with the kernel flipped in space and Cin, Cout swapped
   (`swapped_weight`, made once per frozen weight).  `conv3x3_input_grad`
-  runs it through the same three kernels, chosen by `plan` for the swapped
-  channel counts (on a CPU tensor through `conv3x3_reference`).
+  runs it through the same kernels, chosen by `plan` for the swapped
+  channel counts (on a CPU tensor through `conv3x3_reference`); `tf32x3`
+  takes its split operand from the weight flipped in space, which is the
+  swapped conv's kernel already K-major (no swapped copy).
 - The bias gradient is an fp32 sum of the output gradient over (B, H, W),
   or over (H, W) for a bias per image.
 - The weight gradient, dW[di, dj] = x(shifted by the tap)^T dL/dy, is a
   GEMM of M = 9 Cin, N = Cout, K = B H W pixels: `conv3x3_weight_grad`
   launches `tc` (`csrc/conv3x3_wgrad_tc.cu`: bf16 tensor cores, `wgmma`
   fed by TMA, Cin and Cout multiples of 64; a block owns a column of three
-  taps) or, from `csrc/conv3x3_wgrad.cu`, `mma` (other bf16 shapes with
-  Cin and Cout multiples of 16), `narrow_out` (Cout <= 16: the final conv)
-  and `narrow_in` (Cin <= 16: the stem), each reading its large operand
-  once, or `simt` (fp32 FMA: the other fp32 shapes), with K split over
+  taps), `tf32x3` (`csrc/conv3x3_wgrad_tf32x3.cu`: fp32 with Cin and Cout
+  multiples of 64, `mma.sync` tf32 with each operand split in registers and
+  three products, `conv3x3_wgrad_tf32x3_reference` its arithmetic) or,
+  from `csrc/conv3x3_wgrad.cu`, `mma` (other bf16 shapes with Cin and Cout
+  multiples of 16), `narrow_out` (Cout <= 16: the final conv) and
+  `narrow_in` (Cin <= 16: the stem), each reading its large operand once,
+  or `simt` (fp32 FMA: the other fp32 shapes), with K split over
   blocks as `wgrad_plan` lays it out and the splits added in a fixed order
   (deterministic).  On a CPU tensor `conv3x3_weight_grad_reference`
   computes it.  x is saved for it only when the weight requires a
@@ -57,22 +68,26 @@ from . import _build
 
 __all__ = ["Plan", "VARIANTS", "WGRAD_VARIANTS", "WgradPlan", "backward_launches",
            "backward_launches_by_variant", "conv3x3", "conv3x3_input_grad", "conv3x3_reference",
-           "conv3x3_tiled_reference", "conv3x3_weight_grad", "conv3x3_weight_grad_reference",
+           "conv3x3_tf32x3_reference", "conv3x3_tiled_reference", "conv3x3_weight_grad",
+           "conv3x3_weight_grad_reference", "conv3x3_wgrad_tf32x3_reference",
            "conv3x3_wgrad_tiled_reference", "device_sms", "launches", "launches_by_variant", "plan",
-           "swapped_weight", "wgrad_launches", "wgrad_launches_by_variant", "wgrad_plan"]
+           "swapped_weight", "tf32_split", "wgrad_launches", "wgrad_launches_by_variant",
+           "wgrad_plan"]
 
-VARIANTS = ("tc", "narrow", "simt")
+VARIANTS = ("tc", "tf32x3", "narrow", "simt")
 launches = 0    # forward calls that launched a kernel since the caller last set this to 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)    # the same, by variant
 backward_launches = 0    # input-gradient calls that launched a kernel, the same way
 backward_launches_by_variant = dict.fromkeys(VARIANTS, 0)
-WGRAD_VARIANTS = ("tc", "mma", "narrow_out", "narrow_in", "simt")
+WGRAD_VARIANTS = ("tc", "tf32x3", "mma", "narrow_out", "narrow_in", "simt")
 wgrad_launches = 0    # weight-gradient calls that launched a kernel, the same way
 wgrad_launches_by_variant = dict.fromkeys(WGRAD_VARIANTS, 0)
 
 SMS = 132          # streaming multiprocessors of an H100 SXM: the plans' default
 TC_BK = 64         # input channels per K step of `tc` (128 bytes of bf16: one swizzled row)
 TC_BN = 128        # output channels per `tc` tile
+TF32_BK = 32       # input channels per K step of `tf32x3` (128 bytes of fp32)
+TF32_PROMOTE = 4   # `tf32x3` forward: K steps per run of its accumulator before the fp32 total
 MIN_BLOCKS = 100   # at SMS: a grid of fewer blocks leaves a quarter of the SMs idle
 NARROW_MAX_COUT = 15
 NARROW_TILE = 16   # `narrow` tiles are 16 x 16 output pixels
@@ -81,16 +96,19 @@ NARROW_TILE = 16   # `narrow` tiles are 16 x 16 output pixels
 # a K step is a box of at most 128 output pixels, 8 wide; splits of K come
 # in clusters that add their partials on chip.  `mma`
 # (csrc/conv3x3_wgrad.cu): 128 channels of one tap x 128 output channels
-# over 32-pixel steps; `simt`: 64 (tap, channel) rows x 64 output channels
-# over 16-pixel steps; both aim at WGRAD_BLOCKS_PER_SM blocks per SM.
+# over 32-pixel steps, and `tf32x3` (csrc/conv3x3_wgrad_tf32x3.cu) the
+# same in fp32; `simt`: 64 (tap, channel) rows x 64 output channels over
+# 16-pixel steps; all three aim at WGRAD_BLOCKS_PER_SM blocks per SM.
 # `narrow_out` / `narrow_in`: 128 channels of the large operand per block,
 # a split per tile of rows x at most NARROW_WGRAD_COLS columns of one image.
 WGRAD_TC_TILE = (128, 128)
 WGRAD_TC_PIXELS = 128
 WGRAD_TC_CLUSTER = 2          # splits per cluster (or 1)
 WGRAD_MMA_TILE = (128, 128, 32)
+WGRAD_TF32X3_TILE = (128, 128, 32)
 WGRAD_SIMT_TILE = (64, 64, 16)
 WGRAD_BLOCKS_PER_SM = 4
+WGRAD_TF32X3_BLOCKS_PER_SM = 2   # `tf32x3`'s residency (104 KB of stages a block)
 WGRAD_MIN_STEPS = 16          # K steps per split at least, so partial sums stay few
 WGRAD_WIDE_SPLITS = 64        # more partials: added 8 strided runs at a time (csrc/conv3x3_wgrad.cu)
 NARROW_WGRAD_CHANNELS = 128
@@ -99,9 +117,10 @@ NARROW_WGRAD_BLOCKS_PER_SM = 3   # the one-channel narrow kernels' residency (51
 
 
 class Plan(NamedTuple):
-    """How `conv3x3` runs one shape.  For `tc` an output tile is a box of
-    `box` = (rows, cols) pixels of one image (`bm` of them) by `bn` channels;
-    its K loop of `k_steps` steps (one tap x 64 input channels each) is cut
+    """How `conv3x3` runs one shape.  For `tc` and `tf32x3` an output tile is
+    a box of `box` = (rows, cols) pixels of one image (`bm` of them) by `bn`
+    channels; its K loop of `k_steps` steps (one tap x 64 input channels
+    each, `tf32x3` 32) is cut
     into `splits` ranges of `steps_per_split`, each run by its own block,
     whose fp32 partials (`workspace_bytes`) a second kernel adds up."""
     variant: str
@@ -119,8 +138,15 @@ def _tc_eligible(cin: int, cout: int, dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16 and cin % TC_BK == 0 and cout % 64 == 0
 
 
+def _tf32x3_eligible(cin: int, cout: int, dtype: torch.dtype) -> bool:
+    return dtype == torch.float32 and cin % 64 == 0 and cout % 64 == 0
+
+
 def _tc_plan(b: int, h: int, w: int, cin: int, cout: int,
-             splits: Optional[int], sms: int) -> Plan:
+             splits: Optional[int], sms: int, variant: str = "tc") -> Plan:
+    """`tc`'s tiling and split of K, or `tf32x3`'s: the same boxes and
+    residency (a 128-pixel tile a block, one block per SM; 64-pixel tiles
+    two), K steps of 32 channels."""
     n_tiles = -(-cout // TC_BN)
     # 128-pixel tiles (two consumer warpgroups, one block per SM) unless too
     # few of them to fill the card; 64-pixel tiles then run two blocks per SM
@@ -129,7 +155,7 @@ def _tc_plan(b: int, h: int, w: int, cin: int, cout: int,
     wt = min(1 << (w.bit_length() - 1), bm)          # widest power of two <= W
     ht = bm // wt
     tiles = b * -(-h // ht) * -(-w // wt) * n_tiles
-    k_steps = 9 * cin // TC_BK
+    k_steps = 9 * cin // (TC_BK if variant == "tc" else TF32_BK)
 
     def per_split(s):
         return -(-k_steps // s)
@@ -142,25 +168,31 @@ def _tc_plan(b: int, h: int, w: int, cin: int, cout: int,
     if not 1 <= splits <= k_steps or -(-k_steps // per_split(splits)) != splits:
         raise ValueError(f"conv3x3: {splits} splits of {k_steps} K steps leave one empty")
     ws = 4 * splits * b * h * w * cout if splits > 1 else 0
-    return Plan("tc", (ht, wt), bm, TC_BN, tiles, k_steps, splits, per_split(splits), ws)
+    return Plan(variant, (ht, wt), bm, TC_BN, tiles, k_steps, splits, per_split(splits), ws)
 
 
 @functools.lru_cache(maxsize=None)
 def plan(b: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
          variant: Optional[str] = None, splits: Optional[int] = None, sms: int = SMS) -> Plan:
     """The kernel and tiling for x (b, h, w, cin) -> cout channels in `dtype`
-    on a device of `sms` SMs: `tc` for bf16 with Cin and Cout multiples of
-    64, `narrow` for Cout < 16, `simt` otherwise.  `variant` and `splits`
-    force a choice (measurements only); a variant that cannot take the shape
-    raises."""
+    on a device of `sms` SMs: `tc` for bf16 and `tf32x3` for fp32 with Cin
+    and Cout multiples of 64, `narrow` for Cout < 16, `simt` otherwise.
+    `variant` and `splits` force a choice (measurements only); a variant
+    that cannot take the shape raises."""
     if variant is None:
         variant = ("tc" if _tc_eligible(cin, cout, dtype)
+                   else "tf32x3" if _tf32x3_eligible(cin, cout, dtype)
                    else "narrow" if cout <= NARROW_MAX_COUT else "simt")
     if variant == "tc":
         if not _tc_eligible(cin, cout, dtype):
             raise ValueError(f"conv3x3: tc takes bf16 with Cin, Cout multiples of 64, "
                              f"not {dtype} {cin}->{cout}")
         return _tc_plan(b, h, w, cin, cout, splits, sms)
+    if variant == "tf32x3":
+        if not _tf32x3_eligible(cin, cout, dtype):
+            raise ValueError(f"conv3x3: tf32x3 takes fp32 with Cin, Cout multiples of 64, "
+                             f"not {dtype} {cin}->{cout}")
+        return _tc_plan(b, h, w, cin, cout, splits, sms, "tf32x3")
     if splits not in (None, 1):
         raise ValueError(f"conv3x3: {variant} does not split K")
     if variant == "narrow":
@@ -244,6 +276,63 @@ def conv3x3_tiled_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.T
     return (y[:, :h, :w, :cout] + _bias_nhwc(bias)).to(x.dtype)
 
 
+def tf32_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) fp32 tensors holding TF32 values, the `tf32x3` kernels'
+    split: hi is t with its low 13 bits cleared (10 mantissa bits kept), lo
+    is t - hi the same way; t = hi + lo to about 2^-20 relative."""
+    def trunc(v):
+        return (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+    hi = trunc(t.float())
+    return hi, trunc(t.float() - hi)
+
+
+def _tf32x3_products(a: Tuple[torch.Tensor, torch.Tensor],
+                     b: Tuple[torch.Tensor, torch.Tensor], k: int) -> torch.Tensor:
+    """The `tf32x3` kernels' product of split operands (hi, lo): per slice
+    of `k` along the inner axis, hi*hi, then hi*lo, then lo*hi, added in that
+    order into one fp32 sum."""
+    acc = None
+    for k0 in range(0, a[0].shape[-1], k):
+        ah, al = (t[..., k0:k0 + k] for t in a)
+        bh, bl = (t[k0:k0 + k] for t in b)
+        for term in (ah @ bh, ah @ bl, al @ bh):
+            acc = term if acc is None else acc + term
+    return acc
+
+
+def conv3x3_tf32x3_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                             p: Plan) -> torch.Tensor:
+    """`tf32x3`'s arithmetic as plan `p` lays it out (for tests): x and the
+    weight split by `tf32_split`; per split of K, its K steps (one tap x 32
+    input channels of the zero-padded x) in runs of `TF32_PROMOTE`, each
+    run's sum over its 8-channel slices of the three products hi*hi, hi*lo,
+    lo*hi added to the split's fp32 total; the splits' partials added in
+    order, then the bias (no rounding: fp32 I/O).  Which output pixels share
+    a block does not change a value, so the tiles are not walked."""
+    if p.variant != "tf32x3":
+        raise ValueError(f"conv3x3_tf32x3_reference emulates tf32x3, not {p.variant}")
+    b, h, w, cin = x.shape
+    cout = weight.shape[-1]
+    xp = tf32_split(torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1)))
+    wf = tf32_split(weight.float().reshape(9 * cin, cout))
+    chunks = cin // TF32_BK
+
+    def step(k):
+        tap, ch = divmod(k, chunks)
+        di, dj = divmod(tap, 3)
+        c0, row = ch * TF32_BK, tap * cin + ch * TF32_BK
+        a = tuple(t[:, di:di + h, dj:dj + w, c0:c0 + TF32_BK].reshape(-1, TF32_BK) for t in xp)
+        return _tf32x3_products(a, tuple(t[row:row + TF32_BK] for t in wf), 8)
+
+    parts = []
+    for s in range(p.splits):
+        steps = range(s * p.steps_per_split, min((s + 1) * p.steps_per_split, p.k_steps))
+        runs = [functools.reduce(torch.add, map(step, steps[i:i + TF32_PROMOTE]))
+                for i in range(0, len(steps), TF32_PROMOTE)]
+        parts.append(functools.reduce(torch.add, runs))
+    return (functools.reduce(torch.add, parts).reshape(b, h, w, cout) + _bias_nhwc(bias)).float()
+
+
 def conv3x3_weight_grad_reference(x: torch.Tensor, grad_out: torch.Tensor) -> torch.Tensor:
     """dL/dW (3, 3, Cin, Cout) in fp32: per tap, the shifted x (zero halo)
     transposed times the output gradient (the CPU path's weight gradient)."""
@@ -281,6 +370,7 @@ class WgradPlan(NamedTuple):
 def _wgrad_takes(variant: str, cin: int, cout: int, dtype: torch.dtype) -> bool:
     bf16 = dtype == torch.bfloat16
     return {"tc": bf16 and cin % 64 == 0 and cout % 64 == 0,
+            "tf32x3": _tf32x3_eligible(cin, cout, dtype),
             "mma": bf16 and cin % 16 == 0 and cout % 16 == 0,
             "narrow_out": cout <= 16, "narrow_in": cin <= 16, "simt": True}[variant]
 
@@ -343,11 +433,13 @@ def wgrad_plan(b: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
                cluster: Optional[int] = None) -> WgradPlan:
     """The weight-gradient kernel and its split of K = b*h*w pixels for x
     (b, h, w, cin) and dL/dy (b, h, w, cout) in `dtype` on a device of `sms`
-    SMs: `tc` for bf16 with Cin and Cout multiples of 64, `mma` for other
-    bf16 with multiples of 16, `narrow_out` for Cout <= 16, `narrow_in` for
-    Cin <= 16, `simt` otherwise.  Without `splits`, `tc` splits K so that
-    its grid is one wave of a block per SM, in clusters of up to
-    `WGRAD_TC_CLUSTER` splits; `mma` and `simt` split until the grid holds
+    SMs: `tc` for bf16 and `tf32x3` for fp32 with Cin and Cout multiples of
+    64, `mma` for other bf16 with multiples of 16, `narrow_out` for Cout <=
+    16, `narrow_in` for Cin <= 16, `simt` otherwise.  Without `splits`, `tc`
+    splits K so that its grid is one wave of a block per SM, in clusters of
+    up to `WGRAD_TC_CLUSTER` splits; `tf32x3` into the fewest waves of its
+    `WGRAD_TF32X3_BLOCKS_PER_SM` resident blocks per SM times steps per
+    split; `mma` and `simt` split until the grid holds
     about `WGRAD_BLOCKS_PER_SM` blocks per SM, keeping at least
     `WGRAD_MIN_STEPS` steps per split; the narrow variants take a split per
     tile, tiles as large as keep about `NARROW_WGRAD_BLOCKS_PER_SM` blocks
@@ -365,14 +457,22 @@ def wgrad_plan(b: int, h: int, w: int, cin: int, cout: int, dtype: torch.dtype,
         return _wgrad_tc_plan(b, h, w, cin, cout, splits, cluster, sms)
     if variant.startswith("narrow"):
         return _wgrad_narrow_plan(variant, b, h, w, cin, cout, splits, sms)
-    if variant == "mma":
-        bm, bn, bk = WGRAD_MMA_TILE
+    if variant in ("mma", "tf32x3"):
+        bm, bn, bk = WGRAD_MMA_TILE if variant == "mma" else WGRAD_TF32X3_TILE
         tiles = 9 * -(-cin // bm) * -(-cout // bn)
     else:
         bm, bn, bk = WGRAD_SIMT_TILE
         tiles = -(-9 * cin // bm) * -(-cout // bn)
     k_steps = -(-b * h * w // bk)
-    if splits is None:
+    if splits is None and variant == "tf32x3":
+        # fewest waves of its resident blocks x (steps per split + two of
+        # fill and epilogue), at least WGRAD_MIN_STEPS steps a split; ties
+        # go to fewer splits, which write fewer partial sums
+        slots = WGRAD_TF32X3_BLOCKS_PER_SM * sms
+        cands = {_even_splits(k_steps, s)[0]
+                 for s in range(1, max(1, k_steps // WGRAD_MIN_STEPS) + 1)}
+        splits = min(cands, key=lambda s: (-(-tiles * s // slots) * (-(-k_steps // s) + 2), s))
+    elif splits is None:
         splits = max(1, min(-(-WGRAD_BLOCKS_PER_SM * sms // tiles), k_steps // WGRAD_MIN_STEPS))
     if not 1 <= splits <= min(k_steps, 65535):
         raise ValueError(f"conv3x3 weight grad: {splits} splits of {k_steps} K steps")
@@ -393,8 +493,10 @@ def conv3x3_wgrad_tiled_reference(x: torch.Tensor, grad_out: torch.Tensor,
                                   p: WgradPlan) -> torch.Tensor:
     """The weight-gradient kernels' split and summation order as plan `p`
     lays it out (for tests): per split, fp32 sums over its K steps of the
-    tap-shifted x (zero halo) transposed times dL/dy; `mma` and `simt` take
-    `p.bk` pixels of the flattened grid a step, `tc` a box of output pixels
+    tap-shifted x (zero halo) transposed times dL/dy; `mma`, `tf32x3` and
+    `simt` take `p.bk` pixels of the flattened grid a step (`tf32x3` with
+    both operands split by `tf32_split` and each 8-pixel slice's three
+    products hi*hi, hi*lo, lo*hi added in order), `tc` a box of output pixels
     (the three taps of each kernel column from one x box), the narrow
     variants a tile of pixels (`narrow_out`: of x, each feeding the nine
     taps' neighbours of dL/dy; `narrow_in`: of dL/dy), each row worker's
@@ -411,10 +513,17 @@ def conv3x3_wgrad_tiled_reference(x: torch.Tensor, grad_out: torch.Tensor,
         taps = torch.stack([xp[:, di:di + h, dj:dj + w, :].reshape(n, cin)
                             for di in range(3) for dj in range(3)], dim=1).reshape(n, 9 * cin)
         gf = g.reshape(n, cout)
+        if p.variant == "tf32x3":
+            taps_s, gf_s = tf32_split(taps.T), tf32_split(gf)
 
         def step(k):
             rows = slice(k * p.bk, min((k + 1) * p.bk, n))
-            return (taps[rows].T @ gf[rows]).reshape(3, 3, cin, cout)
+            if p.variant == "tf32x3":
+                prod = _tf32x3_products(tuple(t[:, rows] for t in taps_s),
+                                        tuple(t[rows] for t in gf_s), 8)
+            else:
+                prod = taps[rows].T @ gf[rows]
+            return prod.reshape(3, 3, cin, cout)
     elif p.variant == "tc":
         ht, wt = p.box
         hh, ww = -(-h // ht) * ht, -(-w // wt) * wt      # TMA's zero fill past the map
@@ -471,6 +580,19 @@ def conv3x3_wgrad_tiled_reference(x: torch.Tensor, grad_out: torch.Tensor,
     return functools.reduce(torch.add, groups)
 
 
+def conv3x3_wgrad_tf32x3_reference(x: torch.Tensor, grad_out: torch.Tensor,
+                                   p: Optional[WgradPlan] = None) -> torch.Tensor:
+    """`tf32x3`'s weight-gradient arithmetic (for tests): the split rule and
+    the order of the three products per 8-pixel slice, over plan `p`'s
+    (default: `wgrad_plan`'s) splits of K, added in its order."""
+    if p is None:
+        b, h, w, cin = x.shape
+        p = wgrad_plan(b, h, w, cin, grad_out.shape[-1], torch.float32, "tf32x3")
+    if p.variant != "tf32x3":
+        raise ValueError(f"conv3x3_wgrad_tf32x3_reference emulates tf32x3, not {p.variant}")
+    return conv3x3_wgrad_tiled_reference(x, grad_out, p)
+
+
 def _input_grad_operands(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The input-gradient conv's kernel and its zero bias, made once per
     weight and kept on the weight until its version changes (a frozen base
@@ -482,6 +604,38 @@ def _input_grad_operands(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
                   torch.zeros(swapped.shape[-1], device=weight.device))
         weight._conv3x3_swapped = cached
     return cached[1], cached[2]
+
+
+def _tf32x3_operand(weight: torch.Tensor, flip: bool) -> torch.Tensor:
+    """`tf32x3`'s kernel operand, (2, 3, 3, N, K) fp32 with K contiguous:
+    the TF32 hi parts, then the lo parts, of the forward's kernel (N = Cout,
+    K = Cin: the weight transposed) or, with `flip`, of the input gradient's
+    (N = Cin, K = Cout: the weight flipped in space).  Made on the card by
+    `conv3x3_tf32x3_split_weight` once per weight version and kept on the
+    weight."""
+    key = "_conv3x3_tf32x3_flip" if flip else "_conv3x3_tf32x3"
+    cached = getattr(weight, key, None)
+    if cached is None or cached[0] != weight._version:
+        cin, cout = weight.shape[2:]
+        n, k = (cin, cout) if flip else (cout, cin)
+        w = weight.detach().contiguous()
+        out = torch.empty((2, 3, 3, n, k), dtype=torch.float32, device=weight.device)
+        with torch.cuda.device(weight.device):
+            stream = torch.cuda.current_stream(weight.device).cuda_stream
+            rc = _build.library().conv3x3_tf32x3_split_weight(w.data_ptr(), out.data_ptr(), cin,
+                                                              cout, int(flip), stream)
+        _build.check(rc, "conv3x3 tf32x3 weight split")
+        cached = (weight._version, out)
+        setattr(weight, key, cached)
+    return cached[1]
+
+
+def _zero_bias(weight: torch.Tensor) -> torch.Tensor:
+    """The input-gradient conv's zero bias (Cin,), kept on the weight."""
+    zero = getattr(weight, "_conv3x3_zero", None)
+    if zero is None:
+        zero = weight._conv3x3_zero = torch.zeros(weight.shape[2], device=weight.device)
+    return zero
 
 
 def swapped_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -499,11 +653,11 @@ def _check_kernel_inputs(x, weight, bias):
         raise ValueError("conv3x3: x and weight must be contiguous")
 
 
-def _launch(x, weight, bias, variant, splits) -> Tuple[torch.Tensor, str]:
-    """One kernel launch on checked CUDA tensors; (output, variant)."""
+def _launch(x, weight, bias, p: Plan, operand=None) -> Tuple[torch.Tensor, str]:
+    """One launch of plan `p`'s kernel on checked CUDA tensors (`tf32x3`: on
+    `operand`, by default the split of `weight`); (output, variant)."""
     bsz, h, w, cin = x.shape
-    cout = weight.shape[-1]
-    p = plan(bsz, h, w, cin, cout, x.dtype, variant, splits, device_sms(x.device))
+    cout = bias.shape[-1]
     bias32 = bias.detach().float().contiguous()
     bias_stride = cout if bias.ndim == 2 else 0     # a row per image, or one row
     out = torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device)
@@ -513,13 +667,16 @@ def _launch(x, weight, bias, variant, splits) -> Tuple[torch.Tensor, str]:
     is_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (x.data_ptr(), weight.data_ptr(), bias32.data_ptr(), out.data_ptr())
-        if p.variant == "tc":
+        if p.variant == "tf32x3" and operand is None:
+            operand = _tf32x3_operand(weight, flip=False)
+        args = (x.data_ptr(), (weight if operand is None else operand).data_ptr(),
+                bias32.data_ptr(), out.data_ptr())
+        if p.variant in ("tc", "tf32x3"):
             ws = (torch.empty(p.workspace_bytes // 4, dtype=torch.float32, device=x.device)
                   if p.splits > 1 else None)
-            rc = lib.conv3x3_tc_forward(*args, ws.data_ptr() if ws is not None else None,
-                                        bsz, h, w, cin, cout, bias_stride, p.box[0], p.box[1],
-                                        p.bm, p.splits, p.steps_per_split, stream)
+            fn = lib.conv3x3_tc_forward if p.variant == "tc" else lib.conv3x3_tf32x3_forward
+            rc = fn(*args, ws.data_ptr() if ws is not None else None, bsz, h, w, cin, cout,
+                    bias_stride, p.box[0], p.box[1], p.bm, p.splits, p.steps_per_split, stream)
         elif p.variant == "narrow":
             rc = lib.conv3x3_narrow_forward(*args, bsz, h, w, cin, cout, bias_stride, is_bf16,
                                             stream)
@@ -533,7 +690,9 @@ def _forward(x, weight, bias, kernel, variant, splits):
     global launches
     if not kernel:
         return conv3x3_reference(x, weight, bias)
-    out, used = _launch(x, weight, bias, variant, splits)
+    b, h, w, cin = x.shape
+    p = plan(b, h, w, cin, weight.shape[-1], x.dtype, variant, splits, device_sms(x.device))
+    out, used = _launch(x, weight, bias, p)
     if used is not None:
         launches += 1
         launches_by_variant[used] += 1
@@ -553,18 +712,27 @@ def conv3x3_input_grad(grad_out: torch.Tensor, weight: torch.Tensor,
     """dL/dx (B, H, W, Cin) of y = conv3x3(x, weight, bias), given dL/dy
     (B, H, W, Cout): the conv of dL/dy with `swapped_weight(weight)` and no
     bias, through the kernel `plan` picks for it (`conv3x3_reference` on a
-    CPU tensor or with `use_kernel=False`).  The result has dL/dy's dtype."""
+    CPU tensor or with `use_kernel=False`; `tf32x3` on the split of the
+    weight flipped in space, with no swapped copy).  The result has dL/dy's
+    dtype."""
     global backward_launches
-    ws, zero = _input_grad_operands(weight)
     if grad_out.device.type == "cpu" or not use_kernel:
+        ws, zero = _input_grad_operands(weight)
         return conv3x3_reference(grad_out, ws, zero)
     grad_out = grad_out.contiguous()
-    _check_kernel_inputs(grad_out, ws, zero)
-    out, used = _launch(grad_out, ws, zero, None, None)
+    b, h, w, cout = grad_out.shape
+    p = plan(b, h, w, cout, weight.shape[2], grad_out.dtype, None, None, device_sms(grad_out.device))
+    if p.variant == "tf32x3":
+        _check_kernel_inputs(grad_out, weight.detach(), _zero_bias(weight))
+        out, used = _launch(grad_out, None, _zero_bias(weight), p, _tf32x3_operand(weight, True))
+    else:
+        ws, zero = _input_grad_operands(weight)
+        _check_kernel_inputs(grad_out, ws, zero)
+        out, used = _launch(grad_out, ws, zero, p)
     if used is not None:
         backward_launches += 1
         backward_launches_by_variant[used] += 1
-        _flops.report(_conv_flops(grad_out.shape, ws.shape[-1]), "conv3x3_input_grad")
+        _flops.report(_conv_flops(grad_out.shape, weight.shape[2]), "conv3x3_input_grad")
     return out
 
 
@@ -579,12 +747,13 @@ def device_sms(device: torch.device) -> int:
     return _SMS_BY_DEVICE[idx]
 
 
-def conv3x3_weight_grad(x: torch.Tensor, grad_out: torch.Tensor,
-                        use_kernel: bool = True, *, splits: Optional[int] = None) -> torch.Tensor:
+def conv3x3_weight_grad(x: torch.Tensor, grad_out: torch.Tensor, use_kernel: bool = True, *,
+                        variant: Optional[str] = None,
+                        splits: Optional[int] = None) -> torch.Tensor:
     """dL/dW (3, 3, Cin, Cout) in fp32 of y = conv3x3(x, weight, bias), given
     x (B, H, W, Cin) and dL/dy (B, H, W, Cout) of one dtype: on a CUDA
-    tensor the kernel `wgrad_plan` picks for the device (`splits` forces its
-    split of K, for measurements), on a CPU tensor or with
+    tensor the kernel `wgrad_plan` picks for the device (`variant` and
+    `splits` force its choice, for measurements), on a CPU tensor or with
     `use_kernel=False` `conv3x3_weight_grad_reference`."""
     global wgrad_launches
     if x.ndim != 4 or grad_out.shape[:3] != x.shape[:3]:
@@ -603,7 +772,7 @@ def conv3x3_weight_grad(x: torch.Tensor, grad_out: torch.Tensor,
     dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     if x.numel() == 0 or grad_out.numel() == 0:
         return dw.zero_()
-    p = wgrad_plan(bsz, h, w, cin, cout, x.dtype, None, splits, device_sms(x.device))
+    p = wgrad_plan(bsz, h, w, cin, cout, x.dtype, variant, splits, device_sms(x.device))
     ws = (torch.empty(p.workspace_bytes // 4, dtype=torch.float32, device=x.device)
           if p.workspace_bytes else None)
     lib = _build.library()
@@ -614,6 +783,8 @@ def conv3x3_weight_grad(x: torch.Tensor, grad_out: torch.Tensor,
                 ws.data_ptr() if ws is not None else None, bsz, h, w, cin, cout)
         if p.variant == "tc":
             rc = lib.conv3x3_wgrad_tc(*args, *p.box, p.splits, p.cluster, stream)
+        elif p.variant == "tf32x3":
+            rc = lib.conv3x3_wgrad_tf32x3(*args, p.splits, p.steps_per_split, stream)
         elif p.variant == "mma":
             rc = lib.conv3x3_wgrad_mma(*args, p.splits, p.steps_per_split, stream)
         elif p.variant == "simt":

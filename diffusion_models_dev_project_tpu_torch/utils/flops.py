@@ -11,7 +11,9 @@ sees them, so their wrappers report their work here while a count is
 active (`report`), and only when they launch a kernel (their plain
 versions are matmuls that the counter sees):
 - conv3x3: 2·B·H·W·9·Cin·Cout per forward launch, the same per input- and
-  weight-gradient launch;
+  weight-gradient launch, whatever the variant (`tf32x3` reports the fp32
+  work, not its three TF32 products: the function's FLOPs, not the
+  kernel's);
 - attention: 4·BH·T²·d per forward launch, 8·BH·T²·d per backward launch.
 
 `fn_flops` runs the function once (PyTorch has no abstract tracing that

@@ -79,7 +79,7 @@ def plan_on_every_flagship_conv():
     assert len(shapes) == 62
     plans = [C.plan(*xs, cout, dt) for xs, cout, dt in shapes]
     by_variant = {v: sum(p.variant == v for p in plans) for v in C.VARIANTS}
-    assert by_variant == {"tc": 60, "narrow": 1, "simt": 1}
+    assert by_variant == {"tc": 60, "tf32x3": 0, "narrow": 1, "simt": 1}
     assert [xs[-1] for (xs, _, _), p in zip(shapes, plans) if p.variant == "simt"] == [1]
     _check_tc_plans(shapes, plans)
     # forced choices that cannot run raise; the measurement override takes simt anywhere
@@ -114,10 +114,10 @@ def plan_on_every_512_conv():
         assert off_tc == [(xs[-1], cout) for xs, cout, _ in shapes
                           if xs[-1] % 64 or cout % 64]
         if channels == 128:
-            assert by_variant == {"tc": 70, "narrow": 1, "simt": 1}
+            assert by_variant == {"tc": 70, "tf32x3": 0, "narrow": 1, "simt": 1}
             assert off_tc == [(1, 64), (64, 1)]
         else:
-            assert by_variant == {"tc": 60, "narrow": 1, "simt": 11}
+            assert by_variant == {"tc": 60, "tf32x3": 0, "narrow": 1, "simt": 11}
         _check_tc_plans(shapes, plans)
         # the 512² map at 64 channels: full 128-pixel tiles, one split
         p = C.plan(1, 512, 512, 64, 64, torch.bfloat16)

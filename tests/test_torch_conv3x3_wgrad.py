@@ -114,7 +114,8 @@ def plans_on_the_flagship_training_step():
     assert p.tiles * p.splits > C.SMS * 7 // 8
     # the other variants by dtype and shape; mma's and simt's plans as before
     assert C.wgrad_plan(1, 8, 8, 48, 80, torch.bfloat16).variant == "mma"
-    assert C.wgrad_plan(1, 8, 8, 64, 64, torch.float32).variant == "simt"
+    assert C.wgrad_plan(1, 8, 8, 64, 64, torch.float32).variant == "tf32x3"
+    assert C.wgrad_plan(1, 8, 8, 48, 80, torch.float32).variant == "simt"
     assert C.wgrad_plan(1, 8, 8, 64, 3, torch.float32).variant == "narrow_out"
     assert C.wgrad_plan(1, 8, 8, 3, 64, torch.float32).variant == "narrow_in"
     p = C.wgrad_plan(3, 64, 64, 16, 16, torch.bfloat16)
