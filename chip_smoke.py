@@ -19,8 +19,10 @@ points (`scripts/`):
    requires HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS,
    both also in the weight gradient's `wgrad_tc_kernel` and the fp32
    forward's `conv3x3_tf32x3_kernel` by name, and HMMA (mma.sync) in the
-   functions of attention_mma.cu, in both kernels of attention_bwd_mma.cu
-   and in the fp32 weight gradient's `wgrad_tf32x3_kernel`;
+   functions of attention_mma.cu, in both kernels of attention_bwd_mma.cu,
+   in those of the fp32 attention (attention_tf32x3.cu and both kernels of
+   attention_bwd_tf32x3.cu) and in the fp32 weight gradient's
+   `wgrad_tf32x3_kernel`;
 3. kernels: runs each kernel's wrapper at every shape the UNet forward
    gives it (recorded with forward hooks), checks it against its plain
    PyTorch version, and times kernel, plain version and library yardstick;
@@ -62,8 +64,12 @@ points (`scripts/`):
    backward and per batch-3 weight-gradient backward `tf32x3` must take at
    most half of forced `simt`'s time; after an Adam step of its weight
    `tf32x3` must use the updated weight (its split copy is cached on the
-   weight by version); the fp32 attention (`simt`, forward
-   and backward) per pass beside SDPA in fp32, not gated.
+   weight by version); the fp32 attention (`tf32x3`, forward and backward,
+   checked with the other attention shapes: T = 1 to 1024, ragged T, d = 8
+   to 128, the path's shapes at batch 1 and 3, lse2 against a plain one,
+   bitwise equal over two launches, the forced `simt` kernel checked too)
+   per pass at batch 1 and 3 beside forced `simt`, the plain version, SDPA
+   in fp32 and both bounds: each pass at most half of forced `simt`'s time.
    Heads past 256 (`WIDE_HEADS`, d = 320 and 512, fp32 and bf16): the
    chunked `simt` forward and backward against the plain versions, bitwise
    equal over two launches, each call a `simt` launch, timed beside SDPA;
@@ -129,9 +135,10 @@ points (`scripts/`):
    adapted CLI's LoRA run (`FP32_ADAPT_STEPS` x `FP32_ADAPT_OPTIM`, add_cg)
    on val image 0, beside the same run in bf16, and the train CLI
    warm-started for `FP32_TRAIN_STEPS` steps at batch 3: launch counts exact
-   (per forward 60 `tf32x3`, 1 `narrow`, 1 `simt` and 4 `simt` attention;
-   per backward 60 `tf32x3` input gradients and, training, 60 `tf32x3`
-   weight gradients), the plain weight gradient never on CUDA, finite
+   (per forward 60 `tf32x3`, 1 `narrow`, 1 `simt` and 4 `tf32x3`
+   attention; per backward 60 `tf32x3` input gradients, 4 `tf32x3`
+   attention backwards and, training, 60 `tf32x3` weight gradients), the
+   plain weight gradient never on CUDA, finite
    results; ms per outer step and per training step beside bf16's;
 11. several images per call (`SHARD_IMAGES` = 4) on the one card: 11a the
    forward kernels with a bias per image, (4, Cout), at every conv shape of
@@ -229,7 +236,8 @@ points (`scripts/`):
    bars (5 x 3, DDS 50 steps): finite, counts exact.  `--phase15` runs it
    alone after phases 1 and 2;
 16. prints one `{"kernels": [...]}` line (with the 512² rows and the fp32
-   route's `conv3x3_tf32x3` and `conv3x3_weight_grad_tf32x3`), then, last,
+   route's `conv3x3_tf32x3`, `conv3x3_weight_grad_tf32x3`, `attention_tf32x3`
+   and `attention_backward_tf32x3`), then, last,
    the device line `{"ok": true, "device": {...}}`.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -703,11 +711,14 @@ def check_split_operand_follows_weight(gen):
 
 
 # functions whose SASS must hold HMMA (mma.sync): the attention forward, both
-# kernels of its backward and the fp32 weight gradient's `tf32x3`; and HGMMA
-# (wgmma) and UTMALDG (TMA load): the weight gradient's tensor-core kernel and
-# the fp32 forward's `tf32x3`
+# kernels of its backward, the same three of the fp32 attention (`tf32x3`)
+# and the fp32 weight gradient's `tf32x3`; and HGMMA (wgmma) and UTMALDG (TMA
+# load): the weight gradient's tensor-core kernel and the fp32 forward's
+# `tf32x3`
 HMMA_FUNCTIONS = ("attention_mma_kernel", "attention_bwd_mma_dq_kernel",
-                  "attention_bwd_mma_dkdv_kernel", "wgrad_tf32x3_kernel")
+                  "attention_bwd_mma_dkdv_kernel", "attention_tf32x3_kernel",
+                  "attention_bwd_tf32x3_dq_kernel", "attention_bwd_tf32x3_dkdv_kernel",
+                  "wgrad_tf32x3_kernel")
 HGMMA_FUNCTIONS = ("wgrad_tc_kernel", "conv3x3_tf32x3_kernel")
 
 
@@ -776,10 +787,12 @@ def time_sdpa(q4, k4, v4, reps):
 
 
 def check_attention_once(shape, dt, gen):
-    """One kernel call against the plain version; for mma also a second
-    call, which must give the same bits, and a call that saves the rows'
-    log-sum-exp: the same output bit for bit, and lse2 against the plain
-    `attention_lse_reference`.  Returns (inputs, plan, max|diff|, rel)."""
+    """One kernel call against the plain version; for mma and tf32x3 also a
+    second call, which must give the same bits, and a call that saves the
+    rows' log-sum-exp: the same output bit for bit, and lse2 against the
+    plain `attention_lse_reference`; for tf32x3 also the forced `simt`
+    kernel it replaced (the yardstick of its speed gate) against the plain
+    version.  Returns (inputs, plan, max|diff|, rel)."""
     import torch
 
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
@@ -793,14 +806,18 @@ def check_attention_once(shape, dt, gen):
     d, r = rel_err(out, ref)
     if not (torch.isfinite(out).all() and r <= TOL[dt]):
         raise AssertionError(f"attention {p.variant} {shape} {dt}: rel err {r:.3e} > {TOL[dt]}")
-    if p.variant == "mma":
+    if p.variant in ("mma", "tf32x3"):
         if not torch.equal(out, A.attention(q, k, v)):
-            raise AssertionError(f"attention mma {shape}: two launches differ")
+            raise AssertionError(f"attention {p.variant} {shape}: two launches differ")
         out_l, lse = A.attention_with_lse(q, k, v)
         _, r_lse = rel_err(lse, A.attention_lse_reference(q, k))
         if not (torch.equal(out_l, out) and r_lse <= TOL["float32"]):
-            raise AssertionError(f"attention mma {shape}: the output differs with lse on, or "
-                                 f"lse2 is {r_lse:.3e} of max|plain| away (tol {TOL['float32']})")
+            raise AssertionError(f"attention {p.variant} {shape}: the output differs with lse on, "
+                                 f"or lse2 is {r_lse:.3e} of max|plain| away (tol {TOL['float32']})")
+    if p.variant == "tf32x3":
+        _, r_simt = rel_err(A.attention(q, k, v, variant="simt"), ref)
+        if not r_simt <= TOL[dt]:
+            raise AssertionError(f"attention forced simt {shape}: rel err {r_simt:.3e} > {TOL[dt]}")
     return (q, k, v), p, d, r
 
 
@@ -820,14 +837,25 @@ def check_attention(shapes, gen, extras=True):
     # checked only, each with the plan's own key splits.  mma: ragged T over
     # 4 splits (T = 300), a last round with fewer tiles than splits (T = 257),
     # d = 40 and 128, T = 1024 (4 rounds of 4 splits), d = 20 (scalar loads),
-    # d = 128 over several rounds of 2 splits (T = 300); simt: the fp32
-    # shapes, d = 256 in both dtypes, T = 5
+    # d = 128 over several rounds of 2 splits (T = 300); tf32x3: the fp32
+    # shapes; simt: d = 256 in both dtypes
     extra = [((8, 300, 64), "bfloat16"), ((2, 257, 40), "bfloat16"),
              ((3, 100, 128), "bfloat16"), ((8, 1024, 64), "bfloat16"),
              ((2, 37, 20), "bfloat16"), ((3, 300, 128), "bfloat16"),
              ((2, 257, 40), "float32"), ((3, 100, 128), "float32"),
              ((8, 256, 64), "float32"), ((1, 5, 8), "float32"),
              ((2, 64, 256), "float32"), ((2, 64, 256), "bfloat16")] if extras else []
+    # and the rest of tf32x3's: the path's fp32 shapes at batch 1 and at the
+    # training batch (one stage), ragged T over 4 splits, T = 1024, d = 20 and
+    # 128 over several rounds, T = 1, d = 18 and 13 (scalar loads; d = 13
+    # scalar stores).  Their inputs come from a generator of their own, so
+    # that every other check of the run keeps the draws it had before them.
+    added = [((8, 64, 64), "float32"), ((8 * TRAIN_BATCH, 256, 64), "float32"),
+             ((8 * TRAIN_BATCH, 64, 64), "float32"), ((8, 300, 64), "float32"),
+             ((8, 1024, 64), "float32"), ((2, 37, 20), "float32"), ((3, 300, 128), "float32"),
+             ((1, 1, 16), "float32"), ((2, 37, 18), "float32"),
+             ((3, 100, 13), "float32")] if extras else []
+    own = torch.Generator(device="cuda").manual_seed(18)
     keys = ("ms", "plain_ms", "library_ms", "library_best_ms", "bound_ms", "ops_ms", "bytes_ms",
             "simt_ms", "lse_ms")
     tot = dict.fromkeys(keys, 0.0)
@@ -837,9 +865,9 @@ def check_attention(shapes, gen, extras=True):
     log(f"{'attention (BH,T,d)':>28} {'dtype':>8} {'n':>3} {'variant':>7} {'w/s':>5} "
         f"{'kernel_ms':>10} {'simt_ms':>9} {'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} "
         f"{'bound_by':>10} {'rel_err':>9}")
-    for shape, dt in list(counts) + extra:
+    for (shape, dt), g in [(c, gen) for c in list(counts) + extra] + [(c, own) for c in added]:
         n = counts.get((shape, dt), 0)
-        (q, k, v), p, d, r = check_attention_once(shape, dt, gen)
+        (q, k, v), p, d, r = check_attention_once(shape, dt, g)
         worst[dt] = max(worst[dt], r)
         blocking = f"{p.warps}/{p.key_splits}"
         if n == 0:
@@ -873,8 +901,8 @@ def check_attention(shapes, gen, extras=True):
         for key in keys:
             tot[key] += n * row[key]
     log(f"attention max rel err: bf16 {worst['bfloat16']:.3e} (tol {TOL['bfloat16']}), "
-        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']}); mma bitwise equal over two launches "
-        f"and with its log-sum-exp saved")
+        f"fp32 {worst['float32']:.3e} (tol {TOL['float32']}); mma and tf32x3 bitwise equal over "
+        f"two launches and with their log-sum-exp saved")
     tot["library_best"] = "/".join(sorted(best_names))
     log(f"attention per UNet forward ({len(shapes)} calls): kernel {tot['ms']:.4f} ms, simt "
         f"{tot['simt_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, SDPA default "
@@ -1299,7 +1327,7 @@ def check_conv_wgrad(shapes, gen):
 
 def check_attention_backward(shapes, gen):
     """`attention_backward` (the launch function) with each variant that
-    takes the shape, `mma` given the lse2 of the forward kernel
+    takes the shape, `mma` and `tf32x3` given the lse2 of the forward kernel
     (`attention_with_lse`), at the path's attention shapes and at added ones,
     against `attention_backward_reference`: dq, dk and dv each within the
     tolerance of max|plain|, bitwise equal over two launches.  At the path's
@@ -1318,11 +1346,21 @@ def check_attention_backward(shapes, gen):
     # checked only: ragged T over several chunks a warp (T = 300, 1024, and
     # d = 128 in two stages), T = 37 with d = 20 (scalar loads), d = 40, a
     # single row or a few (T = 1, 5 at d = 8), d = 256 (simt only), fp32
+    # (tf32x3 and the forced simt)
     extra = [((8, 300, 64), "bfloat16"), ((2, 37, 20), "bfloat16"), ((3, 100, 128), "bfloat16"),
              ((3, 300, 128), "bfloat16"), ((2, 257, 40), "bfloat16"), ((8, 1024, 64), "bfloat16"),
              ((1, 1, 8), "bfloat16"), ((1, 5, 8), "bfloat16"), ((2, 64, 256), "bfloat16"),
              ((8, 256, 64), "float32"), ((2, 257, 40), "float32"), ((2, 64, 256), "float32"),
              ((1, 5, 8), "float32"), ((1, 1, 16), "float32")]
+    # and the rest of tf32x3's, as in `check_attention`: the path's shapes at
+    # batch 1 and at the training batch, ragged T, T = 1024, d = 20 and 128
+    # over several chunks, d = 18 and 13 (scalar loads), from a generator of
+    # their own
+    added = [((8, 64, 64), "float32"), ((8 * TRAIN_BATCH, 256, 64), "float32"),
+             ((8 * TRAIN_BATCH, 64, 64), "float32"), ((8, 300, 64), "float32"),
+             ((2, 37, 20), "float32"), ((3, 100, 128), "float32"), ((3, 300, 128), "float32"),
+             ((8, 1024, 64), "float32"), ((2, 37, 18), "float32"), ((3, 100, 13), "float32")]
+    own = torch.Generator(device="cuda").manual_seed(18)
     keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
     tot = dict.fromkeys(keys, 0.0)
     by_variant, by_tile = {}, {}
@@ -1331,15 +1369,15 @@ def check_attention_backward(shapes, gen):
     log(f"{'attention bwd (BH,T,d)':>28} {'dtype':>8} {'n':>3} {'variant':>7} {'tile':>4} "
         f"{'grid':>9} {'kernel_ms':>10} {'simt_ms':>9} {'plain_ms':>9} {'library_ms':>10} "
         f"{'bound_ms':>9} {'bound_by':>10} {'rel_err':>9}")
-    for shape, dt in list(counts) + extra:
+    for (shape, dt), draw in [(c, gen) for c in list(counts) + extra] + [(c, own) for c in added]:
         n = counts.get((shape, dt), 0)
         bh, t, dd = shape
         tdt = getattr(torch, dt)
-        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(tdt) for _ in range(4))
+        q, k, v, g = (torch.randn(shape, generator=draw, device="cuda").to(tdt) for _ in range(4))
         o, lse = A.attention_with_lse(q, k, v)
         ref = A.attention_backward_reference(q, k, v, o, g)
         planned = A.backward_plan(bh, t, dd, tdt)
-        variants = ["mma", "simt"] if planned.variant == "mma" else ["simt"]
+        variants = [planned.variant] + (["simt"] if planned.variant != "simt" else [])
         for variant in variants:
             bp = A.backward_plan(bh, t, dd, tdt, variant)
             grads = A.attention_backward(q, k, v, o, g, lse, variant=variant)
@@ -1415,44 +1453,75 @@ def check_attention_backward(shapes, gen):
 
 
 def attention_fp32_pass(shapes, gen):
-    """The fp32 route's attention (the CLIs' default dtype; `simt`, forward
+    """The fp32 route's attention (the CLIs' default dtype; `tf32x3`, forward
     and backward, checked in `check_attention` and `check_attention_backward`)
-    at the path's attention shapes: per UNet pass, the kernel, the plain
-    version, SDPA in fp32 as dispatched by default (its backward: forward and
-    backward captured together, less the forward) and the fp32 bound, timed
-    and printed, not gated.  Returns {"forward": totals, "backward": totals}."""
+    per UNet pass at the path's attention shapes, at batch 1 and at the
+    training batch (B·heads times `TRAIN_BATCH`): the kernel, the forced
+    `simt` kernel it replaced, the plain version and SDPA in fp32 as
+    dispatched by default (its backward: forward and backward captured
+    together, less the forward), by graph replay, beside both bounds (three
+    TF32 products at 495 TFLOP/s, or the bytes; the fp32 CUDA cores at 67).
+    Each pass, forward and backward at either batch, must take at most half
+    of forced `simt`'s time.  The training batch's inputs come from a
+    generator of its own, so that the later phases keep their draws.
+    Returns {batch: {"forward": totals, "backward": totals}}."""
     import torch
     import torch.nn.functional as F
 
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
 
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
-    tot = {part: dict.fromkeys(keys, 0.0) for part in ("forward", "backward")}
-    for shape in shapes:
-        bh, t, dd = shape
-        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
-        o = A.attention(q, k, v)
-        q4, k4, v4 = (a.view(1, bh, t, dd).detach().requires_grad_() for a in (q, k, v))
-        g4 = g.view(1, bh, t, dd)
-        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 50)
-        sdpa_both = time_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), g4), 50)
-        rows = {"forward": (time_ms(lambda: A.attention(q, k, v), 50),
-                            time_ms(lambda: A.attention(q, k, v, use_kernel=False), 20), sdpa_fwd,
-                            4.0 * bh * t * t * dd, 16.0 * q.numel()),
-                "backward": (time_ms(lambda: A.attention_backward(q, k, v, o, g), 50),
-                             time_ms(lambda: A.attention_backward_reference(q, k, v, o, g), 20),
-                             sdpa_both - sdpa_fwd, 10.0 * bh * t * t * dd, 32.0 * q.numel())}
-        for part, (k_ms, p_ms, l_ms, flops, nbytes) in rows.items():
-            b_ms, _, ops_ms, bytes_ms = bound(flops, nbytes, "float32")
-            for key, val in zip(keys, (k_ms, p_ms, l_ms, b_ms, ops_ms, bytes_ms)):
-                tot[part][key] += val
-    for part, t_ in tot.items():
-        log(f"attention {part} in fp32 per UNet pass ({len(shapes)} simt calls): kernel "
-            f"{t_['ms']:.4f} ms, plain {t_['plain_ms']:.4f} ms, SDPA fp32 by default "
-            f"{t_['library_ms']:.4f} ms ({t_['ms'] / t_['library_ms']:.2f}x), bound "
-            f"{t_['bound_ms']:.5f} ms (fp32 CUDA cores or bytes)")
-    return tot
+    keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms",
+            "fp32_bound_ms")
+    out = {}
+    for batch, draw in ((1, gen), (TRAIN_BATCH, torch.Generator(device="cuda").manual_seed(18))):
+        tot = {part: dict.fromkeys(keys + ("max_abs_err",), 0.0) for part in ("forward", "backward")}
+        for bh, t, dd in shapes:
+            shape = (bh * batch, t, dd)
+            q, k, v, g = (torch.randn(shape, generator=draw, device="cuda") for _ in range(4))
+            o, lse = A.attention_with_lse(q, k, v)
+            errs = {"forward": [rel_err(o, A.attention_reference(q, k, v))],
+                    "backward": [rel_err(a, b) for a, b in zip(
+                        A.attention_backward(q, k, v, o, g, lse),
+                        A.attention_backward_reference(q, k, v, o, g))]}
+            for part, es in errs.items():
+                if not max(r for _, r in es) <= TOL["float32"]:
+                    raise AssertionError(f"attention {part} in fp32 {shape}: rel err "
+                                         f"{max(r for _, r in es):.3e} > {TOL['float32']}")
+                tot[part]["max_abs_err"] = max([tot[part]["max_abs_err"]] + [d for d, _ in es])
+            q4, k4, v4 = (a.view(1, *shape).detach().requires_grad_() for a in (q, k, v))
+            g4 = g.view(1, *shape)
+            sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 50)
+            sdpa_both = time_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), g4), 50)
+            flops = 4.0 * shape[0] * t * t * dd
+            rows = {"forward": (time_ms(lambda: A.attention(q, k, v), 100),
+                                time_ms(lambda: A.attention(q, k, v, variant="simt"), 50),
+                                time_ms(lambda: A.attention(q, k, v, use_kernel=False), 20),
+                                sdpa_fwd, flops, 16.0 * q.numel()),
+                    "backward": (time_ms(lambda: A.attention_backward(q, k, v, o, g, lse), 50),
+                                 time_ms(lambda: A.attention_backward(q, k, v, o, g,
+                                                                      variant="simt"), 20),
+                                 time_ms(lambda: A.attention_backward_reference(q, k, v, o, g), 20),
+                                 sdpa_both - sdpa_fwd, 2.5 * flops, 32.0 * q.numel())}
+            for part, (k_ms, s_ms, p_ms, l_ms, fl, nbytes) in rows.items():
+                b_ms, _, ops_ms, bytes_ms = bound(TF32_PRODUCTS * fl, nbytes, "tf32")
+                row = dict(ms=k_ms, simt_ms=s_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                           ops_ms=ops_ms, bytes_ms=bytes_ms,
+                           fp32_bound_ms=bound(fl, nbytes, "float32")[0])
+                for key in keys:
+                    tot[part][key] += row[key]
+        for part, t_ in tot.items():
+            log(f"attention {part} in fp32 per UNet pass at batch {batch} ({len(shapes)} tf32x3 "
+                f"calls): kernel {t_['ms']:.4f} ms, forced simt {t_['simt_ms']:.4f} ms "
+                f"({t_['ms'] / t_['simt_ms']:.3f}x, at most 0.5), plain {t_['plain_ms']:.4f} ms, "
+                f"SDPA fp32 by default {t_['library_ms']:.4f} ms ({t_['ms'] / t_['library_ms']:.3f}x); "
+                f"bounds {t_['bound_ms']:.5f} ms ({TF32_PRODUCTS} TF32 products at 495 TFLOP/s or "
+                f"the bytes), {t_['fp32_bound_ms']:.5f} ms (fp32 CUDA cores or the bytes)")
+            if not 2 * t_["ms"] <= t_["simt_ms"]:
+                raise AssertionError(f"attention {part} in fp32 at batch {batch}: tf32x3 takes more "
+                                     "than half of the forced simt kernel's time per pass")
+        out[batch] = tot
+    return out
 
 
 # heads past MAX_HEAD_DIM (off every shipped path): the chunked simt forward
@@ -1620,8 +1689,8 @@ def check_counts(counts, n_fwd, n_bwd, what, stem_grad=False, per_backward=None,
     (mma); per backward, by default (LoRA: frozen base weights), 61 conv3x3
     input gradients (60 tc, 1 simt: the final conv's, whose gradient has
     Cin = 1), no weight gradient and 4 attention backwards (mma).  With
-    `dtype` "float32" (the CLIs' default) the 60 take `tf32x3` and attention
-    `simt`, forward and backward.  With
+    `dtype` "float32" (the CLIs' default) the 60 and attention take
+    `tf32x3`, forward and backward.  With
     `stem_grad` (a gradient in the diffusion state x, as DPS takes it) the
     backward also takes the stem's input gradient, whose swapped shape
     (Cin 128 -> Cout 1) runs on `narrow`: 62 per backward.  `per_backward`
@@ -1630,7 +1699,7 @@ def check_counts(counts, n_fwd, n_bwd, what, stem_grad=False, per_backward=None,
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
 
-    hot, attn = ("tc", "mma") if dtype == "bfloat16" else ("tf32x3", "simt")
+    hot, attn = ("tc", "mma") if dtype == "bfloat16" else ("tf32x3", "tf32x3")
     n_stem = n_bwd if stem_grad else 0
     pb = per_backward or {"conv_bwd_by": by_variants(C.VARIANTS, **{hot: 60, "simt": 1}),
                           "conv_wgrad_by": dict.fromkeys(C.WGRAD_VARIANTS, 0), "attn_bwd": 4}
@@ -3152,6 +3221,7 @@ def aapm_phase(F, P, model_args, steps, gen, cli_workdir):
 
     from diffusion_models_dev_project_tpu_torch import run_conditional_sampling as CLI
     from diffusion_models_dev_project_tpu_torch.configs import aapm_configs
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
 
     config, _, sde, score_fn = model_args
@@ -3263,7 +3333,8 @@ def aapm_phase(F, P, model_args, steps, gen, cli_workdir):
             f"time; launches " + json.dumps(counts))
         if not (torch.isfinite(outk).all() and outk.shape == (1, 256, 256, 1) and r <= TOL_UNET):
             raise AssertionError("the AAPM UNet with kernels disagrees with the plain path")
-        if (counts["conv_fwd_by"] != want_conv or counts["attn_fwd_by"] != {"mma": n_attn, "simt": 0}
+        if (counts["conv_fwd_by"] != want_conv
+                or counts["attn_fwd_by"] != by_variants(A.VARIANTS, mma=n_attn)
                 or counts["conv_bwd"] or counts["attn_bwd"]):
             raise AssertionError(f"AAPM UNet launches {counts}, want conv3x3 {want_conv} and "
                                  f"{n_attn} mma attention")
@@ -3859,9 +3930,9 @@ def main() -> None:
     if by_variant != by_variants(C.VARIANTS, tc=60 * n_fwd, narrow=n_fwd, simt=n_fwd):
         raise AssertionError(f"conv3x3 launches by variant {by_variant}: want 60 tc, 1 narrow "
                              "and 1 simt per forward")
-    if attn_by_variant != {"mma": 4 * n_fwd, "simt": 0}:
+    if attn_by_variant != by_variants(A.VARIANTS, mma=4 * n_fwd):
         raise AssertionError(f"attention launches by variant {attn_by_variant}: want 4 mma and "
-                             "0 simt per forward")
+                             "no other per forward")
     for i, (p, fp) in enumerate(results):
         if not p > fp:
             raise AssertionError(f"image {i}: DDS {p:.2f} dB does not beat FBP {fp:.2f} dB")
@@ -4424,13 +4495,14 @@ def main() -> None:
                      for v in C.WGRAD_VARIANTS}}
     # attention backward: each variant's launches in the adapted runs and its
     # time per UNet backward at the path's shapes (simt: the earlier design)
+    # (the fp32 route's tf32x3 has rows of its own below)
     attn_bwd_src = {"mma": src + "attention_bwd_mma.cu", "simt": src + "attention_bwd.cu"}
     attn_bwd_ms = {"mma": attn_bwd_tot["ms"], "simt": attn_bwd_tot["simt_ms"]}
     kernels[1]["backward"]["variants"] = {
         v: {"source": attn_bwd_src[v], "launches": adapt_counts["attn_bwd_by"][v],
             "calls_per_backward": attn_bwd_variants.get(v, 0), "ms": attn_bwd_ms[v],
             "bound_ms": attn_bwd_tot["bound_ms"], "library_ms": attn_bwd_tot["library_ms"]}
-        for v in A.VARIANTS}
+        for v in ("mma", "simt")}
     # the simt kernel at the shapes tc takes, per forward; each variant's share
     kernels[0]["simt_ms"] = conv_tot["simt_ms"]
     kernels[0]["variants"] = {
@@ -4447,15 +4519,9 @@ def main() -> None:
         v: {"source": src + ("attention_mma.cu" if v == "mma" else "attention.cu"),
             "launches": attn_by_variant[v], "ms": attn_ms[v], "bound_ms": attn_tot["bound_ms"],
             "library_ms": attn_tot["library_ms"]}
-        for v in A.VARIANTS}
+        for v in ("mma", "simt")}
     # simt past 256 (phase 3): no launch on any path, per call
     kernels[1]["variants"]["simt"]["wide_heads"] = attn_wide
-    # simt in fp32 (the CLIs' default dtype), per pass; launches of phase 10b's adapted run
-    kernels[1]["variants"]["simt"]["fp32"] = {
-        part: {"launches": fp32_runs["adapted", "float32"]["counts"][key], "ms": t_["ms"],
-               "plain_ms": t_["plain_ms"], "bound_ms": t_["bound_ms"],
-               "library_ms": t_["library_ms"]}
-        for (part, t_), key in zip(attn_fp32.items(), ("attn_fwd", "attn_bwd"))}
     # launches of the walnut DDS runs (cg and woodbury), and the AAPM UNet's
     # conv3x3 per forward (the 256-channel model)
     for kern, key in zip(kernels, ("conv_fwd", "attn_fwd")):
@@ -4504,6 +4570,22 @@ def main() -> None:
         "replaces": "diffusion_models_dev_project_tpu/ops/conv3x3.py:35",
         "launches": t32["conv_wgrad_by"]["tf32x3"], "max_abs_err": w32["max_abs"],
         **fp32_fields(w32[TRAIN_BATCH]), "batch": TRAIN_BATCH, "batch1": fp32_fields(w32[1])})
+    # the fp32 attention (phase 3's times per pass at batch 1, the training
+    # batch's beside; the launches of phase 10b's adapted run, then of its
+    # training run)
+    for part, name, source, key in (
+            ("forward", "attention_tf32x3", "attention_tf32x3.cu", "attn_fwd_by"),
+            ("backward", "attention_backward_tf32x3", "attention_bwd_tf32x3.cu", "attn_bwd_by")):
+        one, train = attn_fp32[1][part], attn_fp32[TRAIN_BATCH][part]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": "diffusion_models_dev_project_tpu/ops/attention.py:43",
+            "launches": a32[key]["tf32x3"], "max_abs_err": max(one["max_abs_err"],
+                                                               train["max_abs_err"]),
+            **fp32_fields(dict(one, calls=len(seen["attn"]))),
+            "launches_train": t32[key]["tf32x3"],
+            "batch_train": dict(fp32_fields(dict(train, calls=len(seen["attn"]))),
+                                batch=TRAIN_BATCH)})
     kernels.extend(kernel_rows_512(ph15))
     log(f"(kernel times are per UNet forward: the sum over its calls at their shapes; "
         f"whole run {time.perf_counter() - t_all:.1f} s)")

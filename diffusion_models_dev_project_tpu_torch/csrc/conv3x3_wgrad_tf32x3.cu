@@ -74,24 +74,6 @@ __device__ __forceinline__ long long shifted_src(int p, int p_end, int H, int W,
   return (static_cast<long long>(b) * H + h) * W + w;
 }
 
-// v = hi + lo (to about 2^-20 relative), both TF32 words: the low 13 bits
-// of v, then of v - hi, cleared
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(v) & 0xFFFFE000u;
-  lo = __float_as_uint(v - __uint_as_float(hi)) & 0xFFFFE000u;
-}
-
-// c (16x8 fp32) += a (16x8 tf32, row) * b (8x8 tf32, col).  Not volatile:
-// the compiler may interleave the products of independent accumulators.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // grid: x = tile (co block fastest, then ci block, then tap), y = split
 __global__ void __launch_bounds__(TNT, 2)
 wgrad_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ dy,

@@ -61,12 +61,17 @@ _SIGNATURES = {
     "attention_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, out, lse (or null), BH, T, D, scale_log2, splits, stream
     "attention_mma_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # the same for the fp32 tf32x3 variant, and its shared-memory stages
+    "attention_tf32x3_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     # q, k, v, out, dout, dq, dk, dv, workspace, BH, T, D, scale, is_bf16, stream
     "attention_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, out, dout, lse, dq, dk, dv, workspace, BH, T, D, scale_log2, scale,
     # tile, stream
     "attention_mma_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
                                _P),
+    # the same for the fp32 tf32x3 variant, and its shared-memory stages
+    "attention_tf32x3_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
+                                  _I, _P),
 }
 
 _lock = threading.Lock()

@@ -2,38 +2,46 @@
 
 Port of the Pallas TPU kernel `ops/attention.py::flash_attention` of the
 JAX package: q and k are each scaled by d^-1/4 and the softmax runs in
-fp32.  On a CUDA tensor `attention` launches one of two hand-written
+fp32.  On a CUDA tensor `attention` launches one of three hand-written
 kernels, chosen by `plan` from the dtype and the shape alone:
 
 - `mma` (`csrc/attention_mma.cu`): bf16 with d <= 128, the UNet's path.  A
   flash kernel on the tensor cores (`mma.sync` m16n8k16), 16 query rows per
   warp, the keys of a row group split over the block's warps and merged in
   order, P rounded to bf16 in registers for the P·V product;
-- `simt` (`csrc/attention.cu`): fp32, and bf16 with d > 128; fp32 dot
-  products on the CUDA cores.
+- `tf32x3` (`csrc/attention_tf32x3.cu`): fp32 with d <= 128, the UNet's
+  path at the CLIs' default compute dtype.  The same blocking in key tiles
+  of 32, on `mma.sync` m16n8k8 tf32: each operand split into TF32 hi + lo
+  in registers and each product taken as hi·hi + hi·lo + lo·hi, which keeps
+  fp32's accuracy (`attention_tf32x3_tiled_reference`);
+- `simt` (`csrc/attention.cu`): d > 128 in either dtype; fp32 dot products
+  on the CUDA cores.
 
-Both take any T; `mma` d up to 128, `simt` any d: up to `MAX_HEAD_DIM` =
-256 in one pass, past it in column chunks of 256 (a third grid axis over
-the output's chunks; each block recomputes the rows' softmax over the full
-d, streaming the head through shared memory chunk by chunk).  On a CPU
-tensor, or when the caller passes `use_kernel=False`, `attention` runs
-`attention_reference`.
+All take any T; `mma` and `tf32x3` d up to 128, `simt` any d: up to
+`MAX_HEAD_DIM` = 256 in one pass, past it in column chunks of 256 (a third
+grid axis over the output's chunks; each block recomputes the rows' softmax
+over the full d, streaming the head through shared memory chunk by chunk).
+On a CPU tensor, or when the caller passes `use_kernel=False`, `attention`
+runs `attention_reference`.
 
 Gradients (the JAX package differentiates its einsum attention with XLA):
 when q, k or v needs one, `attention` runs as a `torch.autograd.Function`
-that saves q, k, v, the output and, on the `mma` route, the rows'
-log-sum-exp that the forward kernel writes beside the output (lse2, in the
-kernel's log2 domain).  Its backward, `attention_backward`, launches one of
-two pairs of kernels on a CUDA tensor, chosen by `backward_plan` from the
-dtype and the shape; each pair is a query pass and a key pass with no
-atomics, so every launch gives the same bits:
+that saves q, k, v, the output and, on the `mma` and `tf32x3` routes, the
+rows' log-sum-exp that the forward kernel writes beside the output (lse2,
+in the kernel's log2 domain).  Its backward, `attention_backward`, launches
+one of three pairs of kernels on a CUDA tensor, chosen by `backward_plan`
+from the dtype and the shape; each pair is a query pass and a key pass with
+no atomics, so every launch gives the same bits:
 
 - `mma` (`csrc/attention_bwd_mma.cu`): bf16 with d <= 128, the UNet's path.
   All five products on the tensor cores (`mma.sync` m16n8k16), P from the
   forward's lse2, P and dS rounded to bf16 in registers where they feed a
   product, the 4 warps of a block splitting the walked dimension and their
   partial sums added in order;
-- `simt` (`csrc/attention_bwd.cu`): fp32, and bf16 with d > 128; fp32 dot
+- `tf32x3` (`csrc/attention_bwd_tf32x3.cu`): fp32 with d <= 128.  The same
+  layout on `mma.sync` m16n8k8 tf32, each of the five products taken as
+  three TF32 products of split operands, P and dS split in registers;
+- `simt` (`csrc/attention_bwd.cu`): d > 128 in either dtype; fp32 dot
   products on the CUDA cores, the rows' statistics recomputed; past
   `MAX_HEAD_DIM` in column chunks as the forward.
 
@@ -51,23 +59,27 @@ import torch
 
 from ..utils import flops as _flops
 from . import _build
+from .conv3x3 import SMS, tf32_split
 
 __all__ = ["BackwardPlan", "MAX_HEAD_DIM", "Plan", "VARIANTS", "attention",
            "attention_backward", "attention_backward_mma_tiled_reference",
-           "attention_backward_reference", "attention_backward_tiled_reference",
-           "attention_lse_reference", "attention_reference", "attention_tiled_reference",
-           "attention_with_lse", "backward_launches", "backward_launches_by_variant",
-           "backward_plan", "launches", "launches_by_variant", "plan"]
+           "attention_backward_reference", "attention_backward_tf32x3_tiled_reference",
+           "attention_backward_tiled_reference", "attention_lse_reference",
+           "attention_reference", "attention_tf32x3_tiled_reference",
+           "attention_tiled_reference", "attention_with_lse", "backward_launches",
+           "backward_launches_by_variant", "backward_plan", "launches", "launches_by_variant",
+           "plan"]
 
-VARIANTS = ("mma", "simt")
+VARIANTS = ("mma", "tf32x3", "simt")
 launches = 0    # forward calls that launched a kernel since the caller last set this to 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)    # the same, by variant
 backward_launches = 0    # backward calls that launched the kernels, the same way
 backward_launches_by_variant = dict.fromkeys(VARIANTS, 0)    # the same, by variant
 
 MAX_HEAD_DIM = 256       # the widest head `simt` takes in one pass; wider ones go in chunks of it
-MMA_MAX_HEAD_DIM = 128   # the widest head `mma` takes
+MMA_MAX_HEAD_DIM = 128   # the widest head `mma` and `tf32x3` take
 MMA_KEY_TILE = 64        # keys per shared-memory tile of `mma`
+TF32X3_KEY_TILE = 32     # keys per shared-memory tile of `tf32x3` (fp32: twice bf16's bytes)
 MMA_ROWS = 16            # query rows per warp of `mma` (one m16n8k16 row block)
 MMA_WARPS = 4            # warps per block of `mma`: row groups x key splits
 SIMT_ROWS = 64           # query rows per block of `simt` (8 warps, 4 lanes a row)
@@ -77,14 +89,17 @@ LOG2E = 1.4426950408889634
 
 
 class Plan(NamedTuple):
-    """How `attention` runs one shape: `warps` per block; for `mma` they are
-    warps / `key_splits` row groups of `MMA_ROWS` query rows, and the
-    `key_splits` warps of a row group take every key_splits-th key tile
-    each (`simt`: 8 warps over `SIMT_ROWS` rows, no split).  Keys stream in
-    tiles of `key_tile`, the head is zero-padded to `d_pad` columns in
-    shared memory, and `grid` = (query blocks, B·heads).  `chunks` > 1
-    (`simt` past `MAX_HEAD_DIM`): the output's columns split into that many
-    chunks of `MAX_HEAD_DIM` over a third grid axis."""
+    """How `attention` runs one shape: `warps` per block; for `mma` and
+    `tf32x3` they are warps / `key_splits` row groups of `MMA_ROWS` query
+    rows, and the `key_splits` warps of a row group take every
+    key_splits-th key tile each (`simt`: 8 warps over `SIMT_ROWS` rows, no
+    split).  Keys stream in tiles of `key_tile`, the head is zero-padded to
+    `d_pad` columns in shared memory, and `grid` = (query blocks, B·heads).
+    `chunks` > 1 (`simt` past `MAX_HEAD_DIM`): the output's columns split
+    into that many chunks of `MAX_HEAD_DIM` over a third grid axis.
+    `stages` (`mma`, `tf32x3`): the shared-memory stages of a key split with
+    more than one tile, 2 to stream the next tile in during this one (`mma`
+    always; `simt` ignores it)."""
     variant: str
     warps: int
     key_splits: int
@@ -92,31 +107,34 @@ class Plan(NamedTuple):
     d_pad: int
     grid: Tuple[int, int]
     chunks: int = 1
+    stages: int = 2
 
 
 @functools.lru_cache(maxsize=None)
 def plan(bh: int, t: int, d: int, dtype: torch.dtype, variant: Optional[str] = None) -> Plan:
-    """The kernel and tiling for (bh, t, d) in `dtype`: `mma` for bf16 with
-    d <= 128, else `simt`.  `mma` runs `MMA_WARPS` warps per block and splits
-    the keys of a row group over as many of them (4, 2, then 1) as leave
-    every split a key tile: a warp's chain of tiles, not the card's rate,
+    """The kernel and tiling for (bh, t, d) in `dtype`: with d <= 128, `mma`
+    for bf16 and `tf32x3` for fp32, else `simt`.  `mma` and `tf32x3` run
+    `MMA_WARPS` warps per block and split the keys of a row group over as
+    many of them (4, 2, then 1) as leave every split a key tile (64 keys for
+    `mma`, 32 for `tf32x3`): a warp's chain of tiles, not the card's rate,
     sets the time at these sizes.  Two rounds of split tiles must fit in
-    shared memory, so d > 64 splits at most 2 ways.  Past `MAX_HEAD_DIM`,
-    `simt` runs in ceil(d / 256) column chunks.  `variant` forces the
-    kernel (measurements only); one that cannot take the shape raises."""
+    shared memory, so d > 64 splits at most 2 ways.  `tf32x3`'s two rounds
+    fill an SM's shared memory: past one block per SM of the card (`SMS`) it
+    takes one round, refilled after each tile, and several blocks share an
+    SM.  Past `MAX_HEAD_DIM`, `simt` runs in ceil(d / 256) column chunks.
+    `variant` forces the kernel (measurements only); one that cannot take
+    the shape raises."""
     _check_head_width(d)
-    mma_ok = dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM
-    if variant is None:
-        variant = "mma" if mma_ok else "simt"
-    if variant == "mma":
-        if not mma_ok:
-            raise ValueError(f"attention: mma takes bf16 with d <= {MMA_MAX_HEAD_DIM}, "
-                             f"not {dtype} d = {d}")
-        most = min(-(-t // MMA_KEY_TILE), 4 if d <= 64 else 2)
+    variant = _tensor_core_variant(variant, dtype, d, "attention")
+    if variant in ("mma", "tf32x3"):
+        key_tile = MMA_KEY_TILE if variant == "mma" else TF32X3_KEY_TILE
+        most = min(-(-t // key_tile), 4 if d <= 64 else 2)
         key_splits = 4 if most >= 4 else 2 if most >= 2 else 1
         rows = MMA_ROWS * MMA_WARPS // key_splits
-        return Plan("mma", MMA_WARPS, key_splits, MMA_KEY_TILE, -(-d // 16) * 16,
-                    (-(-t // rows), bh))
+        grid = (-(-t // rows), bh)
+        stages = 2 if variant == "mma" or grid[0] * grid[1] <= SMS else 1
+        return Plan(variant, MMA_WARPS, key_splits, key_tile, _d_pad(variant, d), grid,
+                    stages=stages)
     if variant == "simt":
         chunks = -(-d // MAX_HEAD_DIM)
         d_max = 64 if d <= 64 else 128 if d <= 128 else MAX_HEAD_DIM * chunks
@@ -128,6 +146,26 @@ def plan(bh: int, t: int, d: int, dtype: torch.dtype, variant: Optional[str] = N
 def _check_head_width(d: int) -> None:
     if d < 1:
         raise ValueError(f"attention: head width {d}, not at least 1")
+
+
+def _tensor_core_variant(variant: Optional[str], dtype: torch.dtype, d: int, what: str) -> str:
+    """The variant a plan takes: the forced one, else `mma` (bf16) or
+    `tf32x3` (fp32) for d <= 128 and `simt` otherwise; raises for a forced
+    tensor-core variant that cannot take the dtype or the width."""
+    own = {torch.bfloat16: "mma", torch.float32: "tf32x3"}.get(dtype)
+    if variant is None:
+        return own if own and d <= MMA_MAX_HEAD_DIM else "simt"
+    if variant in ("mma", "tf32x3") and (variant != own or d > MMA_MAX_HEAD_DIM):
+        raise ValueError(f"{what}: {variant} takes {'bf16' if variant == 'mma' else 'fp32'} "
+                         f"with d <= {MMA_MAX_HEAD_DIM}, not {dtype} d = {d}")
+    return variant
+
+
+def _d_pad(variant: str, d: int) -> int:
+    """d zero-padded to the slices the products take: 16 wide in bf16 (`mma`),
+    8 in TF32 (`tf32x3`)."""
+    width = 16 if variant == "mma" else 8
+    return -(-d // width) * width
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -185,6 +223,66 @@ def attention_tiled_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, (m_all + torch.log2(l))[..., 0]) if with_lse else out
 
 
+def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor,
+                   acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a @ b (fp32, batched) as the `tf32x3` kernels take it: both split into
+    TF32 hi + lo (`tf32_split`), then per slice of 8 along the inner axis
+    hi·hi, hi·lo and lo·hi added in that order into `acc` (or into the
+    first of them)."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    for k0 in range(0, a.shape[-1], 8):
+        ka, kb = (..., slice(k0, k0 + 8)), (..., slice(k0, k0 + 8), slice(None))
+        for term in (ah[ka] @ bh[kb], ah[ka] @ bl[kb], al[ka] @ bh[kb]):
+            acc = term if acc is None else acc + term
+    return acc
+
+
+def attention_tf32x3_tiled_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     p: Plan, with_lse: bool = False):
+    """`tf32x3`'s arithmetic, step by step as plan `p` lays it out (for
+    tests): fp32 operands, d zero-padded to `p.d_pad`.  Key split s takes
+    tiles s, s + key_splits, ...; per tile, S = Q Kᵀ from the unscaled q and
+    k as three TF32 products per 8-wide slice of d (`_tf32x3_matmul`),
+    times d^-1/2·log2(e), keys past T at -1e30, then the online softmax
+    with exp2, the row sums from fp32 P, O rescaled and P·V added into it
+    as three TF32 products per 8 keys.  The splits' (O, m, l) are merged in
+    split order; O times 1 / l at the end.  With `with_lse`, also the rows'
+    lse2 = m + log2(l) that the kernel writes for the backward: (out, lse2)."""
+    if p.variant != "tf32x3":
+        raise ValueError(f"attention_tf32x3_tiled_reference emulates tf32x3, not {p.variant}")
+    bh, t, d = q.shape
+    kt = p.key_tile
+    t_keys = -(-t // kt) * kt
+
+    def operand(a, rows):
+        return torch.nn.functional.pad(a.float(), (0, p.d_pad - d, 0, rows - t))
+
+    qf, kf, vf = operand(q, t), operand(k, t_keys), operand(v, t_keys)
+    scale = LOG2E / math.sqrt(d)
+    parts = []
+    for split in range(p.key_splits):
+        m = qf.new_full((bh, t, 1), -math.inf)
+        l = qf.new_zeros((bh, t, 1))
+        acc = qf.new_zeros((bh, t, p.d_pad))
+        for j0 in range(split * kt, t_keys, p.key_splits * kt):
+            s = _tf32x3_matmul(qf, kf[:, j0:j0 + kt].transpose(1, 2)) * scale
+            s[..., max(t - j0, 0):] = -1e30
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            pm = torch.exp2(s - m_new)
+            l = l * alpha + pm.sum(-1, keepdim=True)
+            acc = _tf32x3_matmul(pm, vf[:, j0:j0 + kt], acc * alpha)
+            m = m_new
+        parts.append((m, l, acc))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+    l = acc = 0
+    for m, l_s, acc_s in parts:
+        c = torch.exp2(m - m_all)
+        l, acc = l + l_s * c, acc + acc_s * c
+    out = acc[..., :d] * (1.0 / l)
+    return (out, (m_all + torch.log2(l))[..., 0]) if with_lse else out
+
+
 def attention_lse_reference(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """The rows' log-sum-exp of the scaled logits (q s)(k s)ᵀ, s = d^-1/4, in
     fp32 and in the log2 domain of the `mma` kernels: lse2 = log2(Σ exp(S))."""
@@ -198,13 +296,17 @@ class BackwardPlan(NamedTuple):
     blocks, B·heads) for the query pass and the key pass, `rows` query (key)
     rows per block, the head zero-padded to `d_pad` channels.
 
-    `mma` (csrc/attention_bwd_mma.cu): `splits` = 4 warps share a block's 16
+    `mma` (csrc/attention_bwd_mma.cu) and `tf32x3`
+    (csrc/attention_bwd_tf32x3.cu): `splits` = 4 warps share a block's 16
     rows and split the walked keys (queries) in chunks of `tile` rows, warp
     w taking chunks w, w + 4, ...; `channels` is 0.
     `simt` (csrc/attention_bwd.cu): each row is held by d_pad / `channels`
     threads, tiles of `tile` keys (queries) go through shared memory;
     `splits` is 1.  Past `MAX_HEAD_DIM`, `chunks` > 1 column chunks of 256
-    on a third grid axis, each row held by 256 / `channels` threads."""
+    on a third grid axis, each row held by 256 / `channels` threads.
+    `stages` (`mma`, `tf32x3`): the shared-memory stages of a warp with more
+    than one chunk, 2 to stream the next chunk in during this one (`mma`
+    always; `simt` ignores it)."""
     variant: str
     d_pad: int
     tile: int
@@ -213,34 +315,43 @@ class BackwardPlan(NamedTuple):
     channels: int
     grid: Tuple[int, int]
     chunks: int = 1
+    stages: int = 2
 
 
 @functools.lru_cache(maxsize=None)
 def backward_plan(bh: int, t: int, d: int, dtype: torch.dtype, variant: Optional[str] = None,
                   tile: Optional[int] = None) -> BackwardPlan:
-    """The backward kernels and their layout for (bh, t, d) in `dtype`: `mma`
-    for bf16 with d <= 128, else `simt`.  `mma` takes the narrowest chunk
-    (16, 32 or 64 rows; at most 32 for d > 64, whose two stages per warp
-    must fit in shared memory) that leaves each of its 4 warps at most one
-    chunk: a warp's chain of chunks sets the time at these sizes.
-    Past `MAX_HEAD_DIM`, `simt` runs in ceil(d / 256) column chunks.
-    `variant` and `tile` force the kernels and the `mma` chunk
-    (measurements only); a forced choice that cannot take the shape raises."""
+    """The backward kernels and their layout for (bh, t, d) in `dtype`: with
+    d <= 128, `mma` for bf16 and `tf32x3` for fp32, else `simt`.  `mma` takes
+    the narrowest chunk (16, 32 or 64 rows; at most 32 for d > 64) that
+    leaves each of its 4 warps at most one chunk: a warp's chain of chunks
+    sets the time at these sizes.  Two stages per warp must fit in shared
+    memory when a warp walks more than one chunk: then `mma` takes the
+    widest chunk and `tf32x3`, whose fp32 chunks are twice the bytes, half
+    of it.  `tf32x3` takes chunks of at most that half in two stages while
+    its grid fits the card (`SMS` blocks), and past it chunks of 16 rows in
+    one stage, so that four blocks share an SM (the blockings timed against
+    these are in PERF.md, section 6).  Past `MAX_HEAD_DIM`, `simt` runs in
+    ceil(d / 256) column chunks.  `variant` and `tile` force the kernels and
+    the chunk (measurements only); a forced choice that cannot take the
+    shape raises."""
     _check_head_width(d)
-    mma_ok = dtype == torch.bfloat16 and d <= MMA_MAX_HEAD_DIM
-    if variant is None:
-        variant = "mma" if mma_ok else "simt"
-    if variant == "mma":
-        if not mma_ok:
-            raise ValueError(f"attention_backward: mma takes bf16 with d <= {MMA_MAX_HEAD_DIM}, "
-                             f"not {dtype} d = {d}")
+    variant = _tensor_core_variant(variant, dtype, d, "attention_backward")
+    if variant in ("mma", "tf32x3"):
         widest = 64 if d <= 64 else 32
+        # the widest chunk of tf32x3 fits in shared memory in one stage only
+        two_stages = widest if variant == "mma" else widest // 2
+        grid = (-(-t // MMA_ROWS), bh)
+        crowded = variant == "tf32x3" and grid[0] * grid[1] > SMS
         if tile is None:
-            tile = next((w for w in (16, 32) if MMA_WARPS * w >= t), widest)
-        elif tile not in (16, 32, 64) or tile > widest:
-            raise ValueError(f"attention_backward: mma chunk {tile} not in 16, 32, ..., {widest}")
-        return BackwardPlan("mma", -(-d // 16) * 16, tile, MMA_ROWS, MMA_WARPS, 0,
-                            (-(-t // MMA_ROWS), bh))
+            tile = 16 if crowded else next(
+                (w for w in (16, 32, 64) if w <= two_stages and MMA_WARPS * w >= t), two_stages)
+        elif tile not in (16, 32, 64) or tile > widest or (
+                -(-t // tile) > MMA_WARPS and tile > two_stages):
+            raise ValueError(f"attention_backward: {variant} chunk {tile} not in 16, 32, ..., "
+                             f"{widest if MMA_WARPS * widest >= t else two_stages} at T = {t}")
+        return BackwardPlan(variant, _d_pad(variant, d), tile, MMA_ROWS, MMA_WARPS, 0, grid,
+                            stages=1 if crowded else 2)
     if variant == "simt":
         if tile is not None:
             raise ValueError("attention_backward: simt takes no chunk")
@@ -367,15 +478,64 @@ def attention_backward_mma_tiled_reference(q: torch.Tensor, k: torch.Tensor, v: 
                  for a, mul in ((dq, scale), (dk, scale), (dv, 1.0)))
 
 
+def attention_backward_tf32x3_tiled_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                              out: torch.Tensor, dout: torch.Tensor,
+                                              lse2: torch.Tensor, p: BackwardPlan):
+    """The `tf32x3` backward kernels' arithmetic, step by step as `p` lays it
+    out (for tests): fp32 operands, the head zero-padded to `p.d_pad`, rows
+    past T zero; lse2 (B·heads, T) from the forward, in its log2 domain.
+    D = rowsum(dout ∘ out) in fp32.  Query pass: warp w of `p.splits` walks
+    key chunks w, w + splits, ... of `p.tile` keys; per chunk S and dP as
+    three TF32 products per 8-wide slice of d (`_tf32x3_matmul`),
+    P = exp2(S·d^-1/2·log2(e) − lse2) (0 for keys past T), dS = P (dP − D),
+    dq += dS·K as three TF32 products per 8 keys.  Key pass: the same over
+    query chunks, dv += Pᵀ·dout and dk += dSᵀ·q.  The warps' partial sums
+    are added in warp order, then dq and dk take the factor d^-1/2."""
+    if p.variant != "tf32x3":
+        raise ValueError(f"attention_backward_tf32x3_tiled_reference emulates tf32x3, "
+                         f"not {p.variant}")
+    bh, t, d = q.shape
+    w = p.tile
+    chunks = -(-t // w)
+    t_pad = chunks * w
+
+    def operand(a):
+        return torch.nn.functional.pad(a.float(), (0, p.d_pad - d, 0, t_pad - t))
+
+    qf, kf, vf, of, gf = (operand(a) for a in (q, k, v, out, dout))
+    lse = torch.nn.functional.pad(lse2.float(), (0, t_pad - t))
+    delta = (gf * of).sum(-1)                                   # (bh, t_pad)
+    live = torch.arange(t_pad, device=q.device) < t
+    scale_log2, scale = LOG2E / math.sqrt(d), 1.0 / math.sqrt(d)
+    dq = dk = dv = 0
+    for warp in range(p.splits):
+        dq_w = dk_w = dv_w = qf.new_zeros(bh, t_pad, p.d_pad)
+        for c in range(warp, chunks, p.splits):
+            rows = slice(c * w, (c + 1) * w)
+            # query pass: all query rows, this chunk's keys
+            s = _tf32x3_matmul(qf, kf[:, rows].transpose(1, 2))
+            dp = _tf32x3_matmul(gf, vf[:, rows].transpose(1, 2))
+            pm = torch.exp2(s * scale_log2 - lse[..., None]) * live[rows]
+            dq_w = _tf32x3_matmul(pm * (dp - delta[..., None]), kf[:, rows], dq_w)
+            # key pass: all key rows, this chunk's queries (Pᵀ, dSᵀ)
+            st = _tf32x3_matmul(kf, qf[:, rows].transpose(1, 2))
+            dpt = _tf32x3_matmul(vf, gf[:, rows].transpose(1, 2))
+            pt = torch.exp2(st * scale_log2 - lse[:, None, rows]) * live[rows]
+            dv_w = _tf32x3_matmul(pt, gf[:, rows], dv_w)
+            dk_w = _tf32x3_matmul(pt * (dpt - delta[:, None, rows]), qf[:, rows], dk_w)
+        dq, dk, dv = dq + dq_w, dk + dk_w, dv + dv_w
+    return tuple(a[:, :t, :d] * mul for a, mul in ((dq, scale), (dk, scale), (dv, 1.0)))
+
+
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                        dout: torch.Tensor, lse: Optional[torch.Tensor] = None,
                        use_kernel: bool = True, *, variant: Optional[str] = None,
                        tile: Optional[int] = None):
     """(dq, dk, dv) of out = attention(q, k, v) given dL/dout, all
     (B·heads, T, d) in q's dtype.  On a CUDA tensor the kernels that
-    `backward_plan` picks: `mma` needs `lse`, the (B·heads, T) fp32 lse2 of
-    the forward kernel (`attention_with_lse`), and raises without it; `simt`
-    takes none.  On a CPU tensor, or with `use_kernel=False`,
+    `backward_plan` picks: `mma` and `tf32x3` need `lse`, the (B·heads, T)
+    fp32 lse2 of the forward kernel (`attention_with_lse`), and raise
+    without it; `simt` takes none.  On a CPU tensor, or with `use_kernel=False`,
     `attention_backward_reference`.  `variant` and `tile` force the kernels
     (measurements only)."""
     global backward_launches
@@ -385,10 +545,12 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: t
     bp = backward_plan(bh, t, d, q.dtype, variant, tile)
     if q.device.type == "cpu" or not use_kernel:
         return attention_backward_reference(q, k, v, out, dout)
-    if bp.variant == "mma" and (lse is None or lse.shape != (bh, t) or lse.dtype != torch.float32):
-        raise ValueError("attention_backward: mma needs the forward's lse2, (B·heads, T) fp32, "
+    saved = bp.variant in ("mma", "tf32x3")        # the kernels read the forward's lse2
+    if saved and (lse is None or lse.shape != (bh, t) or lse.dtype != torch.float32):
+        raise ValueError(f"attention_backward: {bp.variant} needs the forward's lse2, "
+                         "(B·heads, T) fp32, "
                          f"not {None if lse is None else (tuple(lse.shape), lse.dtype)}")
-    others = (k, v, out, dout) + ((lse,) if bp.variant == "mma" else ())
+    others = (k, v, out, dout) + ((lse,) if saved else ())
     if any(a.device != q.device for a in others) or q.device.type != "cuda":
         raise ValueError("attention_backward: tensors on more than one device, or not on CUDA")
     if q.dtype not in (torch.float32, torch.bfloat16) or any(
@@ -402,13 +564,14 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: t
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         tensors = (q, k, v, out, dout)
-        if bp.variant == "mma":
+        if saved:
             delta = torch.empty(bh * t, dtype=torch.float32, device=q.device)
-            rc = lib.attention_mma_backward(*(a.data_ptr() for a in tensors),
-                                            lse.contiguous().data_ptr(), dq.data_ptr(),
-                                            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), bh,
-                                            t, d, LOG2E / math.sqrt(d), 1.0 / math.sqrt(d),
-                                            bp.tile, stream)
+            fn = (lib.attention_mma_backward if bp.variant == "mma"
+                  else lib.attention_tf32x3_backward)
+            extra = () if bp.variant == "mma" else (bp.stages,)
+            rc = fn(*(a.data_ptr() for a in tensors), lse.contiguous().data_ptr(), dq.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), bh, t, d,
+                    LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), bp.tile, *extra, stream)
         else:
             ws = torch.empty(2 * bh * t, dtype=torch.float32, device=q.device)
             rc = lib.attention_backward(*(a.data_ptr() for a in tensors), dq.data_ptr(),
@@ -423,8 +586,8 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: t
 
 
 def _forward(q, k, v, kernel, variant, with_lse=False):
-    """(out, lse2): lse2 only when `with_lse` and the `mma` kernel ran (the
-    plain version and `simt` keep none), else None."""
+    """(out, lse2): lse2 only when `with_lse` and the `mma` or `tf32x3`
+    kernel ran (the plain version and `simt` keep none), else None."""
     global launches
     if not kernel:
         return attention_reference(q, k, v), None
@@ -432,16 +595,18 @@ def _forward(q, k, v, kernel, variant, with_lse=False):
     p = plan(bh, t, d, q.dtype, variant)
     out = torch.empty_like(q)
     lse = (torch.empty((bh, t), dtype=torch.float32, device=q.device)
-           if with_lse and p.variant == "mma" else None)
+           if with_lse and p.variant in ("mma", "tf32x3") else None)
     if out.numel() == 0:
         return out, lse
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-        if p.variant == "mma":
-            rc = lib.attention_mma_forward(*args, None if lse is None else lse.data_ptr(), bh, t,
-                                           d, LOG2E / math.sqrt(d), p.key_splits, stream)
+        if p.variant in ("mma", "tf32x3"):
+            fn = lib.attention_mma_forward if p.variant == "mma" else lib.attention_tf32x3_forward
+            extra = () if p.variant == "mma" else (p.stages,)
+            rc = fn(*args, None if lse is None else lse.data_ptr(), bh, t, d,
+                    LOG2E / math.sqrt(d), p.key_splits, *extra, stream)
         else:
             rc = lib.attention_forward(*args, bh, t, d, 1.0 / math.sqrt(math.sqrt(d)),
                                        int(q.dtype == torch.bfloat16), stream)
@@ -490,8 +655,9 @@ def _check_inputs(q, k, v, use_kernel):
 def attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        use_kernel: bool = True, *, variant: Optional[str] = None):
     """(out, lse2) without a gradient: out as `attention` gives it, and the
-    rows' (B·heads, T) fp32 log-sum-exp in the log2 domain that the `mma`
-    kernel writes beside it (None on the `simt` route, which keeps none);
+    rows' (B·heads, T) fp32 log-sum-exp in the log2 domain that the `mma` or
+    `tf32x3` kernel writes beside it (None on the `simt` route, which keeps
+    none);
     on a CPU tensor, or with `use_kernel=False`, `attention_reference` and
     `attention_lse_reference`."""
     if not _check_inputs(q, k, v, use_kernel):

@@ -63,7 +63,7 @@ def mma_emulation(**a):
             out[f"{i}_d{name}"] = grad.float().numpy()
     with pytest.raises(ValueError, match="simt"):
         A.attention_backward_mma_tiled_reference(q, k, v, o, g, lse,
-                                                 A.backward_plan(bh, t, d, torch.float32))
+                                                 A.backward_plan(bh, t, d, torch.float32, "simt"))
     with pytest.raises(ValueError, match="mma"):
         A.attention_backward_tiled_reference(q, k, v, o, g, p)
     return out
@@ -87,10 +87,15 @@ def plan_routes_and_limits():
     assert A.backward_plan(3, 37, 20, bf16)[:2] == ("mma", 32)  # d padded to 32
     assert A.backward_plan(1, 1, 8, bf16) == A.BackwardPlan("mma", 16, 16, 16, 4, 0, (1, 1))
     assert A.backward_plan(8, 256, 64, bf16, tile=16).tile == 16
-    # fp32, and bf16 with d > 128, go to simt (its own layout)
-    for args in ((8, 256, 64, fp32), (8, 256, 160, bf16), (2, 64, 256, bf16), (1, 1, 8, fp32)):
+    # fp32 with d <= 128 goes to tf32x3 (tests/test_torch_attention_tf32x3.py),
+    # and a forced simt still takes it; d > 128 goes to simt (its own layout)
+    assert A.backward_plan(8, 256, 64, fp32).variant == A.backward_plan(1, 1, 8, fp32).variant \
+        == "tf32x3"
+    for args in ((8, 256, 64, fp32, "simt"), (8, 256, 160, bf16), (2, 64, 256, bf16),
+                 (1, 1, 8, fp32, "simt")):
         assert A.backward_plan(*args).variant == "simt"
-    assert A.backward_plan(8, 256, 64, fp32) == A.BackwardPlan("simt", 64, 32, 16, 1, 8, (16, 8))
+    assert A.backward_plan(8, 256, 64, fp32, "simt") == A.BackwardPlan("simt", 64, 32, 16, 1, 8,
+                                                                       (16, 8))
     assert A.backward_plan(2, 64, 256, fp32)[1:4] == (256, 16, 8)
     assert A.backward_plan(8, 256, 64, bf16, "simt").variant == "simt"
     # past 256: simt in column chunks of 256, 8 rows a block; no head is
@@ -102,7 +107,8 @@ def plan_routes_and_limits():
     # a forced choice that cannot take the shape raises
     for args, kw in (((8, 256, 64, fp32, "mma"), {}), ((8, 256, 160, bf16, "mma"), {}),
                      ((8, 256, 64, bf16, "wgmma"), {}), ((2, 100, 128, bf16), {"tile": 64}),
-                     ((8, 256, 64, bf16), {"tile": 48}), ((8, 256, 64, fp32), {"tile": 16})):
+                     ((8, 256, 64, bf16), {"tile": 48}),
+                     ((8, 256, 64, fp32, "simt"), {"tile": 16})):
         with pytest.raises(ValueError):
             A.backward_plan(*args, **kw)
     # off the CPU, mma needs the forward's lse2 and never recomputes it: on

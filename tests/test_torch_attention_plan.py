@@ -89,9 +89,11 @@ def plan_on_the_flagship_calls():
     assert A.plan(1, 150, 64, torch.bfloat16).key_splits == 2          # 3 tiles
     assert A.plan(3, 300, 128, torch.bfloat16).key_splits == 2         # d > 64: two rounds must fit
     assert A.plan(2, 37, 20, torch.bfloat16).d_pad == 32
-    # fp32 and d > 128 go to simt; past 256 simt takes the head in column
-    # chunks of 256; no head is narrower than 1
-    for args in ((8, 256, 64, torch.float32), (8, 256, 160, torch.bfloat16),
+    # fp32 with d <= 128 goes to tf32x3 (tests/test_torch_attention_tf32x3.py),
+    # and a forced simt still takes it; d > 128 goes to simt; past 256 simt
+    # takes the head in column chunks of 256; no head is narrower than 1
+    assert A.plan(8, 256, 64, torch.float32).variant == "tf32x3"
+    for args in ((8, 256, 64, torch.float32, "simt"), (8, 256, 160, torch.bfloat16),
                  (2, 64, 256, torch.bfloat16), (2, 64, 256, torch.float32)):
         assert A.plan(*args).variant == "simt" and A.plan(*args).chunks == 1
     assert A.plan(2, 64, 256, torch.float32).key_tile == 16

@@ -80,7 +80,9 @@ def attention_grads(**a):
     for i, (bh, t, d) in enumerate(ATTN_SHAPES):
         q, k, v, g = (torch.from_numpy(a[f"{i}_{n}"]) for n in ("q", "k", "v", "g"))
         o = A.attention_reference(q, k, v)
-        plan = A.backward_plan(bh, t, d, torch.float32)
+        # the simt backward's emulation: fp32 with d <= 128 now plans tf32x3
+        # (tests/test_torch_attention_tf32x3.py), so the simt plan is forced
+        plan = A.backward_plan(bh, t, d, torch.float32, "simt")
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         y = A.attention(*leaves)
         assert type(y.grad_fn).__name__ == "_AttentionBackward"

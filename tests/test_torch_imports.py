@@ -7,8 +7,8 @@ are among the modules checked.
 
 The card's machine has torch, numpy and scipy but no jax, flax, msgpack,
 ml_collections, yaml or PIL, so the port, chip_smoke.py, adapted_spread.py,
-conditional_probe.py, wgrad_probe.py and walnut_probe.py import none of
-them.  Entry points run on CUDA unless asked for the CPU, and raise here,
+conditional_probe.py, wgrad_probe.py, walnut_probe.py, tf32x3_probe.py and
+batched_grad_probe.py import none of them.  Entry points run on CUDA unless asked for the CPU, and raise here,
 where there is no CUDA device.  The paths of ROADMAP.md queue 1 item 9
 (matrix and walnut operators, AAPM and walnut data) resolve; the walnut
 data, which the repository does not hold, raise FileNotFoundError naming
@@ -67,7 +67,7 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
         "    sys.modules[name] = None      # any import of these now fails",
         f"sys.path.insert(0, {REPO!r})",
         f"for name in {modules!r} + ['chip_smoke', 'adapted_spread', 'conditional_probe',"
-        " 'wgrad_probe', 'walnut_probe']:",
+        " 'wgrad_probe', 'walnut_probe', 'tf32x3_probe', 'batched_grad_probe']:",
         "    importlib.import_module(name)",
         "print('ok')",
     ])
@@ -82,7 +82,8 @@ def test_port_and_chip_smoke_import_without_jax_or_the_jax_package():
     files = [os.path.join(root, f) for root, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
     files += [os.path.join(REPO, name)
               for name in ("chip_smoke.py", "adapted_spread.py", "conditional_probe.py",
-                           "wgrad_probe.py", "walnut_probe.py")]
+                           "wgrad_probe.py", "walnut_probe.py", "tf32x3_probe.py",
+                           "batched_grad_probe.py")]
     assert not [f for f in files if pat.search(open(f, encoding="utf-8").read())]
     # collecting the port's test files imports no torch (xdist workers
     # collect every file, and the JAX tests run in those processes)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times the port's fp32 conv3x3 route (`tf32x3`) on one CUDA card and builds
-variants of its weight-gradient kernel side by side.
+"""Times the port's fp32 conv3x3 route (`tf32x3`) on one CUDA card, builds
+variants of its weight-gradient kernel side by side, and checks and times
+the fp32 attention route (`tf32x3`).
 
-    python3 tf32x3_probe.py [--parts route,wgrad_variants]
+    python3 tf32x3_probe.py [--parts route,wgrad_variants,attention,attention_blockings]
 
 - `route`: at every fp32 conv shape of the flagship UNet whose Cin and Cout
   are multiples of 64 (60 per pass), the forward, the input gradient and the
@@ -16,6 +17,20 @@ variants of its weight-gradient kernel side by side.
   gradient (max|diff| / max|plain| at most 1e-4, bitwise equal over two
   launches) and timed per batch-3 UNet backward, with the opcode mix of the
   kernel's SASS.
+- `attention`: the registers and spills of `csrc/attention_tf32x3.cu` and
+  `csrc/attention_bwd_tf32x3.cu`; at the flagship's fp32 attention shapes
+  and at shapes off the path (T = 1 to 1024, ragged T, d = 8 to 128, and
+  d = 18 and 13 for the scalar loads) the
+  forward, its lse2 and dq, dk, dv against the plain versions (max|diff| /
+  max|plain| at most 1e-4, bitwise equal over two launches) and against
+  their CPU emulations run on the card; then per UNet pass at batch 1 and 3
+  (B·heads 8 and 24) forward and backward beside the forced `simt` kernels,
+  the plain versions and SDPA in fp32, by CUDA-graph replay.
+- `attention_blockings`: the fp32 attention kernels launched directly at
+  every blocking they take at the flagship's shapes at batch 1 and 3: the
+  forward at 1, 2 or 4 key splits in one or two shared-memory stages, the
+  backward at chunks of 16, 32 or 64 rows in one or two stages; each
+  checked against the plain version (1e-4) and timed by graph replay.
 
 About a minute of command on an H100, the kernels' build included.  Prints
 the card's name and power limit first.
@@ -25,6 +40,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import math
 import os
 import re
 import subprocess
@@ -150,9 +166,145 @@ def wgrad_variants(C, CS, torch, gen, build):
     print("weight grad per batch-3 backward, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in tot.items()))
 
 
+# (B·heads, T, d) of the flagship's attention calls per image (3 at the 16²
+# map, 1 at 8²) and their count; shapes off the path, checked only
+ATTN_PASS = [((8, 256, 64), 3), ((8, 64, 64), 1)]
+ATTN_CHECKED = [(8, 1024, 64), (2, 1024, 128), (2, 257, 40), (3, 100, 128), (3, 300, 128),
+                (2, 37, 20), (2, 100, 64), (1, 5, 8), (1, 1, 16), (2, 37, 18), (3, 100, 13)]
+
+
+def attention(A, CS, torch, gen, build):
+    import torch.nn.functional as F
+
+    section = ""
+    for line in build.build_log.splitlines():
+        if line.startswith("=="):
+            section = line
+        elif "attention_tf32x3" in section or "attention_bwd_tf32x3" in section:
+            if "registers" in line or "spill" in line or "entry function" in line:
+                print("  " + line.strip())
+    worst = collections.defaultdict(float)
+    for bh, t, d in [shape for shape, _ in ATTN_PASS] + ATTN_CHECKED:
+        q, k, v, g = (torch.randn((bh, t, d), generator=gen, device="cuda") for _ in range(4))
+        p, bp = A.plan(bh, t, d, torch.float32), A.backward_plan(bh, t, d, torch.float32)
+        out, lse = A.attention_with_lse(q, k, v)
+        out2, lse2 = A.attention_with_lse(q, k, v)
+        grads = A.attention_backward(q, k, v, out, g, lse)
+        grads2 = A.attention_backward(q, k, v, out, g, lse)
+        ref, lref = A.attention_reference(q, k, v), A.attention_lse_reference(q, k)
+        gref = A.attention_backward_reference(q, k, v, out, g)
+        emu, lemu = A.attention_tf32x3_tiled_reference(q, k, v, p, with_lse=True)
+        gemu = A.attention_backward_tf32x3_tiled_reference(q, k, v, out, g, lse, bp)
+        torch.cuda.synchronize()
+        errs = {"out": CS.rel_err(out, ref)[1], "lse2": CS.rel_err(lse, lref)[1]}
+        emus = {"out": CS.rel_err(out, emu)[1], "lse2": CS.rel_err(lse, lemu)[1]}
+        for name, a, b, c in zip(("dq", "dk", "dv"), grads, gref, gemu):
+            # T = 1: dq and dk are 0 in exact arithmetic, rounding noise here
+            errs[name] = CS.rel_err(a, b)[0 if t == 1 and name != "dv" else 1]
+            emus[name] = CS.rel_err(a, c)[0 if t == 1 and name != "dv" else 1]
+        same = (torch.equal(out, out2) and torch.equal(lse, lse2)
+                and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+        ok = same and max(errs.values()) <= CS.TOL["float32"] and all(
+            torch.isfinite(a).all() for a in (out, lse, *grads))
+        for name, e in errs.items():
+            worst[name] = max(worst[name], e)
+        print(f"attention tf32x3 {(bh, t, d)} splits {p.key_splits} chunk {bp.tile}: against plain "
+              + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()) + "; against the emulation "
+              + ", ".join(f"{n} {e:.2e}" for n, e in emus.items())
+              + f"; {'bitwise equal over two launches' if same else 'TWO LAUNCHES DIFFER'}"
+              + ("" if ok else " FAIL"), flush=True)
+        if not ok:
+            raise SystemExit(f"tf32x3_probe: attention {(bh, t, d)} failed")
+    print("attention tf32x3 worst against plain: " + ", ".join(f"{n} {e:.2e}" for n, e in worst.items())
+          + f" (tol {CS.TOL['float32']})")
+    for batch in (1, 3):
+        tot = collections.defaultdict(float)
+        for (bh, t, d), n in ATTN_PASS:
+            shape = (bh * batch, t, d)
+            q, k, v, g = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
+            out, lse = A.attention_with_lse(q, k, v)
+            q4, k4, v4 = (a.view(1, *shape).detach().requires_grad_() for a in (q, k, v))
+            g4 = g.view(1, *shape)
+            sdpa_fwd = CS.time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 50)
+            sdpa_both = CS.time_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), g4), 50)
+            row = {"fwd": CS.time_ms(lambda: A.attention(q, k, v), 100),
+                   "fwd simt": CS.time_ms(lambda: A.attention(q, k, v, variant="simt"), 50),
+                   "fwd plain": CS.time_ms(lambda: A.attention(q, k, v, use_kernel=False), 20),
+                   "fwd SDPA": sdpa_fwd,
+                   "bwd": CS.time_ms(lambda: A.attention_backward(q, k, v, out, g, lse), 50),
+                   "bwd simt": CS.time_ms(lambda: A.attention_backward(q, k, v, out, g,
+                                                                       variant="simt"), 20),
+                   "bwd plain": CS.time_ms(lambda: A.attention_backward_reference(q, k, v, out, g),
+                                           20),
+                   "bwd SDPA": sdpa_both - sdpa_fwd}
+            print(f"  {shape} x{n}: " + ", ".join(f"{key} {ms:.4f}" for key, ms in row.items()),
+                  flush=True)
+            for key, ms in row.items():
+                tot[key] += n * ms
+            tot["flops"] += n * 4.0 * shape[0] * t * t * d
+        for part, mul in (("fwd", 1.0), ("bwd", 2.5)):
+            fl = mul * tot["flops"]
+            print(f"attention per pass at batch {batch}, {part}: tf32x3 {tot[part]:.4f} ms, simt "
+                  f"{tot[part + ' simt']:.4f} ({tot[part] / tot[part + ' simt']:.3f}x), plain "
+                  f"{tot[part + ' plain']:.4f}, SDPA fp32 {tot[part + ' SDPA']:.4f} "
+                  f"({tot[part] / tot[part + ' SDPA']:.3f}x); bounds {3 * fl / 495e9:.5f} (3 TF32 "
+                  f"products), {fl / 67e9:.5f} (fp32 cores)", flush=True)
+
+
+def attention_blockings(A, CS, torch, gen, lib):
+    def ok(got, want):
+        return all(CS.rel_err(a, b)[1] <= CS.TOL["float32"] for a, b in zip(got, want))
+
+    def stream():          # the current one: `time_ms` captures on a side stream
+        return torch.cuda.current_stream().cuda_stream
+
+    for batch in (1, 3):
+        for (bh, t, d), n in ATTN_PASS:
+            bh *= batch
+            q, k, v, g = (torch.randn((bh, t, d), generator=gen, device="cuda") for _ in range(4))
+            ref = A.attention_reference(q, k, v)
+            out, lse = torch.empty_like(q), torch.empty((bh, t), device="cuda")
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+            rows = []
+            for splits in (1, 2, 4):
+                if splits > -(-t // A.TF32X3_KEY_TILE):
+                    continue
+                for stages in (1, 2):
+                    def fwd(splits=splits, stages=stages):
+                        rc = lib.attention_tf32x3_forward(*ptrs, out.data_ptr(), lse.data_ptr(), bh,
+                                                          t, d, A.LOG2E / math.sqrt(d), splits,
+                                                          stages, stream())
+                        if rc:
+                            raise RuntimeError(f"attention_tf32x3_forward returned {rc}")
+                    fwd()
+                    torch.cuda.synchronize()
+                    rows.append(f"splits {splits} stages {stages} {CS.time_ms(fwd, 100):.4f}"
+                                + ("" if ok([out], [ref]) else " WRONG"))
+            print(f"forward {(bh, t, d)} x{n}: " + ", ".join(rows), flush=True)
+            gref = A.attention_backward_reference(q, k, v, ref, g)
+            o, lse = A.attention_with_lse(q, k, v)
+            grads = [torch.empty_like(q) for _ in range(3)]
+            delta = torch.empty(bh * t, device="cuda")
+            rows = []
+            for tile in (16, 32, 64):
+                for stages in (1, 2):
+                    def bwd(tile=tile, stages=stages):
+                        return lib.attention_tf32x3_backward(
+                            *ptrs, o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                            *(x.data_ptr() for x in grads), delta.data_ptr(), bh, t, d,
+                            A.LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), tile, stages, stream())
+                    if bwd():
+                        continue                  # a blocking the kernels refuse
+                    torch.cuda.synchronize()
+                    rows.append(f"chunk {tile} stages {stages} {CS.time_ms(bwd, 50):.4f}"
+                                + ("" if ok(grads, gref) else " WRONG"))
+            print(f"backward {(bh, t, d)} x{n}: " + ", ".join(rows), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parts", default="route,wgrad_variants")
+    ap.add_argument("--parts", default="route,wgrad_variants,attention,attention_blockings")
     parts = set(ap.parse_args().parts.split(","))
     import torch
 
@@ -161,6 +313,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     import chip_smoke as CS
     from diffusion_models_dev_project_tpu_torch.ops import _build
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
     from diffusion_models_dev_project_tpu_torch.ops import conv3x3 as C
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -173,6 +326,10 @@ def main() -> None:
         route(C, CS, torch, gen)
     if "wgrad_variants" in parts:
         wgrad_variants(C, CS, torch, gen, _build)
+    if "attention" in parts:
+        attention(A, CS, torch, gen, _build)
+    if "attention_blockings" in parts:
+        attention_blockings(A, CS, torch, gen, _build.library())
 
 
 if __name__ == "__main__":
