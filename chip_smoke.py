@@ -21,7 +21,8 @@ points (`scripts/`):
    forward's `conv3x3_tf32x3_kernel` by name, and HMMA (mma.sync) in the
    functions of attention_mma.cu, in both kernels of attention_bwd_mma.cu,
    in those of the fp32 attention (attention_tf32x3.cu and both kernels of
-   attention_bwd_tf32x3.cu) and in the fp32 weight gradient's
+   attention_bwd_tf32x3.cu), in the three of attention_wide_mma.cu and of
+   attention_wide_tf32x3.cu, and in the fp32 weight gradient's
    `wgrad_tf32x3_kernel`;
 3. kernels: runs each kernel's wrapper at every shape the UNet forward
    gives it (recorded with forward hooks), checks it against its plain
@@ -70,9 +71,14 @@ points (`scripts/`):
    bitwise equal over two launches, the forced `simt` kernel checked too)
    per pass at batch 1 and 3 beside forced `simt`, the plain version, SDPA
    in fp32 and both bounds: each pass at most half of forced `simt`'s time.
-   Heads past 256 (`WIDE_HEADS`, d = 320 and 512, fp32 and bf16): the
-   chunked `simt` forward and backward against the plain versions, bitwise
-   equal over two launches, each call a `simt` launch, timed beside SDPA;
+   Heads past 128 (`WIDE_HEADS`: d = 136 to 512, T = 64 to 1024, B·heads
+   1 to 24, and `WIDE_CHECKED`: ragged T, scalar loads; fp32 and bf16):
+   `mma` and `tf32x3` in column chunks (csrc/attention_wide_*.cu) forward
+   and backward against the plain versions, lse2 against a plain one,
+   bitwise equal over two launches, exact launch counts (no `simt`, every
+   launch a wide one), each pass timed beside forced `simt` (gate: at most
+   half of its time at every `WIDE_HEADS` shape), the plain versions,
+   SDPA and both bounds;
 4. UNet: one full-width forward of the shipped VESDE prior at 256², batch 1,
    with the kernels against `use_kernel=False`;
 5. gradient: the same prior with LoRA rank 4 (up-projections drawn nonzero),
@@ -81,6 +87,11 @@ points (`scripts/`):
    kernels against `use_kernel=False`, both against an fp32 plain
    gradient, and in fp32 with the kernels against it; the launch counts of
    one forward and backward;
+5b. wide heads: the same UNet with random weights and `num_head_channels`
+   -1, with 2 heads (its attention at d = 256) and 1 head (d = 512), LoRA
+   rank 4, in bf16 and fp32: one forward at 256² against
+   `use_kernel=False`, and phase 5's gradient under phase 5's gates; 4 wide
+   attention forwards and 4 backwards a pass, counts exact;
 6. DDS: reconstructs the first images of the shipped val set (`PHASE6_STEPS`
    = 100 steps,
    60 angles, noise 0.01, gamma 0.01, eta 0.85, 5 CG iterations) and requires each to
@@ -711,13 +722,17 @@ def check_split_operand_follows_weight(gen):
 
 
 # functions whose SASS must hold HMMA (mma.sync): the attention forward, both
-# kernels of its backward, the same three of the fp32 attention (`tf32x3`)
+# kernels of its backward, the same three of the fp32 attention (`tf32x3`),
+# the same six past d = 128 (attention_wide_mma.cu, attention_wide_tf32x3.cu)
 # and the fp32 weight gradient's `tf32x3`; and HGMMA (wgmma) and UTMALDG (TMA
 # load): the weight gradient's tensor-core kernel and the fp32 forward's
 # `tf32x3`
 HMMA_FUNCTIONS = ("attention_mma_kernel", "attention_bwd_mma_dq_kernel",
                   "attention_bwd_mma_dkdv_kernel", "attention_tf32x3_kernel",
                   "attention_bwd_tf32x3_dq_kernel", "attention_bwd_tf32x3_dkdv_kernel",
+                  "attention_mma_wide_kernel", "attention_bwd_mma_wide_dq_kernel",
+                  "attention_bwd_mma_wide_dkdv_kernel", "attention_tf32x3_wide_kernel",
+                  "attention_bwd_tf32x3_wide_dq_kernel", "attention_bwd_tf32x3_wide_dkdv_kernel",
                   "wgrad_tf32x3_kernel")
 HGMMA_FUNCTIONS = ("wgrad_tc_kernel", "conv3x3_tf32x3_kernel")
 
@@ -1524,73 +1539,290 @@ def attention_fp32_pass(shapes, gen):
     return out
 
 
-# heads past MAX_HEAD_DIM (off every shipped path): the chunked simt forward
-# and backward, 2 column chunks of 256 each
-WIDE_HEADS = [((4, 256, d), dt) for d in (320, 512) for dt in ("float32", "bfloat16")]
+# heads past 128 (off every shipped path; a UNet config with num_head_channels
+# -1 reaches them, phase 5b): `mma` (bf16) and `tf32x3` (fp32) in column
+# chunks of 128, timed at every shape beside the forced `simt` kernels, the
+# plain versions and SDPA.  d = 136 to 256 (the band `simt` took in one
+# pass), 320 and 512; T = 64, 256 and 1024; B·heads 4 and 24; and the UNet's
+# own calls at d = 256 (2 heads) and 512 (1 head) at 16² and 8²
+WIDE_HEADS = ([(4, 256, d) for d in (136, 192, 256, 320, 512)]
+              + [(4, 64, 512), (4, 1024, 192), (4, 1024, 512), (24, 256, 512), (24, 1024, 256)]
+              + [(2, 256, 256), (2, 64, 256), (1, 256, 512), (1, 64, 512)])
+# checked only: ragged T, d off the 16- and 8-wide slices (scalar loads), a
+# single row, and a last chunk of a few columns
+WIDE_CHECKED = [(2, 37, 300), (3, 100, 150), (1, 1, 136), (2, 300, 200), (1, 65, 129)]
+# the draws phase 3 took from the run's generator before the wide heads went
+# to the tensor cores: taken first, so that every later phase keeps its inputs
+WIDE_SHARED_DRAWS = [((4, 256, d), dt) for d in (320, 512) for dt in ("float32", "bfloat16")]
 
 
 def check_attention_wide(gen):
-    """Attention at heads past 256 (`WIDE_HEADS`): the chunked `simt` forward
-    and backward kernels against the plain versions at the attention
-    tolerances, bitwise equal over two launches, each call counted as a
-    `simt` launch (no fallback); timed beside the plain versions, SDPA as
-    dispatched by default (its backward: forward and backward captured
-    together, less the forward) and the bound.  Returns a row per shape."""
+    """Attention past d = 128 (`WIDE_HEADS`, `WIDE_CHECKED`), fp32 and bf16:
+    the planned kernels (`mma`, `tf32x3` in column chunks of 128) forward and
+    backward against the plain versions within `TOL[dt]` of max|plain|,
+    lse2 against `attention_lse_reference`, bitwise equal over two launches,
+    exact launch counts by variant (no `simt` launch, every launch a wide
+    one).  At the `WIDE_HEADS` shapes timed beside the forced `simt`
+    kernels (gate: each pass at most half of their time), the plain
+    versions, SDPA as dispatched by default (its backward: forward and
+    backward captured together, less the forward) and both bounds (bf16:
+    the tensor cores' rate and the bytes; fp32: three TF32 products at 495
+    TFLOP/s, the fp32 CUDA cores at 67).  Every check runs before a failure
+    is raised, all failures together.  Returns a row per timed shape."""
     import torch
     import torch.nn.functional as F
 
     from diffusion_models_dev_project_tpu_torch.ops import attention as A
 
-    rows = []
-    log(f"{'attention, wide heads':>28} {'dtype':>8} {'pass':>8} {'chunks':>6} {'kernel_ms':>10} "
-        f"{'plain_ms':>9} {'library_ms':>10} {'bound_ms':>9} {'bound_by':>10} {'rel_err':>9}")
-    for shape, dt in WIDE_HEADS:
+    shared = {key: [torch.randn(key[0], generator=gen, device="cuda").to(getattr(torch, key[1]))
+                    for _ in range(4)] for key in WIDE_SHARED_DRAWS}
+    own = torch.Generator(device="cuda").manual_seed(19)
+    rows, failures = [], []
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    log(f"{'attention, wide heads':>24} {'dtype':>8} {'pass':>8} {'var':>6} {'ch':>2} {'kernel_ms':>10} "
+        f"{'simt_ms':>9} {'plain_ms':>9} {'sdpa_ms':>9} {'ops_ms':>9} {'bytes_ms':>9} {'fp32c_ms':>9} "
+        f"{'rel_err':>9}")
+    cases = [(shape, dt, True) for shape in WIDE_HEADS for dt in ("float32", "bfloat16")]
+    cases += [(shape, dt, False) for shape in WIDE_CHECKED for dt in ("float32", "bfloat16")]
+    for shape, dt, timed in cases:
         bh, t, dd = shape
         tdt = getattr(torch, dt)
-        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(tdt) for _ in range(4))
+        q, k, v, g = shared.pop((shape, dt), None) or [
+            torch.randn(shape, generator=own, device="cuda").to(tdt) for _ in range(4)]
         p, bp = A.plan(bh, t, dd, tdt), A.backward_plan(bh, t, dd, tdt)
-        if not (p.variant == bp.variant == "simt" and p.chunks == bp.chunks == 2):
-            raise AssertionError(f"attention {shape} {dt}: plans {p}, {bp}")
-        f0, b0 = A.launches_by_variant["simt"], A.backward_launches_by_variant["simt"]
-        out, again = A.attention(q, k, v), A.attention(q, k, v)
-        grads = A.attention_backward(q, k, v, out, g)
-        grads2 = A.attention_backward(q, k, v, out, g)
+        variant = "mma" if dt == "bfloat16" else "tf32x3"
+        if not (p.variant == bp.variant == variant and p.chunks == -(-p.d_pad // p.chunk_cols)
+                and bp.chunks == -(-bp.d_pad // A.WIDE_CHUNK) > 1):
+            failures.append(f"{shape} {dt}: plans {p}, {bp}")
+            continue
+        before = (dict(A.launches_by_variant), dict(A.backward_launches_by_variant),
+                  A.wide_launches, A.wide_backward_launches)
+        out, lse = A.attention_with_lse(q, k, v)
+        out2, lse2 = A.attention_with_lse(q, k, v)
+        out3 = A.attention(q, k, v)
+        grads = A.attention_backward(q, k, v, out, g, lse)
+        grads2 = A.attention_backward(q, k, v, out, g, lse)
         torch.cuda.synchronize()
-        if (A.launches_by_variant["simt"] - f0, A.backward_launches_by_variant["simt"] - b0) != (2, 2):
-            raise AssertionError(f"attention {shape} {dt}: the simt kernels did not launch")
+        fwd_n = {v_: A.launches_by_variant[v_] - before[0][v_] for v_ in A.VARIANTS}
+        bwd_n = {v_: A.backward_launches_by_variant[v_] - before[1][v_] for v_ in A.VARIANTS}
+        wide_n = (A.wide_launches - before[2], A.wide_backward_launches - before[3])
+        want_n = {v_: 3 if v_ == variant else 0 for v_ in A.VARIANTS}
+        if fwd_n != want_n or bwd_n != dict(want_n, **{variant: 2}) or wide_n != (3, 2):
+            failures.append(f"{shape} {dt}: launches forward {fwd_n}, backward {bwd_n}, wide {wide_n}")
         ref = A.attention(q, k, v, use_kernel=False)
         gref = A.attention_backward_reference(q, k, v, out, g)
         d_f, r_f = rel_err(out, ref)
-        errs = [rel_err(a, b) for a, b in zip(grads, gref)]
+        _, r_lse = rel_err(lse, A.attention_lse_reference(q, k))
+        errs = []
+        for name, a, b in zip("qkv", grads, gref):
+            d_n, r_n = rel_err(a, b)
+            # T = 1: dq and dk are 0 in exact arithmetic, rounding noise here
+            errs.append((d_n, d_n if t == 1 and name in "qk" else r_n))
         d_b, r_b = max(e[0] for e in errs), max(e[1] for e in errs)
-        same = torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
-        finite = torch.isfinite(out).all() and all(torch.isfinite(a).all() for a in grads)
-        if not (finite and same and r_f <= TOL[dt] and r_b <= TOL[dt]):
-            raise AssertionError(f"attention {shape} {dt}: rel err forward {r_f:.3e}, backward "
-                                 f"{r_b:.3e} (tol {TOL[dt]}), or two launches differ")
+        worst[dt] = max(worst[dt], r_f, r_b)
+        same = (torch.equal(out, out2) and torch.equal(out, out3) and torch.equal(lse, lse2)
+                and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+        finite = all(torch.isfinite(a).all() for a in (out, lse, *grads))
+        if not (finite and same and r_f <= TOL[dt] and r_b <= TOL[dt] and r_lse <= TOL["float32"]):
+            failures.append(f"{shape} {dt}: rel err forward {r_f:.3e}, backward {r_b:.3e} (tol "
+                            f"{TOL[dt]}), lse2 {r_lse:.3e}; finite {bool(finite)}, two launches "
+                            f"{'equal' if same else 'DIFFER'}")
+        if not timed:
+            log(f"{str(shape):>24} {dt:>8} {'both':>8} {variant:>6} {p.chunks:>2} {'':>10} {'':>9} "
+                f"{'':>9} {'':>9} {'':>9} {'':>9} {'':>9} {max(r_f, r_b):>9.2e}")
+            continue
         q4, k4, v4 = (a.view(1, bh, t, dd).detach().requires_grad_() for a in (q, k, v))
         g4 = g.view(1, bh, t, dd)
         sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
         sdpa_both = time_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), g4), 20)
-        row = {"shape": list(shape), "dtype": dt, "chunks": p.chunks}
-        for name, fn, plain, flops, nbytes, d, r, lib in (
-                ("forward", lambda: A.attention(q, k, v),
+        row = {"shape": list(shape), "dtype": dt, "variant": variant, "chunks": p.chunks,
+               "splits": p.key_splits, "stages": p.stages, "tile": bp.tile,
+               "bwd_stages": bp.stages, "lse_rel_err": r_lse}
+        for name, fn, simt, plain, flops, nbytes, d, r, lib in (
+                ("forward", lambda: A.attention(q, k, v), lambda: A.attention(q, k, v, variant="simt"),
                  lambda: A.attention(q, k, v, use_kernel=False), 4.0 * bh * t * t * dd,
                  4.0 * q.numel() * q.element_size(), d_f, r_f, sdpa_fwd),
-                ("backward", lambda: A.attention_backward(q, k, v, out, g),
+                ("backward", lambda: A.attention_backward(q, k, v, out, g, lse),
+                 lambda: A.attention_backward(q, k, v, out, g, variant="simt"),
                  lambda: A.attention_backward_reference(q, k, v, out, g), 10.0 * bh * t * t * dd,
                  8.0 * q.numel() * q.element_size(), d_b, r_b, sdpa_both - sdpa_fwd)):
-            k_ms, p_ms = time_ms(fn, 20), time_ms(plain, 10)
-            b_ms, b_by, _, _ = bound(flops, nbytes, dt)
-            row[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                             max_abs_err=d)
-            log(f"{str(shape):>28} {dt:>8} {name:>8} {p.chunks:>6} {k_ms:>10.4f} {p_ms:>9.4f} "
-                f"{lib:>10.4f} {b_ms:>9.5f} {b_by:>10} {r:>9.2e}")
+            k_ms, s_ms, p_ms = time_ms(fn, 20), time_ms(simt, 3), time_ms(plain, 5)
+            if dt == "float32":     # the tf32x3 design's bound, and any fp32 CUDA-core kernel's
+                b_ms, b_by, ops_ms, bytes_ms = bound(TF32_PRODUCTS * flops, nbytes, "tf32")
+                fp32c_ms = bound(flops, nbytes, "float32")[0]
+            else:
+                b_ms, b_by, ops_ms, bytes_ms = bound(flops, nbytes, dt)
+                fp32c_ms = None
+            row[name] = dict(ms=k_ms, simt_ms=s_ms, plain_ms=p_ms, library_ms=lib, bound_ms=b_ms,
+                             bound_by=b_by, ops_ms=ops_ms, bytes_ms=bytes_ms,
+                             fp32_cores_bound_ms=fp32c_ms, max_abs_err=d, rel_err=r)
+            log(f"{str(shape):>24} {dt:>8} {name:>8} {variant:>6} {p.chunks:>2} {k_ms:>10.4f} "
+                f"{s_ms:>9.4f} {p_ms:>9.4f} {lib:>9.4f} {ops_ms:>9.5f} {bytes_ms:>9.5f} "
+                f"{'' if fp32c_ms is None else f'{fp32c_ms:.5f}':>9} {r:>9.2e}")
+            if not 2 * k_ms <= s_ms:
+                failures.append(f"{shape} {dt} {name}: {k_ms:.4f} ms, more than half of forced "
+                                f"simt's {s_ms:.4f} ms")
         rows.append(row)
-    log("attention past 256: the chunked simt forward and backward agree with the plain "
-        "versions, bitwise equal over two launches")
+    log(f"attention past d = 128: worst rel err bf16 {worst['bfloat16']:.3e} (tol "
+        f"{TOL['bfloat16']}), fp32 {worst['float32']:.3e} of max|plain| (tol {TOL['float32']}); "
+        f"{len(cases)} shapes, {len(failures)} failures")
+    for tag in ("forward", "backward"):
+        for dt in ("float32", "bfloat16"):
+            mine = [r for r in rows if r["dtype"] == dt]
+            log(f"  {tag} {dt}: kernel / forced simt "
+                + ", ".join(f"{tuple(r['shape'])} {r[tag]['ms'] / r[tag]['simt_ms']:.3f}" for r in mine))
+            log(f"  {tag} {dt}: kernel / SDPA "
+                + ", ".join(f"{tuple(r['shape'])} {r[tag]['ms'] / r[tag]['library_ms']:.3f}"
+                            for r in mine))
+    if failures:
+        raise AssertionError("attention past d = 128:\n  " + "\n  ".join(failures))
     return rows
+
+
+def wide_kernel_rows(attn_wide, wide_unet, src):
+    """The `kernels` line's rows of the kernels past d = 128, one per dtype:
+    forward and backward per UNet pass at phase 5b's 2-head calls (d = 256;
+    the 1-head pass, d = 512, beside), each the sum of phase 3's times at
+    those shapes; the launches of phase 5b (its forward checks and
+    gradients); phase 3's rows at every wide shape."""
+    keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    out = []
+    for dt, variant, source in (("bfloat16", "mma", "attention_wide_mma.cu"),
+                                ("float32", "tf32x3", "attention_wide_tf32x3.cu")):
+        rows = {tuple(r["shape"]): r for r in attn_wide if r["dtype"] == dt}
+
+        def per_pass(part, heads):
+            tot = {k: sum(rows[tuple(c)][part][k] for c in wide_unet[heads]["attention_calls"])
+                   for k in keys}
+            tot["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
+            tot["max_abs_err"] = max(r[part]["max_abs_err"] for r in rows.values())
+            return tot
+
+        n_fwd = sum(u[dt]["forward_launches"] + u[dt]["gradient_launches"]["wide"][0]
+                    for u in wide_unet.values())
+        n_bwd = sum(u[dt]["gradient_launches"]["wide"][1] for u in wide_unet.values())
+        fwd, bwd = per_pass("forward", 2), per_pass("backward", 2)
+        out.append({"name": f"attention_wide_{variant}", "route": "cuda", "source": src + source,
+                    "replaces": "diffusion_models_dev_project_tpu/ops/attention.py:43",
+                    "launches": n_fwd, **fwd, "d": wide_unet[2]["d"],
+                    "d512": per_pass("forward", 1),
+                    "backward": {"source": src + source, "launches": n_bwd, **bwd,
+                                 "d512": per_pass("backward", 1)},
+                    "wide_heads": list(rows.values())})
+    return out
+
+
+# phase 5b: the flagship's UNet with one head per `num_heads` over all of a
+# block's channels (num_head_channels = -1, guided-diffusion's default): at
+# the 512-channel 16² and 8² maps 2 heads give d = 256 and 1 head d = 512
+WIDE_UNET_HEADS = (2, 1)
+# the fp32 UNet forward with kernels against its plain path: free of bf16
+# rounding, as phase 5's fp32 gradient (TOL_GRAD_FP32)
+
+
+def draw_zero_leaves(model, seed: int) -> None:
+    """Draw the kernels a fresh UNet starts at zero (each attention `proj`,
+    each res block's second conv, the final conv) from N(0, 1/fan_in)
+    clipped at two standard deviations, in fp32 from a CPU generator of
+    `seed`: so that every block carries signal and gradient, with the same
+    values whatever the model's dtype."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.models import unet as U
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (U.Conv3x3, U.Dense)) and not mod.weight.any():
+                w = mod.weight
+                fan_in = 9 * w.shape[2] if isinstance(mod, U.Conv3x3) else w.shape[1]
+                w.copy_(torch.randn(w.shape, generator=g).clamp(-2, 2) / math.sqrt(fan_in))
+
+
+def wide_head_unet_phase(F, config, sde, trafo, obs, xg, tg):
+    """Phase 5b: the flagship's 128-channel UNet with random weights (the
+    config's seed, `draw_zero_leaves`) and num_head_channels = -1, once with
+    2 heads (its attention at d = 256) and once with 1 (d = 512), in bf16
+    and fp32: one forward at 256², batch 1, kernels against
+    `use_kernel=False` (`TOL_UNET` in bf16, `TOL_GRAD_FP32` in fp32), and
+    the LoRA adaptation loss's gradient of phase 5 (its observation and
+    state) under phase 5's gates; exact launch counts, every attention call
+    a wide one: 4 forwards per forward pass and 4 backwards per backward.
+    Draws from a generator of its own.  Returns {heads: {...}}."""
+    import torch
+
+    from diffusion_models_dev_project_tpu_torch.ops import attention as A
+
+    own = torch.Generator(device="cuda").manual_seed(55)
+    x = torch.randn((1, 256, 256, 1), generator=own, device="cuda") * 10.0
+    t = torch.full((1,), 0.5, device="cuda")
+    out = {}
+    for heads in WIDE_UNET_HEADS:
+        cfgs, models = {}, {}
+        for dt in ("bfloat16", "float32"):
+            cfgs[dt] = copy.deepcopy(config)
+            cfgs[dt].model.dtype = dt
+            cfgs[dt].model.num_heads = heads
+            cfgs[dt].model.num_head_channels = -1
+            models[dt], _, _ = F.get_standard_score(cfgs[dt], sde, load_model=False,
+                                                    lora_rank=LORA_RANK)
+            draw_zero_leaves(models[dt], 5)
+        seen, handles = record_shapes(models["bfloat16"])
+        with torch.no_grad():
+            models["bfloat16"](x, t)
+        for hnd in handles:
+            hnd.remove()
+        shapes = sorted({shape for shape, _ in seen["attn"]})
+        dd = shapes[0][2]
+        row = {"d": dd, "attention_calls": [list(sh) for sh, _ in seen["attn"]]}
+        for dt, m in models.items():
+            reset_counts()
+            A.wide_launches = A.wide_backward_launches = 0
+            with torch.no_grad():
+                y = m(x, t)
+                counts, wide = read_counts(), (A.wide_launches, A.wide_backward_launches)
+                ref = m(x, t, use_kernel=False)
+                dev_ms = time_ms(lambda: m(x, t), 3)
+            check_counts(counts, 1, 0, f"wide heads ({heads}) {dt} forward", dtype=dt)
+            d_f, r_f = rel_err(y, ref)
+            tol = TOL_UNET if dt == "bfloat16" else TOL_GRAD_FP32
+            log(f"  UNet 256², {heads} head(s) of d = {dd} ({len(seen['attn'])} attention calls at "
+                f"{shapes}), {dt}: max|kernel - plain| {d_f:.3e}, rel {r_f:.3e} (tol {tol}); wide "
+                f"launches {wide[0]}; forward {dev_ms:.2f} ms of device time")
+            if not (torch.isfinite(y).all() and y.shape == x.shape and r_f <= tol
+                    and wide == (4, 0)):
+                raise AssertionError(f"wide heads ({heads}) {dt}: the UNet forward with kernels "
+                                     f"disagrees with the plain path, or wide launches {wide}")
+            row[dt] = {"rel_err": r_f, "max_abs_err": d_f, "forward_device_ms": dev_ms,
+                       "forward_launches": wide[0]}
+        samplers = {dt: F.get_standard_adapted_sampler(
+            "dds", m, sde, trafo, obs, num_steps=50, lora_rank=LORA_RANK, add_cg=True, cg_iter=1,
+            dc_type="cg", tv_penalty=1e-6, lr=1e-3) for dt, m in models.items()}
+        lora = {n: (v if n.endswith(".down") else 0.01 * torch.randn(v.shape, generator=own,
+                                                                     device="cuda"))
+                for n, v in samplers["bfloat16"].lora.items()}
+        for smp in samplers.values():
+            smp.lora = lora
+        grads = {}
+        for dt, smp in samplers.items():
+            reset_counts()
+            A.wide_launches = A.wide_backward_launches = 0
+            grads[dt, True] = adaptation_gradients(smp, xg, tg, True)
+            counts, wide = read_counts(), (A.wide_launches, A.wide_backward_launches)
+            check_counts(counts, 1, 1, f"wide heads ({heads}) {dt} gradient", dtype=dt)
+            if wide != (4, 4):
+                raise AssertionError(f"wide heads ({heads}) {dt} gradient: wide launches {wide}")
+            row[dt]["gradient_launches"] = {"attn_fwd_by": counts["attn_fwd_by"],
+                                            "attn_bwd_by": counts["attn_bwd_by"], "wide": wide}
+            grads[dt, False] = adaptation_gradients(smp, xg, tg, False)
+        (loss_k, gk), (loss_p, gp) = grads["bfloat16", True], grads["bfloat16", False]
+        (loss_32k, g32k), (loss_32, g32) = grads["float32", True], grads["float32", False]
+        gradient_gates(gk, gp, g32, g32k, (loss_k, loss_p, loss_32, loss_32k),
+                       f"adaptation loss gradient, {heads} head(s) of d = {dd}")
+        out[heads] = row
+        del samplers, models, grads
+    return out
 
 
 def adapted_phantoms(images):
@@ -3868,6 +4100,11 @@ def main() -> None:
         f"{both_dev:.2f} ms, so the backward {both_dev - fwd_dev:.2f} ms")
     log(f"[phase 5 gradient] {time.perf_counter() - t0:.1f} s")
 
+    # ---- 5b. the UNet with heads past 128 through the wide kernels
+    t0 = time.perf_counter()
+    wide_unet = wide_head_unet_phase(F, config, sde, trafo, obs, xg, tg)
+    log(f"[phase 5b wide heads] {time.perf_counter() - t0:.1f} s")
+
     # ---- 6. DDS reconstruction through the factory entry points
     t0 = time.perf_counter()
     reset_counts()
@@ -4520,8 +4757,6 @@ def main() -> None:
             "launches": attn_by_variant[v], "ms": attn_ms[v], "bound_ms": attn_tot["bound_ms"],
             "library_ms": attn_tot["library_ms"]}
         for v in ("mma", "simt")}
-    # simt past 256 (phase 3): no launch on any path, per call
-    kernels[1]["variants"]["simt"]["wide_heads"] = attn_wide
     # launches of the walnut DDS runs (cg and woodbury), and the AAPM UNet's
     # conv3x3 per forward (the 256-channel model)
     for kern, key in zip(kernels, ("conv_fwd", "attn_fwd")):
@@ -4586,6 +4821,8 @@ def main() -> None:
             "launches_train": t32[key]["tf32x3"],
             "batch_train": dict(fp32_fields(dict(train, calls=len(seen["attn"]))),
                                 batch=TRAIN_BATCH)})
+    # heads past 128 (phase 3's rows; per UNet pass at phase 5b's calls, its launches)
+    kernels.extend(wide_kernel_rows(attn_wide, wide_unet, src))
     kernels.extend(kernel_rows_512(ph15))
     log(f"(kernel times are per UNet forward: the sum over its calls at their shapes; "
         f"whole run {time.perf_counter() - t_all:.1f} s)")

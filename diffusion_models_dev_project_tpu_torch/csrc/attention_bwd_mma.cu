@@ -212,15 +212,15 @@ attention_bwd_mma_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const bool vec_ok = vec != 0;
   bf16* stages = reinterpret_cast<bf16*>(ring) + warp * (nchunks > WARPS ? 2 : 1) * STAGE;
   const auto load_chunk = [&](bf16* stage, int j) {
-    load_rows<DP>(stage, k + base, j * W, W, Tn, D, vec_ok, lane, 32);
-    load_rows<DP>(stage + W * LD, v + base, j * W, W, Tn, D, vec_ok, lane, 32);
+    load_cols<DP, DP + PAD>(stage, k + base, j * W, W, 0, Tn, D, vec_ok, lane, 32);
+    load_cols<DP, DP + PAD>(stage + W * LD, v + base, j * W, W, 0, Tn, D, vec_ok, lane, 32);
   };
 
   // the block's rows of q, dout and o; then this warp's first chunk (a
   // warp without one commits an empty group)
-  load_rows<DP>(Qs, q + base, q0, ROWS, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
-  load_rows<DP>(Gs, dout + base, q0, ROWS, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
-  load_rows<DP>(Os, o + base, q0, ROWS, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
+  load_cols<DP, DP + PAD>(Qs, q + base, q0, ROWS, 0, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
+  load_cols<DP, DP + PAD>(Gs, dout + base, q0, ROWS, 0, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
+  load_cols<DP, DP + PAD>(Os, o + base, q0, ROWS, 0, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
   cp_async_commit();
   if (warp < nchunks) load_chunk(stages, warp);
   cp_async_commit();
@@ -348,8 +348,8 @@ attention_bwd_mma_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict
   // a stage: W rows of q, then of dout, then W floats of lse2 and of D
   const auto load_chunk = [&](unsigned char* stage, int i) {
     bf16* Qc = reinterpret_cast<bf16*>(stage);
-    load_rows<DP>(Qc, q + base, i * W, W, Tn, D, vec_ok, lane, 32);
-    load_rows<DP>(Qc + W * LD, dout + base, i * W, W, Tn, D, vec_ok, lane, 32);
+    load_cols<DP, DP + PAD>(Qc, q + base, i * W, W, 0, Tn, D, vec_ok, lane, 32);
+    load_cols<DP, DP + PAD>(Qc + W * LD, dout + base, i * W, W, 0, Tn, D, vec_ok, lane, 32);
     float* Lc = reinterpret_cast<float*>(Qc + 2 * W * LD);
     for (int e = lane; e < W; e += 32) {
       const int r = i * W + e;
@@ -359,8 +359,8 @@ attention_bwd_mma_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict
     }
   };
 
-  load_rows<DP>(Ks, k + base, k0, ROWS, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
-  load_rows<DP>(Vs, v + base, k0, ROWS, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
+  load_cols<DP, DP + PAD>(Ks, k + base, k0, ROWS, 0, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
+  load_cols<DP, DP + PAD>(Vs, v + base, k0, ROWS, 0, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
   cp_async_commit();
   if (warp < nchunks) load_chunk(stages, warp);
   cp_async_commit();

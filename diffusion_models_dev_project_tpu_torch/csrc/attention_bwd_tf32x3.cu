@@ -231,15 +231,15 @@ attention_bwd_tf32x3_dq_kernel(const float* __restrict__ q, const float* __restr
   const bool two = two_stages != 0 && nchunks > WARPS;
   float* stages = ring + warp * (two ? 2 : 1) * STAGE;
   const auto load_chunk = [&](float* stage, int j) {
-    load_rows_f32<DP>(stage, k + base, j * W, W, Tn, D, vec_ok, lane, 32);
-    load_rows_f32<DP>(stage + W * LD, v + base, j * W, W, Tn, D, vec_ok, lane, 32);
+    load_cols<DP, DP + FPAD>(stage, k + base, j * W, W, 0, Tn, D, vec_ok, lane, 32);
+    load_cols<DP, DP + FPAD>(stage + W * LD, v + base, j * W, W, 0, Tn, D, vec_ok, lane, 32);
   };
 
   // the block's rows of q, dout and o; then this warp's first chunk (a
   // warp without one commits an empty group)
-  load_rows_f32<DP>(Qs, q + base, q0, ROWS, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
-  load_rows_f32<DP>(Gs, dout + base, q0, ROWS, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
-  load_rows_f32<DP>(Os, o + base, q0, ROWS, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
+  load_cols<DP, DP + FPAD>(Qs, q + base, q0, ROWS, 0, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
+  load_cols<DP, DP + FPAD>(Gs, dout + base, q0, ROWS, 0, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
+  load_cols<DP, DP + FPAD>(Os, o + base, q0, ROWS, 0, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
   cp_async_commit();
   if (warp < nchunks) load_chunk(stages, warp);
   cp_async_commit();
@@ -346,8 +346,8 @@ attention_bwd_tf32x3_dkdv_kernel(const float* __restrict__ q, const float* __res
   float* stages = ring + warp * (two ? 2 : 1) * STAGE;
   // a stage: W rows of q, then of dout, then W floats of lse2 and of D
   const auto load_chunk = [&](float* stage, int i) {
-    load_rows_f32<DP>(stage, q + base, i * W, W, Tn, D, vec_ok, lane, 32);
-    load_rows_f32<DP>(stage + W * LD, dout + base, i * W, W, Tn, D, vec_ok, lane, 32);
+    load_cols<DP, DP + FPAD>(stage, q + base, i * W, W, 0, Tn, D, vec_ok, lane, 32);
+    load_cols<DP, DP + FPAD>(stage + W * LD, dout + base, i * W, W, 0, Tn, D, vec_ok, lane, 32);
     float* Lc = stage + 2 * W * LD;
     for (int e = lane; e < W; e += 32) {
       const int r = i * W + e;
@@ -357,8 +357,8 @@ attention_bwd_tf32x3_dkdv_kernel(const float* __restrict__ q, const float* __res
     }
   };
 
-  load_rows_f32<DP>(Ks, k + base, k0, ROWS, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
-  load_rows_f32<DP>(Vs, v + base, k0, ROWS, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
+  load_cols<DP, DP + FPAD>(Ks, k + base, k0, ROWS, 0, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
+  load_cols<DP, DP + FPAD>(Vs, v + base, k0, ROWS, 0, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
   cp_async_commit();
   if (warp < nchunks) load_chunk(stages, warp);
   cp_async_commit();

@@ -143,14 +143,14 @@ attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
     asm volatile("bar.sync %0, %1;\n" ::"r"(split + 1), "r"(gthreads) : "memory");
   };
   const auto load_tile = [&](float* stage, int j) {    // K then V: two copy groups
-    load_rows_f32<DP>(stage, k + base, j * BK, BK, Tn, D, vec_ok, gtid, gthreads);
+    load_cols<DP, DP + FPAD>(stage, k + base, j * BK, BK, 0, Tn, D, vec_ok, gtid, gthreads);
     cp_async_commit();
-    load_rows_f32<DP>(stage + TILE, v + base, j * BK, BK, Tn, D, vec_ok, gtid, gthreads);
+    load_cols<DP, DP + FPAD>(stage + TILE, v + base, j * BK, BK, 0, Tn, D, vec_ok, gtid, gthreads);
     cp_async_commit();
   };
 
   // Q of all row groups, by the whole block; then this split's first tile
-  load_rows_f32<DP>(Qs, q + base, q0, 16 * groups, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
+  load_cols<DP, DP + FPAD>(Qs, q + base, q0, 16 * groups, 0, Tn, D, vec_ok, threadIdx.x, 32 * WARPS);
   cp_async_commit();
   load_tile(stages, split);
   cp_async_wait<2>();

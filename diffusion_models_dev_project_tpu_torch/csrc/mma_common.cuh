@@ -1,11 +1,12 @@
 // Building blocks of the `mma.sync` kernels.  For the bf16 attention kernels
-// (attention_mma.cu, attention_bwd_mma.cu): cp.async copies into shared
-// memory, ldmatrix, the m16n8k16 bf16 product with fp32 accumulation, and
-// the row loader that zero-pads a head to a multiple of 16 columns in a
-// padded shared tile.  For the fp32 `tf32x3` kernels (attention_tf32x3.cu,
-// attention_bwd_tf32x3.cu, conv3x3_wgrad_tf32x3.cu): the split of an fp32
-// value into TF32 hi + lo, the m16n8k8 tf32 product, the fp32 row loader and
-// the fragment loaders that split as they read.
+// (attention_mma.cu, attention_bwd_mma.cu, attention_wide_mma.cu): cp.async
+// copies into shared memory, ldmatrix, the m16n8k16 bf16 product with fp32
+// accumulation.  For the fp32 `tf32x3` kernels (attention_tf32x3.cu,
+// attention_bwd_tf32x3.cu, attention_wide_tf32x3.cu,
+// conv3x3_wgrad_tf32x3.cu): the split of an fp32 value into TF32 hi + lo,
+// the m16n8k8 tf32 product and the fragment loaders that split as they
+// read.  For the attention kernels of both types: `load_cols`, rows and
+// columns of a head into a padded shared tile, zero-padded.
 // Each including source gets its own copy (anonymous namespace).
 #pragma once
 
@@ -74,31 +75,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// rows [r0, r0 + rows) of one head's (T, D) matrix into a shared tile of DP
-// columns and row stride DP + PAD, by threads tid = 0 .. nthreads - 1 (a
-// multiple of 32): zeros past T and past D
-template <int DP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, int rows, int Tn,
+__device__ __forceinline__ void set_zero(bf16& x) { x = __float2bfloat16(0.f); }
+__device__ __forceinline__ void set_zero(float& x) { x = 0.f; }
+
+// columns [c0, c0 + W) of rows [r0, r0 + rows) of one head's (T, D) matrix
+// (bf16 or fp32) into a shared tile of row stride LD, by threads tid = 0 ..
+// nthreads - 1: zeros past T and past D (a head zero-padded to W columns
+// with c0 = 0; a slice or column chunk of a wide head).  `vec`: D a
+// multiple of 16 bytes' elements, c0 too, rows 16-byte aligned (16-byte
+// `cp.async` copies; else scalar stores).
+template <int W, int LD, typename T>
+__device__ __forceinline__ void load_cols(T* dst, const T* src, int r0, int rows, int c0, int Tn,
                                           int D, bool vec, int tid, int nthreads) {
-  constexpr int LD = DP + PAD;
-  constexpr int CPR = DP / 8;                  // 16-byte chunks per row
-  if (vec) {                                   // D % 8 == 0, 16-byte aligned rows
-    // a thread copies one column chunk of every step-th row
-    const int c = (tid % CPR) * 8;
-    const int step = nthreads / CPR;
-    const bool col_in = c < D;
-    for (int r = tid / CPR; r < rows; r += step) {
-      const bool in = col_in && r0 + r < Tn;
-      const bf16* p = in ? src + static_cast<long long>(r0 + r) * D + c : src;
+  constexpr int E = 16 / static_cast<int>(sizeof(T));   // elements per 16-byte copy
+  constexpr int CPR = W / E;                             // copies per row
+  if (vec) {
+    for (int e = tid; e < rows * CPR; e += nthreads) {
+      const int r = e / CPR;
+      const int c = (e - r * CPR) * E;
+      const bool in = c0 + c < D && r0 + r < Tn;
+      const T* p = in ? src + static_cast<long long>(r0 + r) * D + c0 + c : src;
       cp_async16(smem_u32(dst + r * LD + c), p, in ? 16 : 0);
     }
   } else {
-    for (int e = tid; e < rows * DP; e += nthreads) {
-      const int r = e / DP;
-      const int c = e % DP;
-      const int gr = r0 + r;
-      dst[r * LD + c] = (gr < Tn && c < D) ? src[static_cast<long long>(gr) * D + c]
-                                           : __float2bfloat16(0.f);
+    for (int e = tid; e < rows * W; e += nthreads) {
+      const int r = e / W;
+      const int c = e - r * W;
+      if (r0 + r < Tn && c0 + c < D) {
+        dst[r * LD + c] = src[static_cast<long long>(r0 + r) * D + c0 + c];
+      } else {
+        set_zero(dst[r * LD + c]);
+      }
     }
   }
 }
@@ -125,33 +132,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
 // row stride of 4 mod 16 floats reads (row g, column t) and (row 2t, column
 // g) fragments (g = lane / 4, t = lane % 4) free of bank conflicts
 constexpr int FPAD = 4;
-
-// rows [r0, r0 + rows) of one head's (T, D) fp32 matrix into a shared tile
-// of DP columns and row stride DP + FPAD, by threads tid = 0 .. nthreads - 1
-// (a multiple of 32, at least DP / 4): zeros past T and past D
-template <int DP>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int r0, int rows,
-                                              int Tn, int D, bool vec, int tid, int nthreads) {
-  constexpr int LD = DP + FPAD;
-  constexpr int CPR = DP / 4;                  // 16-byte chunks per row
-  if (vec) {                                   // D % 4 == 0, 16-byte aligned rows
-    const int c = (tid % CPR) * 4;
-    const int step = nthreads / CPR;
-    const bool col_in = c < D;
-    for (int r = tid / CPR; r < rows; r += step) {
-      const bool in = col_in && r0 + r < Tn;
-      const float* p = in ? src + static_cast<long long>(r0 + r) * D + c : src;
-      cp_async16(smem_u32(dst + r * LD + c), p, in ? 16 : 0);
-    }
-  } else {
-    for (int e = tid; e < rows * DP; e += nthreads) {
-      const int r = e / DP;
-      const int c = e % DP;
-      const int gr = r0 + r;
-      dst[r * LD + c] = (gr < Tn && c < D) ? src[static_cast<long long>(gr) * D + c] : 0.f;
-    }
-  }
-}
 
 // The tf32x3 fragments, each value split into (hi, lo) as it is read from a
 // shared fp32 tile of row stride LD.  m16n8k8 tf32: A (16 x 8) holds (row g,

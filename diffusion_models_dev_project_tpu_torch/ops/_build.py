@@ -72,6 +72,15 @@ _SIGNATURES = {
     # the same for the fp32 tf32x3 variant, and its shared-memory stages
     "attention_tf32x3_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
                                   _I, _P),
+    # heads past 128 (column chunks): q, k, v, out, lse (or null), BH, T, D,
+    # scale_log2, splits, stages, chunk (output columns a block), stream; and
+    # the backward's arguments with its stages
+    "attention_mma_wide_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P),
+    "attention_tf32x3_wide_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P),
+    "attention_mma_wide_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                                    _I, _I, _P),
+    "attention_tf32x3_wide_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                                       _I, _I, _P),
 }
 
 _lock = threading.Lock()

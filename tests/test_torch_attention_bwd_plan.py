@@ -1,5 +1,6 @@
-"""The port's attention backward plan (`mma` or `simt`, chunk, grid), its CPU
-emulation of the `mma` backward kernels, and the autograd Function on the CPU.
+"""The port's attention backward plan (`mma`, `tf32x3` or the forced `simt`,
+chunk, grid), its CPU emulation of the `mma` backward kernels, and the
+autograd Function on the CPU.
 
 `backward_plan` is what the wrapper hands the CUDA kernels.
 `attention_backward_mma_tiled_reference` carries out an `mma` plan step by
@@ -87,25 +88,30 @@ def plan_routes_and_limits():
     assert A.backward_plan(3, 37, 20, bf16)[:2] == ("mma", 32)  # d padded to 32
     assert A.backward_plan(1, 1, 8, bf16) == A.BackwardPlan("mma", 16, 16, 16, 4, 0, (1, 1))
     assert A.backward_plan(8, 256, 64, bf16, tile=16).tile == 16
-    # fp32 with d <= 128 goes to tf32x3 (tests/test_torch_attention_tf32x3.py),
-    # and a forced simt still takes it; d > 128 goes to simt (its own layout)
+    # fp32 goes to tf32x3 (tests/test_torch_attention_tf32x3.py), and a forced
+    # simt still takes it; d > 128 stays on mma, in column chunks of 128
+    # (tests/test_torch_attention_wide.py); simt only when forced
     assert A.backward_plan(8, 256, 64, fp32).variant == A.backward_plan(1, 1, 8, fp32).variant \
         == "tf32x3"
-    for args in ((8, 256, 64, fp32, "simt"), (8, 256, 160, bf16), (2, 64, 256, bf16),
-                 (1, 1, 8, fp32, "simt")):
+    for args in ((8, 256, 64, fp32, "simt"), (8, 256, 160, bf16, "simt"),
+                 (2, 64, 256, bf16, "simt"), (1, 1, 8, fp32, "simt")):
         assert A.backward_plan(*args).variant == "simt"
+    assert A.backward_plan(8, 256, 160, bf16) == A.BackwardPlan("mma", 160, 32, 16, 4, 0, (16, 8),
+                                                                2, 2)
+    assert A.backward_plan(2, 64, 256, bf16) == A.BackwardPlan("mma", 256, 16, 16, 4, 0, (4, 2), 2)
     assert A.backward_plan(8, 256, 64, fp32, "simt") == A.BackwardPlan("simt", 64, 32, 16, 1, 8,
                                                                        (16, 8))
-    assert A.backward_plan(2, 64, 256, fp32)[1:4] == (256, 16, 8)
+    assert A.backward_plan(2, 64, 256, fp32, "simt")[1:4] == (256, 16, 8)
     assert A.backward_plan(8, 256, 64, bf16, "simt").variant == "simt"
-    # past 256: simt in column chunks of 256, 8 rows a block; no head is
-    # narrower than 1
-    assert A.backward_plan(2, 64, 257, bf16) == A.BackwardPlan("simt", 512, 16, 8, 1, 16, (8, 2),
-                                                               2)
+    # past 256 the forced simt runs in column chunks of 256, 8 rows a block;
+    # no head is narrower than 1
+    assert A.backward_plan(2, 64, 257, bf16, "simt") == A.BackwardPlan("simt", 512, 16, 8, 1, 16,
+                                                                       (8, 2), 2)
     with pytest.raises(ValueError, match="head width"):
         A.backward_plan(2, 64, 0, bf16)
     # a forced choice that cannot take the shape raises
-    for args, kw in (((8, 256, 64, fp32, "mma"), {}), ((8, 256, 160, bf16, "mma"), {}),
+    for args, kw in (((8, 256, 64, fp32, "mma"), {}), ((8, 256, 160, fp32, "mma"), {}),
+                     ((8, 256, 160, bf16), {"tile": 64}),
                      ((8, 256, 64, bf16, "wgmma"), {}), ((2, 100, 128, bf16), {"tile": 64}),
                      ((8, 256, 64, bf16), {"tile": 48}),
                      ((8, 256, 64, fp32, "simt"), {"tile": 16})):

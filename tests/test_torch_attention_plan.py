@@ -1,7 +1,7 @@
 """The port's attention plan (variant, blocking, key splits), its CPU
 emulation of the `mma` kernel, and head widths up to 256 and past it (the
-chunked `simt` plan; tests/test_torch_attention_wide.py holds wide heads
-to the JAX kernel).
+chunked tensor-core plans; tests/test_torch_attention_wide.py holds wide
+heads to the JAX kernel).
 
 `plan` is what the wrapper hands the CUDA kernels, so it is checked on the
 flagship UNet's attention calls, on the 512² configuration's (its attention
@@ -89,20 +89,28 @@ def plan_on_the_flagship_calls():
     assert A.plan(1, 150, 64, torch.bfloat16).key_splits == 2          # 3 tiles
     assert A.plan(3, 300, 128, torch.bfloat16).key_splits == 2         # d > 64: two rounds must fit
     assert A.plan(2, 37, 20, torch.bfloat16).d_pad == 32
-    # fp32 with d <= 128 goes to tf32x3 (tests/test_torch_attention_tf32x3.py),
-    # and a forced simt still takes it; d > 128 goes to simt; past 256 simt
-    # takes the head in column chunks of 256; no head is narrower than 1
+    # fp32 goes to tf32x3 (tests/test_torch_attention_tf32x3.py), and a forced
+    # simt still takes it; d > 128 stays on the tensor cores in column chunks
+    # (tests/test_torch_attention_wide.py): 4 key splits (the head streams
+    # through in slices, so any split fits), one ring stage past one wave of
+    # the card; the forced simt takes d <= 256 in one pass and wider heads
+    # in column chunks of 256; no head is narrower than 1
     assert A.plan(8, 256, 64, torch.float32).variant == "tf32x3"
-    for args in ((8, 256, 64, torch.float32, "simt"), (8, 256, 160, torch.bfloat16),
-                 (2, 64, 256, torch.bfloat16), (2, 64, 256, torch.float32)):
+    for args in ((8, 256, 64, torch.float32, "simt"), (8, 256, 160, torch.bfloat16, "simt"),
+                 (2, 64, 256, torch.bfloat16, "simt"), (2, 64, 256, torch.float32, "simt")):
         assert A.plan(*args).variant == "simt" and A.plan(*args).chunks == 1
-    assert A.plan(2, 64, 256, torch.float32).key_tile == 16
+    assert A.plan(8, 256, 160, torch.bfloat16) == A.Plan("mma", 4, 4, 64, 160, (16, 8), 2, 1,
+                                                         128)
+    assert A.plan(2, 64, 256, torch.bfloat16) == A.Plan("mma", 4, 1, 64, 256, (1, 2), 2, 2, 128)
+    assert A.plan(2, 64, 256, torch.float32) == A.Plan("tf32x3", 4, 2, 32, 256, (2, 2), 2, 2,
+                                                       128)
+    assert A.plan(2, 64, 256, torch.float32, "simt").key_tile == 16
     assert A.plan(8, 256, 64, torch.bfloat16, "simt").grid == (4, 8)
-    assert A.plan(2, 64, 257, torch.bfloat16) == A.Plan("simt", 8, 1, 16, 512, (1, 2), 2)
+    assert A.plan(2, 64, 257, torch.bfloat16, "simt") == A.Plan("simt", 8, 1, 16, 512, (1, 2), 2)
     with pytest.raises(ValueError, match="head width"):
         A.plan(2, 64, 0, torch.bfloat16)
-    # a forced variant that cannot take the shape raises
-    for args in ((8, 256, 64, torch.float32, "mma"), (8, 256, 160, torch.bfloat16, "mma"),
+    # a forced variant that cannot take the dtype raises
+    for args in ((8, 256, 64, torch.float32, "mma"), (8, 256, 160, torch.float32, "mma"),
                  (8, 256, 64, torch.bfloat16, "wgmma")):
         with pytest.raises(ValueError):
             A.plan(*args)
@@ -159,7 +167,7 @@ def head_widths(**arrays):
     for i in range(len(WIDE)):
         out[str(i)] = A.attention(*(torch.from_numpy(arrays[f"{i}_{n}"]) for n in "qkv")).numpy()
     assert A.launches == 0 and set(A.launches_by_variant.values()) == {0}   # no kernel ran
-    # past 256 the CPU runs the plain version too; no head is narrower than 1
+    # past 128 the CPU runs the plain version too; no head is narrower than 1
     wide = torch.from_numpy(np.random.default_rng(5).normal(size=(1, 4, 257)).astype(np.float32))
     for kw in ({}, {"use_kernel": False}):
         assert torch.equal(A.attention(wide, wide, wide, **kw),

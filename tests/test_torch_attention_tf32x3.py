@@ -4,8 +4,9 @@ its arithmetic.
 - `plan` and `backward_plan` on the flagship UNet's fp32 attention calls
   (fp32 is its default compute dtype): three at (8·B, 256, 64) and one at
   (8·B, 64, 64) per forward, at batch 1, 3 (training) and 4 (the batched
-  path), all on `tf32x3`; bf16 keeps `mma`, d > 128 and a forced `simt`
-  take `simt`, and a forced `tf32x3` on bf16 or at d = 160 raises.
+  path), all on `tf32x3`; bf16 keeps `mma`, d > 128 stays on both (in
+  column chunks), a forced `simt` takes `simt`, and a forced `tf32x3` on
+  bf16 raises.
 - The kernels' CPU emulations, `attention_tf32x3_tiled_reference` (forward
   and its lse2) and `attention_backward_tf32x3_tiled_reference`, which split
   each fp32 operand into TF32 hi + lo and add hi·hi, hi·lo, lo·hi per
@@ -117,12 +118,15 @@ def routes():
                      ((2, 100, 128, fp32), {"tile": 64}), ((8, 256, 64, fp32), {"tile": 48})):
         with pytest.raises(ValueError, match="chunk"):
             A.backward_plan(*args, **kw)
-    # d > 128 and the forced simt take simt; a forced tf32x3 it cannot take raises
-    for dt in (fp32, bf16):
-        assert A.plan(8, 256, 160, dt).variant == A.backward_plan(8, 256, 160, dt).variant == "simt"
+    # d > 128 stays on the tensor cores, in column chunks of 128
+    # (tests/test_torch_attention_wide.py); only the forced simt takes simt;
+    # a forced tf32x3 on bf16 (or mma on fp32) raises
+    for dt, own in ((fp32, "tf32x3"), (bf16, "mma")):
+        assert A.plan(8, 256, 160, dt).variant == A.backward_plan(8, 256, 160, dt).variant == own
+        assert A.plan(8, 256, 160, dt).chunks == A.backward_plan(8, 256, 160, dt).chunks == 2
     assert A.plan(8, 256, 64, fp32, "simt").variant == "simt"
     assert A.backward_plan(8, 256, 64, fp32, "simt").variant == "simt"
-    for args in ((8, 256, 64, bf16, "tf32x3"), (8, 256, 160, fp32, "tf32x3"),
+    for args in ((8, 256, 64, bf16, "tf32x3"), (8, 256, 160, bf16, "tf32x3"),
                  (8, 256, 64, fp32, "mma")):
         with pytest.raises(ValueError, match=args[-1]):
             A.plan(*args)

@@ -3,7 +3,7 @@
 variants of its weight-gradient kernel side by side, and checks and times
 the fp32 attention route (`tf32x3`).
 
-    python3 tf32x3_probe.py [--parts route,wgrad_variants,attention,attention_blockings]
+    python3 tf32x3_probe.py [--parts route,wgrad_variants,attention,attention_blockings,wide]
 
 - `route`: at every fp32 conv shape of the flagship UNet whose Cin and Cout
   are multiples of 64 (60 per pass), the forward, the input gradient and the
@@ -30,10 +30,24 @@ the fp32 attention route (`tf32x3`).
   every blocking they take at the flagship's shapes at batch 1 and 3: the
   forward at 1, 2 or 4 key splits in one or two shared-memory stages, the
   backward at chunks of 16, 32 or 64 rows in one or two stages; each
-  checked against the plain version (1e-4) and timed by graph replay.
+  checked against the plain version (1e-4) and timed by graph replay.  Then
+  the kernels past d = 128 (csrc/attention_wide_tf32x3.cu and, in bf16,
+  csrc/attention_wide_mma.cu) at (4, 256, d) for d = 136 to 512
+  and at the other `WIDE_HEADS` shapes of chip_smoke.py: the forward in
+  column chunks of 128 or 256, at 1, 2 or 4 key splits in one or two ring
+  stages, the backward at chunks of 16 or 32 rows in one or two stages
+  (those that fit in shared memory), each checked (`TOL` of chip_smoke.py)
+  and timed, the plan's choice marked.
+- `wide`: the registers and spills of the kernels past d = 128, then
+  chip_smoke.py's phase-3 check of them (`check_attention_wide`: every
+  `WIDE_HEADS` and `WIDE_CHECKED` shape in both dtypes, against the plain
+  versions, bitwise repeats, launch counts, timed beside the forced `simt`
+  kernels and SDPA).
 
-About a minute of command on an H100, the kernels' build included.  Prints
-the card's name and power limit first.
+About a minute of command on an H100 without the wide parts, about four
+with them, the kernels' build included.  Prints the card's name and power
+limit first; `--watchdog S` ends the process with exit code 3 after S
+seconds (default 900).
 """
 from __future__ import annotations
 
@@ -45,6 +59,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(REPO, "diffusion_models_dev_project_tpu_torch", "csrc")
@@ -302,10 +317,97 @@ def attention_blockings(A, CS, torch, gen, lib):
             print(f"backward {(bh, t, d)} x{n}: " + ", ".join(rows), flush=True)
 
 
+WIDE_BLOCKINGS = ([(4, 256, d) for d in (136, 192, 256, 320, 512)]
+                  + [(2, 256, 256), (2, 64, 256), (1, 256, 512), (1, 64, 512), (4, 64, 512),
+                     (4, 1024, 192), (4, 1024, 512), (24, 256, 512), (24, 1024, 256)])
+
+
+def wide_blockings(A, CS, torch, gen, lib):
+    def ok(got, want, dt):
+        return all(CS.rel_err(a, b)[1] <= CS.TOL[dt] for a, b in zip(got, want))
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    for dt in ("float32", "bfloat16"):
+        tdt = getattr(torch, dt)
+        name = "mma" if dt == "bfloat16" else "tf32x3"
+        key_tile = A.MMA_KEY_TILE if dt == "bfloat16" else A.TF32X3_KEY_TILE
+        for bh, t, d in WIDE_BLOCKINGS:
+            q, k, v, g = (torch.randn((bh, t, d), generator=gen, device="cuda").to(tdt)
+                          for _ in range(4))
+            p, bp = A.plan(bh, t, d, tdt), A.backward_plan(bh, t, d, tdt)
+            ref = A.attention_reference(q, k, v)
+            out, lse = torch.empty_like(q), torch.empty((bh, t), device="cuda")
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+            fwd_fn = getattr(lib, f"attention_{name}_wide_forward")
+            rows = []
+            for chunk in (128, 256):
+                for splits in (1, 2, 4):
+                    if splits > -(-t // key_tile):
+                        continue
+                    for stages in (1, 2):
+                        def fwd(splits=splits, stages=stages, chunk=chunk):
+                            return fwd_fn(*ptrs, out.data_ptr(), lse.data_ptr(), bh, t, d,
+                                          A.LOG2E / math.sqrt(d), splits, stages, chunk, stream())
+                        if fwd():
+                            continue              # a blocking past the shared memory
+                        torch.cuda.synchronize()
+                        mark = "*" if (chunk, splits, stages) == (
+                            p.chunk_cols, p.key_splits, p.stages) else ""
+                        rows.append(f"{mark}{chunk}/{splits}/{stages} {CS.time_ms(fwd, 50):.4f}"
+                                    + ("" if ok([out], [ref], dt) else " WRONG"))
+            print(f"wide forward {name} {(bh, t, d)}, chunk columns/splits/stages: "
+                  + ", ".join(rows), flush=True)
+            o, lse = A.attention_with_lse(q, k, v)
+            gref = A.attention_backward_reference(q, k, v, o, g)
+            grads = [torch.empty_like(q) for _ in range(3)]
+            delta = torch.empty(bh * t, device="cuda")
+            bwd_fn = getattr(lib, f"attention_{name}_wide_backward")
+            rows = []
+            for tile in (16, 32):
+                for stages in (1, 2):
+                    def bwd(tile=tile, stages=stages):
+                        return bwd_fn(*ptrs, o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                                      *(x.data_ptr() for x in grads), delta.data_ptr(), bh, t, d,
+                                      A.LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), tile, stages,
+                                      stream())
+                    if bwd():
+                        continue                  # a blocking past the shared memory
+                    torch.cuda.synchronize()
+                    mark = "*" if (tile, stages) == (bp.tile, bp.stages) else ""
+                    rows.append(f"{mark}chunk {tile} stages {stages} {CS.time_ms(bwd, 20):.4f}"
+                                + ("" if ok(grads, gref, dt) else " WRONG"))
+            print(f"wide backward {name} {(bh, t, d)}: " + ", ".join(rows), flush=True)
+
+
+def wide(A, CS, torch, gen, build):
+    section = ""
+    for line in build.build_log.splitlines():
+        if line.startswith("=="):
+            section = line
+        elif "_wide_" in section and ("registers" in line or "spill" in line
+                                      or "entry function" in line):
+            print("  " + line.strip())
+    try:
+        CS.check_attention_wide(gen)
+    except AssertionError as err:            # the blockings below say what would help
+        print(f"check_attention_wide: {err}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parts", default="route,wgrad_variants,attention,attention_blockings")
-    parts = set(ap.parse_args().parts.split(","))
+    ap.add_argument("--parts", default="route,wgrad_variants,attention,attention_blockings,wide")
+    ap.add_argument("--watchdog", type=float, default=900.0,
+                    help="seconds after which the process ends itself (a kernel that never "
+                         "returns), exit code 3")
+    args = ap.parse_args()
+    parts = set(args.parts.split(","))
+    watchdog = threading.Timer(args.watchdog, lambda: (
+        print(f"tf32x3_probe: no end after {args.watchdog:.0f} s; ending the process", flush=True),
+        os._exit(3)))
+    watchdog.daemon = True
+    watchdog.start()
     import torch
 
     if not torch.cuda.is_available():
@@ -328,8 +430,12 @@ def main() -> None:
         wgrad_variants(C, CS, torch, gen, _build)
     if "attention" in parts:
         attention(A, CS, torch, gen, _build)
+    if "wide" in parts:
+        wide(A, CS, torch, gen, _build)
     if "attention_blockings" in parts:
         attention_blockings(A, CS, torch, gen, _build.library())
+        wide_blockings(A, CS, torch, gen, _build.library())
+    watchdog.cancel()
 
 
 if __name__ == "__main__":
